@@ -40,3 +40,8 @@ def run_with_devices(code: str, n: int = 8, timeout: int = 900) -> str:
                        timeout=timeout)
     assert r.returncode == 0, r.stdout + r.stderr
     return r.stdout
+
+
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "gpu: needs a CUDA device; skips where there is none")
