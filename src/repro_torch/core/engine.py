@@ -17,6 +17,12 @@ device and each superstep loops over them:
 
 Host-side planning (:meth:`Engine.plan`, :meth:`Engine.size_caps`,
 :meth:`Engine.load`) is the reference's numpy, unchanged.
+
+For the sharded Phase 3 the reference routes each mate write to the
+shard ``ws // S`` that owns the stub, so its shards are the flat mate cut
+into ``[n, S]``.  Here :func:`stub_shards` does that cut on the
+accumulated mate (pad −1) and on the stub-vertex map (pad vertex 0, the
+reference's ``_pad_sv``).
 """
 from __future__ import annotations
 
@@ -32,6 +38,7 @@ from .phase1 import (BIG, I32, NewEdges, OpenTable, Phase1Caps, TouchTable,
                      _compact, _seg_starts, _valid_first, pair_table_cap,
                      phase1_local)
 from .phase2 import MergeTree, generate_merge_tree
+from .phase3 import shard_width
 
 
 @dataclasses.dataclass(frozen=True)
@@ -54,8 +61,8 @@ class EngineCaps:
     splice_rounds: int = 12
     phase3_rounds: int = 64   # pivot-splice round budget of Phase 3
     static_splice: bool = False
-    p3v_cap: int = 0          # sized for the sharded Phase 3, which this
-                              # port does not have yet; part of the key
+    p3v_cap: int = 0          # sharded Phase 3's per-shard vertex-record
+                              # table width (0 → num_edges)
 
     def phase1(self) -> Phase1Caps:
         return Phase1Caps(
@@ -163,6 +170,17 @@ def stub_vertex(pg: PartitionedGraph) -> np.ndarray:
     return sv
 
 
+def stub_shards(x: torch.Tensor, n: int, fill: int) -> torch.Tensor:
+    """A ``[2E]`` stub array padded with ``fill`` to the sharded Phase 3's
+    ``n·S`` stub space and viewed as ``[n, S]``, ``S = shard_width(E, n)``.
+    The mate pads with −1 (unmated); the stub-vertex map with vertex 0,
+    which Phase 3 never reads for an unmated stub."""
+    total = n * shard_width(x.shape[0] // 2, n)
+    pad = torch.full((total - x.shape[0],), fill, dtype=x.dtype,
+                     device=x.device)
+    return torch.cat([x, pad]).view(n, -1)
+
+
 def _route(dest: torch.Tensor, mask: torch.Tensor, fields, n: int,
            lane: int):
     """Scatter entries into an [n, lane] send buffer keyed by dest
@@ -211,8 +229,9 @@ def _fit(x: torch.Tensor, cap: int, fill=None):
 
 class Engine:
     """Drives the supersteps of one partitioned graph on one device
-    (counterpart of ``repro.core.engine.DistributedEngine`` with the
-    replicated Phase 3 left to :func:`repro_torch.core.phase3.phase3_device`)."""
+    (counterpart of ``repro.core.engine.DistributedEngine``; Phase 3 is
+    left to the solver, which runs :mod:`repro_torch.core.phase3` on
+    :attr:`RunOut.mate` or on its :func:`stub_shards`)."""
 
     def __init__(self, n_parts: int, caps: EngineCaps, n_levels: int):
         self.n = int(n_parts)
@@ -304,8 +323,8 @@ class Engine:
                 bmax = max(bmax, int(np.bincount(owner[busy]).max()))
         oc = open_cap or max(16, int(2 * ob * slack))
         tc = touch_cap or max(16, int(bmax * 4 * slack))
-        # the reference's sharded Phase 3 vertex-record bound (owned
-        # degree sum per partition); kept so the caps match field for field
+        # the sharded Phase 3's vertex-record bound: the largest degree
+        # sum a partition owns (owner(v) = v mod n)
         owner_v = np.arange(V) % n
         p3v = int(np.bincount(owner_v, weights=deg, minlength=n).max())
         return EngineCaps(

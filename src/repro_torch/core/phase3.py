@@ -1,13 +1,20 @@
 """Phase 3: unroll the pairing structure into the final Euler circuit
-(mirrors the replicated half of ``repro/core/phase3.py``).
+(mirrors ``repro/core/phase3.py``, both its replicated and its sharded
+half).
 
 After all merge levels every stub has a mate and the (sibling ∘ mate)
-permutation's orbit through any stub is the circuit.  The device path
-(:func:`phase3_device`) first merges the cycles left over at pivot
-vertices (:func:`splice_components`: pointer-doubling CC labels, then
-vote-and-rotate rounds), then emits the walk by list ranking
-(:func:`circuit_from_mate`).  The two doubling loops run the CUDA kernels
-K1/K2 of :mod:`repro_torch.kernels.pointer_double`, one launch per round.
+permutation's orbit through any stub is the circuit.  Two device paths
+compute the same circuit, byte for byte:
+
+  * replicated (:func:`phase3_device`, the path for P=1): merge the
+    cycles left over at pivot vertices (:func:`splice_components`:
+    pointer-doubling CC labels, then vote-and-rotate rounds), then emit
+    the walk by list ranking (:func:`circuit_from_mate`).  The doubling
+    loops run the CUDA kernels K1/K2, one launch per round.
+  * sharded (:func:`phase3_sharded`, the default for P>1): the same
+    steps over the ``[n, S]`` stub shards, every remote pointer resolved
+    by rotating table shards around the partition ring.  The doubling
+    loops run K3/K4, one launch per ring step serving all n shards.
 
 Left out against the reference: the TPU VMEM gate
 (``fits_resident_vmem``), the block padding of the tables (only the
@@ -16,18 +23,20 @@ parameters.  The kernel/twin seam is the wrappers' own device rule: on
 CUDA tensors the doubling rounds launch the kernels, on CPU tensors the
 wrappers compute the plain twins of :mod:`repro_torch.kernels.ref`.
 
-The splice ``while_loop`` becomes a Python loop that reads one flag per
+The splice ``while_loop``s become Python loops that read one flag per
 round on the host, with the reference's stop rule.
 """
 from __future__ import annotations
 
 import math
-from typing import Tuple
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
 
-from ..kernels.pointer_double import pointer_double, pointer_double_rank
+from ..kernels.pointer_double import (pointer_double, pointer_double_rank,
+                                      pointer_double_rank_shard,
+                                      pointer_double_shard)
 from .phase1 import (BIG, I32, _seg_starts, lexsort2, segment_min,
                      segment_sum)
 
@@ -232,4 +241,370 @@ def phase3_device(mate: torch.Tensor, stub_vertex: torch.Tensor,
     mate2, ok = splice_components(mate, stub_vertex, valid,
                                   rounds=splice_rounds)
     circuit = circuit_from_mate(mate2, first_valid(valid))
+    return circuit, mate2, ok
+
+
+# ---------------------------------------------------------------------------
+# sharded Phase 3: CC + splice + rank over stub shards
+# ---------------------------------------------------------------------------
+#
+# The reference runs this per mesh device on its [S] slice of the stub
+# space, global ids [me·S, me·S + S), S = shard_width(E, n) ≈ 2E/n.  On one
+# device every per-device array becomes a row of an [n, ...] tensor:
+#
+#   * ``axis_index`` → ``arange(n)`` (``me``, one per row);
+#   * a ``ppermute`` along the ring i → i+1 → :func:`_ring`, a roll of the
+#     row dimension, kept explicit so a multi-device engine can swap it
+#     for point-to-point sends;
+#   * ``psum`` → a sum over the rows; the tiled ``all_gather`` → a reshape;
+#   * per-device scalars (``cnt``, ``of_t``, ``start``) → [n] tensors.
+#
+# Each ring loop processes all n rows at once per step.  Masked rows of a
+# scatter go to a pad slot of their row (``set``, one value) or to
+# distinct spill slots (``min``), as in Phase 1, so nothing queues atomics
+# on one address.  Byte-identity with the replicated path holds as in the
+# reference: the doubling loops run at least as many rounds on the same
+# snapshots, and each splice round re-runs the replicated path's per-
+# vertex logic on the records its vertex owner holds.
+
+def shard_width(num_edges: int, n_parts: int) -> int:
+    """Per-shard stub width of the sharded Phase 3: the smallest EVEN S
+    with n·S ≥ 2E, so a stub's sibling s^1 is always on its shard.
+
+    >>> shard_width(128, 8), shard_width(100, 8), shard_width(3, 4)
+    (32, 26, 2)
+    """
+    return max(2, 2 * math.ceil(num_edges / max(1, n_parts)))
+
+
+def sharded_phase3_schedule(num_edges: int, n_parts: int,
+                            gather_circuit: bool = True) -> dict:
+    """The reference's static collective schedule of the sharded Phase 3,
+    counted as its traced eqns (each ring loop traces one ``ppermute``
+    and runs it ``n_parts`` times): one table ring per CC round, 6 rings
+    and 1 ``psum`` per splice round (traced once), a ring-min and a
+    ``psum`` for the halt stub, one table ring per rank round, and the
+    emission's ``all_gather`` unless ``gather_circuit=False``.  On one
+    device each ring step is a roll, each ``psum`` a row sum and the
+    ``all_gather`` a reshape; the doubling rings are also the K3/K4
+    launches, ``doubling_rounds × n_parts`` per loop."""
+    S = shard_width(num_edges, n_parts)
+    total = n_parts * S
+    rounds = _doubling_rounds(total)
+    return {
+        "shard_width": S,
+        "stub_space": total,
+        "doubling_rounds": rounds,
+        "splice_rings": 6,
+        "ppermute": 2 * rounds + 6 + 1,
+        "psum": 2,
+        "all_gather": 1 if gather_circuit else 0,
+    }
+
+
+def _ring(x: torch.Tensor, dim: int = 0) -> torch.Tensor:
+    """One ``ppermute`` step along the ring i → i+1: row i receives row
+    i−1's value."""
+    return torch.roll(x, shifts=1, dims=dim)
+
+
+def _shard_ids(n: int, S: int, dev):
+    """``(me [n], gid [n, S])``: each row's shard index and global ids."""
+    me = torch.arange(n, dtype=I32, device=dev)
+    return me, torch.arange(n * S, dtype=I32, device=dev).view(n, S)
+
+
+def _ring_bases(me: torch.Tensor, k: int, S: int) -> torch.Tensor:
+    """[n] global offset of the table slice row r holds at ring step k."""
+    n = me.shape[0]
+    return ((me - k) % n) * S
+
+
+def _rows(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """Per-row gather ``x[r, idx[r, j]]`` (``x[idx]`` on each device)."""
+    return x.gather(1, idx.to(torch.int64))
+
+
+def _doubling_sharded(kernel, q, carries, tables, me, S: int):
+    """One doubling round's table rotation: ``n`` ring steps of the shard
+    kernel, each answering the queries the visiting slices own.  The
+    answers ping-pong two buffer sets (a step reads step k−1 only); the
+    starting ``carries`` are read, never written."""
+    bufs = [tuple(torch.empty_like(a) for a in carries) for _ in range(2)]
+    cur = carries
+    for k in range(me.shape[0]):
+        if k:
+            tables = _ring(tables, 1)
+        cur = kernel(q, *cur, _ring_bases(me, k, S), *tables, s_real=S,
+                     out=bufs[k % 2])
+    return cur
+
+
+def _cc_labels_sharded(mate_sh: torch.Tensor) -> torch.Tensor:
+    """Sharded twin of :func:`_cc_cycle_labels` over ``mate_sh`` [n, S]:
+    min-label propagation by pointer doubling where each round resolves
+    remote pointers with one full ring rotation of the (nxt, lab) table
+    shards (K3, one launch per ring step)."""
+    n, S = mate_sh.shape
+    me, gid = _shard_ids(n, S, mate_sh.device)
+    nxt = torch.where(mate_sh >= 0, mate_sh ^ 1, gid)
+    lab = gid
+    for _ in range(_doubling_rounds(n * S)):
+        a_nxt, a_lab = _doubling_sharded(
+            pointer_double_shard, nxt,
+            (nxt, torch.full_like(nxt, BIG)), torch.stack([nxt, lab]), me, S)
+        nxt = a_nxt
+        lab = torch.minimum(lab, a_lab)
+    sib = torch.arange(S, dtype=I32, device=mate_sh.device) ^ 1
+    return torch.minimum(lab, lab[:, sib])
+
+
+def _lexsort3_rows(k1, k2, k3) -> torch.Tensor:
+    """Per-row stable order by ``k1``, then ``k2``, then ``k3`` —
+    ``jnp.lexsort((k3, k2, k1))`` on each device — for non-negative int32
+    keys: a stable sort by the int64 pair (k2, k3), then a stable sort of
+    that order by k1."""
+    order = torch.argsort((k2.to(torch.int64) << 32) | k3.to(torch.int64),
+                          dim=1, stable=True)
+    return order.gather(1, torch.argsort(_rows(k1, order), dim=1,
+                                         stable=True))
+
+
+def _row_segments(vals, seg, width: int, live, reduce):
+    """Per-row ``segment_sum``/``segment_min`` over [n, K] rows with
+    segment ids in [0, width): ``reduce`` on flat ids, back to [n, width]."""
+    n = vals.shape[0]
+    off = (torch.arange(n, dtype=torch.int64, device=vals.device)
+           * width)[:, None]
+    return reduce(vals.reshape(-1), (seg.to(torch.int64) + off).reshape(-1),
+                  n * width, live=live.reshape(-1)).view(n, width)
+
+
+def _first_col(x: torch.Tensor, fill: bool) -> torch.Tensor:
+    return torch.full((x.shape[0], 1), fill, dtype=torch.bool,
+                      device=x.device)
+
+
+def splice_components_sharded(mate_sh: torch.Tensor, sv_sh: torch.Tensor,
+                              p3v_cap: int, rounds: int = 64,
+                              lab: Optional[torch.Tensor] = None
+                              ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Sharded twin of :func:`splice_components` over ``mate_sh`` and
+    ``sv_sh`` [n, S].
+
+    Per round: canonical (stub, vertex, comp, mate) records ring-ship to
+    their vertex owner (owner(v) = v mod n) into a [p3v_cap] table per
+    row, where the replicated path's per-vertex rep/vote/rotate logic
+    runs on the locally sorted records; mate rotations and component
+    relabels ring back to the stub and label owners.  ``lab`` is
+    :func:`_cc_labels_sharded` of ``mate_sh``, computed here when not
+    given (the solver clocks the two steps apart).  Returns
+    ``(mate_sh', ok)``, ``ok`` a 0-d bool: convergence and no vertex-table
+    overflow (an undersized ``p3v_cap`` fails the solve, never corrupts
+    it)."""
+    n, S = mate_sh.shape
+    P = int(p3v_cap)
+    dev = mate_sh.device
+    me, gid = _shard_ids(n, S, dev)
+    mate_sh = mate_sh.to(I32)
+    sv_sh = sv_sh.to(I32)
+    if lab is None:
+        lab = _cc_labels_sharded(mate_sh)
+    lo = (me * S)[:, None]
+    hi = lo + S
+    me64 = me.to(torch.int64)[:, None]
+    col = torch.arange(P, dtype=I32, device=dev)
+    spill_v = n * S + torch.arange(n * P, dtype=torch.int64,
+                                   device=dev).view(n, P)
+
+    def round_fn(mate, lab):
+        cm = (mate >= 0) & (mate > gid)           # canonical stub per pair
+
+        # ---- ring 1: ship canonical records to their vertex owner ----
+        buf = torch.stack([torch.where(cm, gid, BIG),
+                           torch.where(cm, sv_sh, BIG),
+                           torch.where(cm, lab, BIG),
+                           torch.where(cm, mate, BIG), cm.to(I32)])
+        tbl = torch.full((4, n * (P + 1)), BIG, dtype=I32, device=dev)
+        cnt = torch.zeros(n, dtype=I32, device=dev)
+        of_t = torch.zeros(n, dtype=torch.bool, device=dev)
+        for k in range(n):
+            if k:
+                buf = _ring(buf, 1)
+            bs, bv, bc, bm, bmk = buf
+            take = (bmk > 0) & (bv % n == me[:, None])
+            pos = cnt[:, None] + torch.cumsum(take, dim=1, dtype=I32) - 1
+            okw = take & (pos < P)
+            slot = me64 * (P + 1) + torch.where(okw, pos, P)
+            tbl[:, slot.reshape(-1)] = torch.where(
+                okw, torch.stack([bv, bc, bs, bm]), BIG).reshape(4, -1)
+            cnt = cnt + take.sum(1, dtype=I32)
+            of_t = of_t | (cnt > P)
+        tv, tc, ts, tm = tbl.view(4, n, P + 1)[:, :, :P]
+
+        # ---- local per-vertex logic (the replicated path's) ----
+        order = _lexsort3_rows(tv, tc, ts)
+        gv, gc, gs, gm = (_rows(x, order) for x in (tv, tc, ts, tm))
+        gmk = gv < BIG
+        dup = torch.cat([_first_col(gv, False),
+                         (gv[:, 1:] == gv[:, :-1]) & (gc[:, 1:] == gc[:, :-1])],
+                        dim=1)
+        rep = gmk & ~dup
+        vseg = torch.searchsorted(gv, gv, out_int32=True)
+        n_rep = _row_segments(rep.to(I32), vseg, P, rep, segment_sum)
+        cand = rep & (_rows(n_rep, vseg) >= 2)
+
+        # ---- ring 2: scatter-min votes onto the comp-label owners ----
+        vbuf = torch.stack([torch.where(cand, gc, BIG),
+                            torch.where(cand, gv, BIG), cand.to(I32)])
+        vote = torch.full((n * S + n * P,), BIG, dtype=I32, device=dev)
+        for k in range(n):
+            if k:
+                vbuf = _ring(vbuf, 1)
+            qc, qv, qm = vbuf
+            own = (qm > 0) & (qc >= lo) & (qc < hi)
+            ids = torch.where(own, me64 * S + (qc - lo), spill_v)
+            vote.scatter_reduce_(0, ids.reshape(-1), qv.reshape(-1), "amin")
+        vote = vote[:n * S].view(n, S)
+
+        # ---- ring 3: read each record's comp vote back ----
+        qc = torch.where(gmk, gc, BIG)
+        va = torch.full_like(qc, BIG)
+        for _ in range(n):
+            own = (qc >= lo) & (qc < hi)
+            va = torch.where(own, _rows(vote, torch.where(own, qc - lo, 0)),
+                             va)
+            qc, va = _ring(torch.stack([qc, va]), 1)
+
+        voted = cand & (va == gv)
+        n_take = _row_segments(voted.to(I32), vseg, P, voted, segment_sum)
+        act = voted & (_rows(n_take, vseg) >= 2)
+
+        # circular rotation pairs within each pivot vertex's act group
+        akey = torch.where(act, gv, BIG)
+        o2 = torch.argsort(akey, dim=1, stable=True)
+        hv, hs, hc, hmate = (_rows(x, o2) for x in (akey, gs, gc, gm))
+        hm = act.gather(1, o2)
+        hstart = torch.searchsorted(hv, hv, out_int32=True)
+        hlast = torch.cat([hv[:, 1:] != hv[:, :-1], _first_col(hv, True)],
+                          dim=1)
+        hnxt = torch.where(hlast, hstart, col + 1).clamp(0, P - 1)
+        b = _rows(hmate, hnxt)                     # mate of the next rep
+        minc = _row_segments(hc, hstart, P, hm, segment_min)
+        rot_c = _rows(minc, hstart)
+
+        # ---- ring 4: deliver mate[a_i] ← b_{i+1}, mate[b_{i+1}] ← a_i ----
+        wbuf = torch.stack([torch.where(hm, hs, BIG), torch.where(hm, b, BIG),
+                            hm.to(I32)])
+        mpad = torch.cat([mate, torch.full((n, 1), -1, dtype=I32,
+                                           device=dev)], dim=1).reshape(-1)
+        for k in range(n):
+            if k:
+                wbuf = _ring(wbuf, 1)
+            wa, wb, wm = wbuf
+            own_a = (wm > 0) & (wa >= lo) & (wa < hi)
+            mpad[me64 * (S + 1) + torch.where(own_a, wa - lo, S)] = \
+                torch.where(own_a, wb, -1)
+            own_b = (wm > 0) & (wb >= lo) & (wb < hi)
+            mpad[me64 * (S + 1) + torch.where(own_b, wb - lo, S)] = \
+                torch.where(own_b, wa, -1)
+        mate_new = mpad.view(n, S + 1)[:, :S]
+
+        # ---- ring 5: deliver comp relabels to the label owners ----
+        mbuf = torch.stack([torch.where(hm, hc, BIG),
+                            torch.where(hm, rot_c, BIG), hm.to(I32)])
+        lmap = torch.cat([gid, torch.zeros((n, 1), dtype=I32, device=dev)],
+                         dim=1).reshape(-1)
+        for k in range(n):
+            if k:
+                mbuf = _ring(mbuf, 1)
+            mo, mn, mm = mbuf
+            own = (mm > 0) & (mo >= lo) & (mo < hi)
+            lmap[me64 * (S + 1) + torch.where(own, mo - lo, S)] = \
+                torch.where(own, mn, 0)
+        lmap = lmap.view(n, S + 1)[:, :S]
+
+        # ---- ring 6: every stub reads lmap[lab] from the label owner ----
+        ql, lab_new = lab, lab
+        for _ in range(n):
+            own = (ql >= lo) & (ql < hi)
+            lab_new = torch.where(
+                own, _rows(lmap, torch.where(own, ql - lo, 0)), lab_new)
+            ql, lab_new = _ring(torch.stack([ql, lab_new]), 1)
+
+        return mate_new, lab_new, hm.any(), of_t.any()
+
+    changed = torch.ones((), dtype=torch.bool, device=dev)
+    of = torch.zeros((), dtype=torch.bool, device=dev)
+    left = rounds
+    while left > 0 and bool(changed):              # one host read per round
+        mate_sh, lab, changed, of_r = round_fn(mate_sh, lab)
+        of = of | of_r
+        left -= 1
+    return mate_sh, ~changed & ~of
+
+
+def _rank_sharded(mate_sh: torch.Tensor
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Sharded list ranking: the doubling loop of :func:`circuit_from_mate`
+    over rotating (ptr, dist, reach) table shards (K4, one launch per ring
+    step).  Returns the [n, S] (dist, reach) shards."""
+    n, S = mate_sh.shape
+    me, gid = _shard_ids(n, S, mate_sh.device)
+    valid = mate_sh >= 0
+    nxt = torch.where(valid, mate_sh ^ 1, gid)
+
+    # global start stub = min valid gid, by a ring-min of the row minima
+    acc = rot = torch.where(valid, gid, BIG).amin(dim=1)
+    for _ in range(n):
+        rot = _ring(rot)
+        acc = torch.minimum(acc, rot)
+    # halt stub t = mate[start ^ 1], fetched from its owner by one psum
+    q = (acc ^ 1)[:, None]
+    t = torch.where(gid == q, mate_sh, 0).sum(dim=1).sum().to(I32)
+
+    halt = gid == t
+    ptr = torch.where(halt, gid, nxt)
+    dist = (~halt).to(I32)
+    reach = halt.to(I32)
+    zero = torch.zeros_like(ptr)
+    for _ in range(_doubling_rounds(n * S)):
+        a_ptr, a_dist, a_reach = _doubling_sharded(
+            pointer_double_rank_shard, ptr, (ptr, zero, zero),
+            torch.stack([ptr, dist, reach]), me, S)
+        ptr = a_ptr
+        dist = dist + a_dist
+        reach = torch.maximum(reach, a_reach)
+    return dist, reach
+
+
+def gather_circuit_sharded(mate_sh: torch.Tensor, dist_sh: torch.Tensor,
+                           reach_sh: torch.Tensor, n_stubs: int):
+    """The reference's emission ``all_gather``: the [n, S] shards read as
+    one [n·S] stub space (a reshape on one device), cut to ``n_stubs``
+    and emitted by :func:`emit_circuit`.  Returns ``(circuit [E],
+    mate [n_stubs])``."""
+    mate = mate_sh.reshape(-1)[:n_stubs]
+    return (emit_circuit(mate >= 0, dist_sh.reshape(-1)[:n_stubs],
+                         reach_sh.reshape(-1)[:n_stubs]), mate)
+
+
+def phase3_sharded(mate_sh: torch.Tensor, sv_sh: torch.Tensor,
+                   n_stubs: int, p3v_cap: int, splice_rounds: int = 64,
+                   gather_circuit: bool = True):
+    """Full sharded Phase 3 over the [n, S] stub shards (``mate_sh``
+    padded with −1 past ``n_stubs``, ``sv_sh`` with vertex 0).
+
+    With ``gather_circuit=True`` returns ``(circuit [E], mate [n_stubs],
+    ok)`` exactly like :func:`phase3_device`.  With
+    ``gather_circuit=False`` nothing is gathered: returns the still
+    sharded ``(mate_sh, dist_sh, reach_sh, ok)``, from which the caller
+    emits host-side with :func:`emit_circuit_np`."""
+    mate2_sh, ok = splice_components_sharded(mate_sh, sv_sh, p3v_cap,
+                                             rounds=splice_rounds)
+    dist_sh, reach_sh = _rank_sharded(mate2_sh)
+    if not gather_circuit:
+        return mate2_sh, dist_sh, reach_sh, ok
+    circuit, mate2 = gather_circuit_sharded(mate2_sh, dist_sh, reach_sh,
+                                            n_stubs)
     return circuit, mate2, ok

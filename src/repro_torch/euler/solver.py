@@ -1,20 +1,24 @@
 """`EulerSolver` — the port's entry point (mirrors
 ``repro/euler/solver.py``).
 
-One solve runs the reference's device path with the replicated Phase 3:
+One solve runs the reference's device path:
 
   partition → pad into the pow2 bucket → merge tree → ``size_caps`` →
   ladder caps → ``Engine.load`` → upload → every superstep (mate logs
-  accumulated on the device) → Phase 3 (pivot splice, list-rank
-  emission) → one fetch → the reference's error checks → strip the
-  bucket's dummy edges.
+  accumulated on the device) → Phase 3 → one fetch → the reference's
+  error checks → strip the bucket's dummy edges.
+
+Phase 3 is sharded over the partitions by default when ``n_parts > 1``
+(the CC, splice and rank steps over ``[n, S]`` stub shards, K3/K4) and
+replicated for ``n_parts = 1`` (K1/K2), as in the reference;
+``sharded_phase3`` overrides either way.  ``gather_circuit=False`` (sharded
+only) fetches the rank shards and emits the circuit on the host.
 
 It runs on ``"cuda"`` unless the caller passes ``device="cpu"``; with no
 card it raises instead of falling back.  The paper's two §5 heuristics
-are always on, as in the reference's defaults.  Not ported yet: the
-sharded Phase 3, batching, the host backend, the program LRU, the
-autotuner, the observability hooks and the ``deferred_transfer=False``
-baseline.
+are always on, as in the reference's defaults.  Not ported yet: batching,
+the host backend, the program LRU, the autotuner, the observability hooks
+and the ``deferred_transfer=False`` baseline.
 
     >>> from repro_torch.euler import solve                 # doctest: +SKIP
     >>> res = solve(graph, n_parts=8).validate()            # doctest: +SKIP
@@ -28,10 +32,13 @@ import numpy as np
 import torch
 
 from ..core.engine import (Engine, EngineCaps, drained_clock,
-                           state_from_numpy, stub_vertex)
+                           state_from_numpy, stub_shards, stub_vertex)
 from ..core.graph import Graph, PartitionedGraph, partition_graph
 from ..core.phase2 import MergeTree, generate_merge_tree
-from ..core.phase3 import circuit_from_mate, first_valid, splice_components
+from ..core.phase3 import (_cc_labels_sharded, _rank_sharded,
+                           circuit_from_mate, emit_circuit_np, first_valid,
+                           gather_circuit_sharded, splice_components,
+                           splice_components_sharded)
 from ..graphgen.partition import partition_vertices
 from .bucket import (ceil_pow2, ladder_caps, ladder_levels, ladder_rounds,
                      ladder_waste, pad_graph, round_caps, strip_circuit)
@@ -68,11 +75,26 @@ class EulerSolver:
     (``slack=1.3``, partition seed 0, 64-edge minimum bucket, the cap,
     level and round ladders, waste cap 4), so both packages pad, size and
     solve identically.
+
+    ``sharded_phase3=None`` shards Phase 3 over the partitions when
+    ``n_parts > 1``; ``gather_circuit=False`` (sharded only) leaves the
+    rank shards unreduced on the device and emits on the host.  Both are
+    the reference's options with its defaults.
     """
 
-    def __init__(self, n_parts: int = 1, device=None):
+    def __init__(self, n_parts: int = 1, device=None,
+                 sharded_phase3: Optional[bool] = None,
+                 gather_circuit: bool = True):
         self.n_parts = int(n_parts)
         self.device = resolve_device(device)
+        if sharded_phase3 is None:
+            sharded_phase3 = self.n_parts > 1
+        self.sharded_phase3 = bool(sharded_phase3)
+        self.gather_circuit = bool(gather_circuit)
+        if not self.gather_circuit and not self.sharded_phase3:
+            raise ValueError(
+                "gather_circuit=False requires sharded_phase3 (the "
+                "replicated Phase 3 always materializes the circuit)")
 
     def _partition(self, graph: Graph,
                    part_of_vertex: Optional[np.ndarray]) -> np.ndarray:
@@ -120,10 +142,14 @@ class EulerSolver:
         ``timings`` holds wall seconds per phase, each read after the
         device drained: ``prepare_s`` (host partition, plan, caps, table
         build), ``upload_s``, ``supersteps_s`` and each level's
-        ``superstep_<L>_s``, ``phase3_s`` split into ``splice_s`` and
-        ``emit_s``, ``fetch_s`` and ``total_s``.  Phase 3 is
-        :func:`~repro_torch.core.phase3.phase3_device`'s two steps, run
-        one by one to clock each.
+        ``superstep_<L>_s``, ``phase3_s``, ``fetch_s`` and ``total_s``.
+        ``phase3_s`` splits into ``splice_s`` (CC labels included) and
+        ``emit_s`` on the replicated path, and into ``cc_s``, ``splice_s``,
+        ``rank_s`` and ``emit_s`` on the sharded one, where ``emit_s`` is
+        the gather and emission, or under ``gather_circuit=False`` only
+        the packing of the rank shards; the host emission that follows
+        the fetch is then ``host_emit_s``.  The Phase 3 functions' steps
+        run one by one to clock each.
         """
         dev = self.device
         t0 = time.perf_counter()
@@ -138,16 +164,31 @@ class EulerSolver:
         run = eng.run_levels(state, anc_t, e_cap)
         del state
         t3 = drained_clock(dev)
-        valid = run.mate >= 0
-        mate, ok3 = splice_components(run.mate, sv, valid,
-                                      rounds=caps.phase3_rounds)
-        t3b = drained_clock(dev)
-        circuit = circuit_from_mate(mate, first_valid(valid))
-        t4 = drained_clock(dev)
+        if self.sharded_phase3:
+            circuit, mate, ok3, marks = self._phase3_sharded(
+                run.mate, sv, caps, 2 * e_cap, t3)
+            names = ("cc_s", "splice_s", "rank_s", "emit_s")
+        else:
+            valid = run.mate >= 0
+            mate, ok3 = splice_components(run.mate, sv, valid,
+                                          rounds=caps.phase3_rounds)
+            t3b = drained_clock(dev)
+            circuit = circuit_from_mate(mate, first_valid(valid))
+            marks = (t3, t3b, drained_clock(dev))
+            names = ("splice_s", "emit_s")
+        p3 = {k: b - a for k, a, b in zip(names, marks, marks[1:])}
+        t4 = marks[-1]
         circuit, mate, flags, metrics, ok3 = (
             x.cpu().numpy() for x in (circuit, mate, run.flags, run.metrics,
                                       ok3))
         t5 = time.perf_counter()
+        if not self.gather_circuit:
+            # the rank triple [n·S, 3] came back still sharded; emit
+            # host-side with the device path's ordering (the reference's
+            # PendingRun.wait)
+            packed = circuit[:2 * e_cap]
+            circuit = emit_circuit_np(mate >= 0, packed[:, 1], packed[:, 2])
+            p3["host_emit_s"] = time.perf_counter() - t5
         # the reference's checks on the fetched run (PendingRun.wait)
         if not flags.all():
             raise RuntimeError(
@@ -174,10 +215,38 @@ class EulerSolver:
                      "supersteps_s": t3 - t2,
                      **{f"superstep_{lvl}_s": sec
                         for lvl, sec in enumerate(run.level_s)},
-                     "phase3_s": t4 - t3, "splice_s": t3b - t3,
-                     "emit_s": t4 - t3b, "fetch_s": t5 - t4,
+                     "phase3_s": t4 - t3, **p3, "fetch_s": t5 - t4,
                      "total_s": time.perf_counter() - t0},
         )
+
+    def _phase3_sharded(self, mate: torch.Tensor, sv: torch.Tensor,
+                        caps: EngineCaps, n_stubs: int, t_start: float):
+        """:func:`~repro_torch.core.phase3.phase3_sharded`'s steps on the
+        accumulated mate cut into shards, clocked after each.  Returns
+        ``(circuit, mate, ok, clock marks from t_start)``; under
+        ``gather_circuit=False`` ``circuit`` is the still-sharded rank
+        triple ``[n·S, 3]`` and ``mate`` its first column cut to
+        ``n_stubs``."""
+        dev, n = mate.device, self.n_parts
+        marks = [t_start]
+        mate_sh = stub_shards(mate, n, -1)
+        lab = _cc_labels_sharded(mate_sh)
+        marks.append(drained_clock(dev))
+        mate_sh, ok = splice_components_sharded(
+            mate_sh, stub_shards(sv, n, 0), caps.p3v_cap or n_stubs // 2,
+            rounds=caps.phase3_rounds, lab=lab)
+        marks.append(drained_clock(dev))
+        dist_sh, reach_sh = _rank_sharded(mate_sh)
+        marks.append(drained_clock(dev))
+        if self.gather_circuit:
+            circuit, mate = gather_circuit_sharded(mate_sh, dist_sh,
+                                                   reach_sh, n_stubs)
+        else:
+            circuit = torch.stack([mate_sh, dist_sh, reach_sh],
+                                  dim=-1).reshape(-1, 3)
+            mate = mate_sh.reshape(-1)[:n_stubs]
+        marks.append(drained_clock(dev))
+        return circuit, mate, ok, marks
 
 
 def solve(graph: Graph, part_of_vertex: Optional[np.ndarray] = None,

@@ -1,17 +1,25 @@
-"""Pointer-doubling rounds K1 and K2 as CUDA kernels for Hopper (mirrors
-``repro/kernels/pointer_double.py``, whose Pallas ``pointer_double`` and
-``pointer_double_rank`` they replace).
+"""Pointer-doubling rounds K1–K4 as CUDA kernels for Hopper (mirrors
+``repro/kernels/pointer_double.py``, whose four Pallas kernels they
+replace).
 
   ``pointer_double``       nxt' = nxt[nxt];  lab' = min(lab, lab[nxt])
                            (min-label connected components)
   ``pointer_double_rank``  ptr' = ptr[ptr];  dist' = dist + dist[ptr];
                            reach' = max(reach, reach[ptr])
                            (list ranking for circuit emission)
+  ``pointer_double_shard``       one ring step of the sharded CC: queries
+                                 owned by the visiting table slice take
+                                 its (nxt, lab), the rest keep theirs
+  ``pointer_double_rank_shard``  the 3-table (ptr, dist, reach) twin
+
+The shard wrappers take the reference's single-shard form (``q`` [S],
+``base`` [1], tables [T]) or all n query shards at once (``q`` [n, S],
+``base`` [n], tables [n, T]): one launch serves one whole ring step.
 
 The kernels live in ``csrc/pointer_double.cu`` (design and bound in its
 header comment), are built by :mod:`.build` at first use and called
-through ``ctypes``.  Each wrapper checks its tensors (int32, 1-D, one
-length, contiguous, one device, outputs apart from inputs) and then:
+through ``ctypes``.  Each wrapper checks its tensors (int32, shapes,
+contiguous, one device, outputs apart from every other buffer) and then:
 
   * on CPU tensors, computes the plain twin of :mod:`.ref`;
   * on CUDA tensors, launches the kernel on the current stream, or
@@ -29,54 +37,100 @@ from typing import Optional, Sequence, Tuple
 import torch
 
 from . import build
-from .ref import pointer_double_ref, pointer_double_rank_ref
+from .ref import (pointer_double_rank_ref, pointer_double_rank_shard_ref,
+                  pointer_double_ref, pointer_double_shard_ref)
 
 _fns: dict = {}
+#: the C entry points' trailing arguments after the tensor pointers
+_ROUND_ARGS = (ctypes.c_longlong,)                      # n
+_SHARD_ARGS = (ctypes.c_longlong, ctypes.c_longlong,    # rows, cols,
+               ctypes.c_longlong, ctypes.c_int)         # tcols, s_real
+#: gridDim.y holds the shard rows of one launch
+_MAX_ROWS = 65535
 
 
-def _kernel_fn(symbol: str, n_ptrs: int):
+def _kernel_fn(symbol: str, n_ptrs: int, scalars):
     fn = _fns.get(symbol)
     if fn is None:
         fn = getattr(build.load("pointer_double"), symbol)
-        fn.argtypes = [ctypes.c_void_p] * n_ptrs + [ctypes.c_longlong,
-                                                    ctypes.c_void_p]
+        fn.argtypes = ([ctypes.c_void_p] * n_ptrs + list(scalars)
+                       + [ctypes.c_void_p])
         fn.restype = ctypes.c_int
         _fns[symbol] = fn
     return fn
 
 
-def _check(name: str, ins: Sequence[torch.Tensor],
-           outs: Sequence[torch.Tensor]) -> None:
-    n = ins[0].shape
-    dev = ins[0].device
-    for t in (*ins, *outs):
-        if t.dtype != torch.int32:
-            raise TypeError(f"{name}: tensors must be int32, got {t.dtype}")
-        if t.dim() != 1 or t.shape != n:
-            raise ValueError(f"{name}: tensors must all be 1-D of shape "
-                             f"{tuple(n)}, got {tuple(t.shape)}")
-        if t.device != dev:
-            raise ValueError(f"{name}: tensors on {t.device} and {dev}")
-        if not t.is_contiguous():
-            raise ValueError(f"{name}: tensors must be contiguous")
-    nbytes = 4 * ins[0].numel()
+def _check_tensor(name: str, t: torch.Tensor, dev: torch.device) -> None:
+    if t.dtype != torch.int32:
+        raise TypeError(f"{name}: tensors must be int32, got {t.dtype}")
+    if t.device != dev:
+        raise ValueError(f"{name}: tensors on {t.device} and {dev}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name}: tensors must be contiguous")
+
+
+def _check_apart(name: str, ins: Sequence[torch.Tensor],
+                 outs: Sequence[torch.Tensor]) -> None:
+    """Every output overlaps no input and no other output."""
     for o in outs:
         for t in (*ins, *(x for x in outs if x is not o)):
             a, b = o.data_ptr(), t.data_ptr()
-            if nbytes and a < b + nbytes and b < a + nbytes:
+            na, nb = 4 * o.numel(), 4 * t.numel()
+            if na and nb and a < b + nb and b < a + na:
                 raise ValueError(
-                    f"{name}: output overlaps another buffer; round k must "
-                    f"read only round k-1 values, so ping-pong two sets")
+                    f"{name}: output overlaps another buffer; step k must "
+                    f"read only step k-1 values, so ping-pong two sets")
 
 
-def _launch(name: str, symbol: str, ins, outs) -> None:
-    n = ins[0].numel()
-    if n == 0:
-        return
-    fn = _kernel_fn(symbol, len(ins) + len(outs))
-    with torch.cuda.device(ins[0].device):
+def _check(name: str, ins: Sequence[torch.Tensor],
+           outs: Sequence[torch.Tensor]) -> None:
+    n = ins[0].shape
+    for t in (*ins, *outs):
+        _check_tensor(name, t, ins[0].device)
+        if t.dim() != 1 or t.shape != n:
+            raise ValueError(f"{name}: tensors must all be 1-D of shape "
+                             f"{tuple(n)}, got {tuple(t.shape)}")
+    _check_apart(name, ins, outs)
+
+
+def _check_shard(name: str, q: torch.Tensor, carries, base: torch.Tensor,
+                 tables, outs, s_real: int) -> None:
+    """Shapes of a shard ring step: ``q``, carries and outputs all [S] or
+    all [n, S]; ``base`` [1] or [n]; tables all [T] or [n, T] with
+    ``0 ≤ s_real ≤ T`` and T ≥ 1."""
+    for t in (q, *carries, base, *tables, *outs):
+        _check_tensor(name, t, q.device)
+    if q.dim() not in (1, 2):
+        raise ValueError(f"{name}: queries must be [S] or [n, S], got "
+                         f"{tuple(q.shape)}")
+    rows = q.shape[0] if q.dim() == 2 else 1
+    for t in (*carries, *outs):
+        if t.shape != q.shape:
+            raise ValueError(f"{name}: carries and outputs must have the "
+                             f"queries' shape {tuple(q.shape)}, got "
+                             f"{tuple(t.shape)}")
+    if base.shape != (rows,):
+        raise ValueError(f"{name}: base must be [{rows}], got "
+                         f"{tuple(base.shape)}")
+    tshape = tables[0].shape
+    if tables[0].dim() != q.dim() or tshape[:-1] != q.shape[:-1] \
+            or tshape[-1] < 1 or any(t.shape != tshape for t in tables):
+        raise ValueError(f"{name}: tables must all be [T] or [n, T] with "
+                         f"T ≥ 1 and n query rows, got "
+                         f"{[tuple(t.shape) for t in tables]}")
+    if not 0 <= s_real <= tshape[-1]:
+        raise ValueError(f"{name}: s_real={s_real} outside [0, "
+                         f"{tshape[-1]}]")
+    if rows > _MAX_ROWS:
+        raise ValueError(f"{name}: {rows} shard rows, over {_MAX_ROWS}")
+    _check_apart(name, (q, *carries, base, *tables), outs)
+
+
+def _launch(name: str, symbol: str, ptrs, scalars, types) -> None:
+    fn = _kernel_fn(symbol, len(ptrs), types)
+    with torch.cuda.device(ptrs[0].device):
         stream = torch.cuda.current_stream().cuda_stream
-        err = fn(*(t.data_ptr() for t in (*ins, *outs)), n, stream)
+        err = fn(*(t.data_ptr() for t in ptrs), *scalars, stream)
     if err != 0:
         raise RuntimeError(f"{name}: kernel launch failed with CUDA error "
                            f"{err}")
@@ -105,8 +159,9 @@ def pointer_double(nxt: torch.Tensor, lab: torch.Tensor,
         for o, r in zip(out, pointer_double_ref(nxt, lab)):
             o.copy_(r)
         return out
-    _launch("pointer_double", "pd_pointer_double", ins, out)
     if nxt.numel():
+        _launch("pointer_double", "pd_pointer_double", (*ins, *out),
+                (nxt.numel(),), _ROUND_ARGS)
         pointer_double.launches += 1
     return out
 
@@ -131,10 +186,81 @@ def pointer_double_rank(ptr: torch.Tensor, dist: torch.Tensor,
         for o, r in zip(out, pointer_double_rank_ref(ptr, dist, reach)):
             o.copy_(r)
         return out
-    _launch("pointer_double_rank", "pd_pointer_double_rank", ins, out)
     if ptr.numel():
+        _launch("pointer_double_rank", "pd_pointer_double_rank",
+                (*ins, *out), (ptr.numel(),), _ROUND_ARGS)
         pointer_double_rank.launches += 1
     return out
 
 
 pointer_double_rank.launches = 0
+
+
+def _shard_step(name: str, symbol: str, twin, q, carries, base, tables,
+                s_real: int, out):
+    s_real = int(s_real)
+    if out is None:
+        out = tuple(torch.empty_like(a) for a in carries)
+    _check_shard(name, q, carries, base, tables, out, s_real)
+    if not _device_rule(name, q):
+        for o, r in zip(out, twin(q, *carries, base, *tables,
+                                  s_real=s_real)):
+            o.copy_(r)
+        return out, False
+    if q.numel() == 0:
+        return out, False
+    rows = q.shape[0] if q.dim() == 2 else 1
+    _launch(name, symbol, (q, *carries, base, *tables, *out),
+            (rows, q.shape[-1], tables[0].shape[-1], s_real), _SHARD_ARGS)
+    return out, True
+
+
+def pointer_double_shard(q: torch.Tensor, a_nxt: torch.Tensor,
+                         a_lab: torch.Tensor, base: torch.Tensor,
+                         tbl_nxt: torch.Tensor, tbl_lab: torch.Tensor,
+                         s_real: int,
+                         out: Optional[Tuple[torch.Tensor,
+                                             torch.Tensor]] = None
+                         ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One ring step of the sharded CC doubling round (K3).
+
+    ``q``/``a_nxt``/``a_lab`` int32 queries and answers so far, [S] or
+    [n, S]; ``base`` int32 [1] or [n], the visiting slice's global offset
+    per query row; ``tbl_nxt``/``tbl_lab`` [T] or [n, T], the visiting
+    slices (rows ≥ ``s_real`` are padding).  Queries with
+    ``base ≤ q < base + s_real`` take ``tbl[q − base]``, the rest keep
+    their answers.  Returns ``(a_nxt', a_lab')``, written into ``out``
+    when given."""
+    out, launched = _shard_step(
+        "pointer_double_shard", "pd_pointer_double_shard",
+        pointer_double_shard_ref, q, (a_nxt, a_lab), base,
+        (tbl_nxt, tbl_lab), s_real, out)
+    pointer_double_shard.launches += int(launched)
+    return out
+
+
+pointer_double_shard.launches = 0
+
+
+def pointer_double_rank_shard(q: torch.Tensor, a_ptr: torch.Tensor,
+                              a_dist: torch.Tensor, a_reach: torch.Tensor,
+                              base: torch.Tensor, tbl_ptr: torch.Tensor,
+                              tbl_dist: torch.Tensor,
+                              tbl_reach: torch.Tensor, s_real: int,
+                              out: Optional[Tuple[torch.Tensor, torch.Tensor,
+                                                  torch.Tensor]] = None
+                              ) -> Tuple[torch.Tensor, torch.Tensor,
+                                         torch.Tensor]:
+    """One ring step of the sharded list-ranking round (K4): the 3-table
+    ``(ptr, dist, reach)`` twin of :func:`pointer_double_shard`.  The
+    caller combines after the full rotation (``ptr = a_ptr``,
+    ``dist += a_dist``, ``reach = max(reach, a_reach)``)."""
+    out, launched = _shard_step(
+        "pointer_double_rank_shard", "pd_pointer_double_rank_shard",
+        pointer_double_rank_shard_ref, q, (a_ptr, a_dist, a_reach), base,
+        (tbl_ptr, tbl_dist, tbl_reach), s_real, out)
+    pointer_double_rank_shard.launches += int(launched)
+    return out
+
+
+pointer_double_rank_shard.launches = 0

@@ -1,16 +1,19 @@
 """Where one solve's time goes on the card.
 
-    python -m repro_torch.launch.profile --scale 20
+    python -m repro_torch.launch.profile --scale 20               # sharded
+    python -m repro_torch.launch.profile --scale 20 --replicated
 
 Calls :meth:`repro_torch.euler.EulerSolver.solve` on ``cuda`` twice for
 an Eulerian RMAT graph (average degree 5, seed 0, 8 partitions:
-``chip_smoke.py``'s main path).  The first solve runs plain: its
+``chip_smoke.py``'s main path), with the solver's default Phase 3 (the
+sharded one, K3/K4) or, under ``--replicated``, the replicated one
+(K1/K2).  The first solve runs plain: its
 ``timings`` (each phase and each superstep read after the device
 drained) and the peak device memory are printed and the circuit is
 validated.  The second runs under ``torch.profiler``: its timings, the
 device's busy and idle share of the whole solve and of its device phases
 (everything after the host prep), the kernels by total device time, and
-the rows of the port's own kernels K1/K2 by name.
+the rows of the port's own kernels K1–K4 by name.
 
 No file of ``repro/launch`` matches this script: the JAX package timed
 its phases with ``repro.obs`` spans, which the port does not have yet.
@@ -28,7 +31,10 @@ from ..kernels import build
 
 #: device-side kernel name of each of the port's kernels
 OWN_KERNELS = {"pointer_double": "pointer_double_kernel",
-               "pointer_double_rank": "pointer_double_rank_kernel"}
+               "pointer_double_rank": "pointer_double_rank_kernel",
+               "pointer_double_shard": "pointer_double_shard_kernel",
+               "pointer_double_rank_shard":
+                   "pointer_double_rank_shard_kernel"}
 
 
 def _device_us(evt) -> float:
@@ -59,9 +65,13 @@ def main(argv=None) -> int:
     ap.add_argument("--scale", type=int, default=20,
                     help="RMAT scale (average degree 5, seed 0, 8 "
                          "partitions: chip_smoke.py's main path)")
+    ap.add_argument("--replicated", action="store_true",
+                    help="profile the replicated Phase 3 (K1/K2) instead "
+                         "of the default sharded one (K3/K4)")
     args = ap.parse_args(argv)
 
-    solver = EulerSolver(n_parts=8)                   # raises with no card
+    # raises with no card
+    solver = EulerSolver(n_parts=8, sharded_phase3=not args.replicated)
     t = time.perf_counter()
     build.build_all()                                 # set-up, not solve time
     _say("build", s=f"{time.perf_counter() - t:.4f}")
@@ -73,6 +83,7 @@ def main(argv=None) -> int:
     torch.cuda.reset_peak_memory_stats()
     res = solver.solve(g).validate()
     _say("solve", valid=res.valid, supersteps=res.supersteps,
+         sharded_phase3=solver.sharded_phase3,
          peak_gib=f"{torch.cuda.max_memory_allocated() / 2**30:.3f}",
          **_timings(res))
 

@@ -1,6 +1,7 @@
 """K1/K2 pointer-doubling: the port's plain-torch twins against the JAX
 oracles and Pallas kernels (interpret mode), the wrappers' device rule on
-the CPU, and — on a card — the CUDA kernels against the twins.
+the CPU, and — on a card — the CUDA kernels K1–K4 against the twins (the
+K3/K4 CPU cases are in tests/test_torch_phase3_sharded.py).
 
 JAX is imported inside the tests that compare with it, so the ``gpu``
 tests also run on a machine that has a card and no JAX
@@ -124,6 +125,42 @@ def test_cuda_kernel_bit_equal_to_twin(kernel, twin, make, N):
     before = kernel.launches
     got = kernel(*ins)
     want = twin(*ins)
+    torch.cuda.synchronize()
+    assert kernel.launches == before + 1
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+
+
+def shard_step_inputs(rows, S, n_tables, seed):
+    """One seeded ring step in the all-shards form (``rows`` query shards
+    of width ``S``, tables with 16 pad rows past ``s_real = S``), or the
+    single-shard 1-D form for ``rows == 0``."""
+    rng = np.random.default_rng(seed)
+    r = max(rows, 1)
+    shape = (rows, S) if rows else (S,)
+    q = rng.integers(-8, r * S + 8, shape).astype(np.int32)
+    carries = [rng.integers(0, 1 << 30, shape).astype(np.int32)
+               for _ in range(n_tables)]
+    base = (rng.permutation(r) * S).astype(np.int32)
+    tshape = (rows, S + 16) if rows else (S + 16,)
+    tables = [rng.integers(0, 1 << 30, tshape).astype(np.int32)
+              for _ in range(n_tables)]
+    return (q, *carries, base, *tables), S
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kernel,twin,k", [
+    (pd.pointer_double_shard, ref.pointer_double_shard_ref, 2),
+    (pd.pointer_double_rank_shard, ref.pointer_double_rank_shard_ref, 3),
+])
+@pytest.mark.parametrize("rows,S", [(0, 1000), (8, 4096), (8, 1 << 17)])
+def test_cuda_shard_kernel_bit_equal_to_twin(kernel, twin, k, rows, S):
+    if not torch.cuda.is_available():
+        pytest.skip("no CUDA device: the kernel runs only on the card")
+    ins, s_real = shard_step_inputs(rows, S, k, rows * S + k)
+    ins = tuple(torch.from_numpy(x).cuda() for x in ins)
+    before = kernel.launches
+    got = kernel(*ins, s_real=s_real)
+    want = twin(*ins, s_real=s_real)
     torch.cuda.synchronize()
     assert kernel.launches == before + 1
     assert all(torch.equal(a, b) for a, b in zip(got, want))

@@ -3,11 +3,13 @@ device="cpu")`` returns the same circuit and mate as
 ``repro.euler.solve(g, n_parts=P)``, byte for byte, for P ∈ {1, 2, 8} at
 RMAT scales 5–7, and every result validates.
 
-The port runs the replicated Phase 3, so the references do too
-(``sharded_phase3=False``, the reference's default only at P=1); the
-JAX package's own tests/test_sharded_phase3.py holds its sharded default
-byte-identical to it.  The references run in one subprocess with 8
-simulated devices; the port runs here."""
+The port runs its default, the sharded Phase 3 for P>1; the references
+run the replicated one (``sharded_phase3=False``), which the JAX
+package's own tests/test_sharded_phase3.py holds byte-identical to its
+sharded default, so each P>1 case also crosses the two paths.
+tests/test_torch_phase3_sharded.py holds every Phase 3 mode of the port
+against the reference's default.  The references run in one subprocess
+with 8 simulated devices; the port runs here."""
 import dataclasses
 
 import numpy as np
