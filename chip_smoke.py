@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port (``src/repro_torch``) on one GPU.
 
-    python3 chip_smoke.py                 # scale-20 RMAT graph, 8 partitions
+    python3 chip_smoke.py                 # scale-20 RMAT graph, 8 partitions,
+                                          # full-width SmolLM-360M serving
 
 Phases, each printed on its own line; any failure raises and the script
 exits non-zero:
@@ -32,7 +33,38 @@ exits non-zero:
                 and to the numpy list-rank twin of the spliced mate; the
                 replicated solve must launch K1/K2 once per doubling
                 round and K3/K4 never, the sharded one K3/K4 once per
-                ring step of each round (rounds × 8) and K1/K2 never.
+                ring step of each round (rounds × 8) and K1/K2 never;
+  6. k5       — the sorted segment sum against its twin (f32 tolerance
+                1e-5, half types 2e-2, atol ×8) at the GNN aggregation
+                shapes full_graph_sm and ogb_products (seeded sorted ids)
+                in f32, and ogb_products in bf16; kernel, twin and
+                ``torch.segment_reduce`` times beside the byte bound;
+  7. k6       — flash attention against its twin at the serving
+                prefill's shape (B 4, S = T = 4,096, 15 query and 5 KV
+                heads, D 64, bf16, causal), non-causal f32 at D 128, and
+                a ragged S = T = 4,097: f32 within 2e-5, bf16 elementwise
+                within 5e-2 of |want| plus its row's RMS, a limit that a
+                twin dropping one KV tile or mapping the heads wrongly
+                must exceed; kernel, twin and
+                ``scaled_dot_product_attention`` times beside the bound;
+                then the kernel alone at prefill_32k's sequence (B 1,
+                S = T = 32,768);
+  8. lm-parity — the reduced SmolLM-360M config in f32 (batch 2, prompt
+                64, gen 8), one set of seeded weights on ``cuda`` and on
+                ``cpu``: prefill logits within 2e-5, greedy ids equal;
+  9. lm-slice — the LM serving path: ``serve_lm`` on the full SmolLM-360M
+                config (32 layers, d_model 960, bf16, seeded random
+                weights) for 4 requests of 4,096 prompt tokens and 32
+                generated each, every counter set to 0 just before and
+                read just after: K6 once per layer (the prefill), K1–K5
+                never.  The first decode step's logits must match a
+                prefill of the 4,097-token prompt: in bf16 within 0.1
+                when the prefill's attention rounds as the decode's
+                does, and in an f32 copy of the weights, K6 in the
+                prefill, within 1e-4; a widening copy that drops the
+                prompt's last position must fail both.  A profiled prefill and decode step
+                split the device time by kernel; the decode step
+                launches no kernel of the port.
 
 The last three lines are the kernel table as JSON, the ``nvidia-smi``
 line, and ``{"ok": true, "device": {...}}``.
@@ -40,28 +72,42 @@ line, and ``{"ok": true, "device": {...}}``.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import subprocess
 import sys
+import math
 import time
 from pathlib import Path
+from unittest import mock
 
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
 import numpy as np  # noqa: E402
 import torch  # noqa: E402
+import torch.nn.functional as F  # noqa: E402
 
+from repro_torch.configs.base import gnn_shapes, lm_shapes  # noqa: E402
+from repro_torch.configs.registry import get_config  # noqa: E402
 from repro_torch.core import phase3 as p3  # noqa: E402
 from repro_torch.core.phase3 import circuit_from_mate_np  # noqa: E402
 from repro_torch.euler import solve  # noqa: E402
 from repro_torch.euler.bucket import strip_circuit  # noqa: E402
 from repro_torch.graphgen.eulerize import eulerian_rmat  # noqa: E402
 from repro_torch.kernels import build, ref  # noqa: E402
+from repro_torch.kernels import flash_attention as fa  # noqa: E402
 from repro_torch.kernels import pointer_double as pd  # noqa: E402
+from repro_torch.kernels import segment_reduce as sr  # noqa: E402
+from repro_torch.launch.serve import serve_lm  # noqa: E402
+from repro_torch.models import transformer as tr  # noqa: E402
+from repro_torch.models.layers import gqa_attention  # noqa: E402
 
 #: H100 SXM device-memory rate (NVIDIA data sheet), bytes/s.
 HBM_BYTES_PER_S = 3.35e12
+#: H100 SXM dense peaks (NVIDIA data sheet): bf16 on the tensor cores,
+#: f32 on the CUDA cores (K6's f32 path is CUDA-core FMAs), FLOP/s.
+PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
 #: The main path: Eulerian RMAT graph, average degree 5, seed 0, 8
 #: partitions; at scale 20 its stub count is 2 · e_cap = 2 · 4,194,304.
 AVG_DEGREE, SEED, PARTS = 5, 0, 8
@@ -87,7 +133,47 @@ KERNELS = {
         "source": "src/repro_torch/kernels/csrc/pointer_double.cu",
         "replaces": "src/repro/kernels/pointer_double.py:275",
     },
+    "segment_sum_sorted": {
+        "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/segment_reduce.cu",
+        "replaces": "src/repro/kernels/segment_reduce.py:49",
+    },
+    "flash_attention": {
+        "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
+        "replaces": "src/repro/kernels/flash_attention.py:69",
+    },
 }
+#: each kernel's wrapper, whose ``launches`` counts its launches
+WRAPPERS = {
+    **{name: getattr(pd, name) for name in
+       ("pointer_double", "pointer_double_rank", "pointer_double_shard",
+        "pointer_double_rank_shard")},
+    "segment_sum_sorted": sr.segment_sum_sorted,
+    "flash_attention": fa.flash_attention,
+}
+#: the LM slice: 4 requests of 4,096 prompt tokens, 32 generated each
+LM_BATCH, LM_PROMPT, LM_GEN = 4, 4096, 32
+#: K6 in bf16 against its twin, elementwise: |got − want| at most this
+#: times (|want| + the RMS of want's row over D).  The twin rounds its
+#: scores to bf16, as the reference does, and K6 keeps them in f32: an
+#: emulation of the two on the CPU (B 1, S = T = 2,200, D 64) reads 0.026,
+#: 0.025 of it from that rounding.  A plain absolute limit would pass a
+#: kernel wrong by a typical value in late causal rows, whose values are
+#: near 0.03; a twin that drops one KV tile reads about 1 here.
+K6_BF16_TOL = 5e-2
+#: decode against prefill in an f32 copy of the full-width weights
+#: (``allclose``): ten times the 7.6e-6 this comparison reads on the CPU
+#: (32 layers, 256 tokens); the H100 reads 1.6e-5.  In bf16 the decode is
+#: held against a prefill whose attention is the decode's own plain
+#: function, by max abs error.  On the CPU the two agree bit for bit; on
+#: the H100 they read 0.078 (5 bf16 steps of a logit of 2–4, logits up to
+#: 4.7): cuBLAS's products for 4 rows and for 16,388 round differently and
+#: 32 random-weight layers carry that to the logits.  Each check must also
+#: see a planted fault, a widening copy that drops the prompt's last
+#: position (0.15 in f32, 0.16 in bf16 on the H100).
+DECODE_F32_TOL = 1e-4
+DECODE_BF16_TOL = 0.1
 #: the kernels each Phase 3 path runs, by the solver's sharded_phase3
 PATH_KERNELS = {False: ("pointer_double", "pointer_double_rank"),
                 True: ("pointer_double_shard", "pointer_double_rank_shard")}
@@ -270,15 +356,431 @@ def check_shard_kernels(dev, rounds: int, nxt, ptr, halt: int) -> dict:
     return table
 
 
+def reset_counts() -> None:
+    for fn in WRAPPERS.values():
+        fn.launches = 0
+
+
+def read_counts() -> dict:
+    return {name: fn.launches for name, fn in WRAPPERS.items()}
+
+
 def solve_counted(g, **opts):
     """``solve`` on ``cuda`` with every launch counter set to 0 just
     before and read just after; returns ``(result, launches, peak)``."""
-    for name in KERNELS:
-        getattr(pd, name).launches = 0
+    reset_counts()
     torch.cuda.reset_peak_memory_stats()
     res = solve(g, n_parts=PARTS, device="cuda", **opts)
-    launches = {name: getattr(pd, name).launches for name in KERNELS}
+    launches = read_counts()
     return res, launches, torch.cuda.max_memory_allocated()
+
+
+def check_k5(dev) -> dict:
+    """Phase 6: K5 against its twin at two GNN aggregation shapes (f32)
+    and one bf16 case; times beside the byte bound and one
+    ``torch.segment_reduce`` call.  Returns ogb_products' f32 row."""
+    shapes = gnn_shapes()
+    cases = [("full_graph_sm", torch.float32),
+             ("ogb_products", torch.float32),
+             ("ogb_products", torch.bfloat16)]
+    gen = torch.Generator(device=dev).manual_seed(0)
+    row = None
+    for name, dtype in cases:
+        cell = shapes[name]
+        n, d, s = cell.n_edges, cell.d_feat, cell.n_nodes
+        ids = torch.sort(torch.randint(0, s, (n,), generator=gen,
+                                       device=dev)).values.to(torch.int32)
+        values = torch.randn(n, d, generator=gen, device=dev).to(dtype)
+        got = sr.segment_sum_sorted(values, ids, s)
+        want = ref.segment_sum_sorted_ref(values, ids, s)
+        torch.cuda.synchronize()
+        err = float((got.float() - want.float()).abs().max())
+        tol = 1e-5 if dtype == torch.float32 else 2e-2
+        ok = torch.allclose(got.float(), want.float(), rtol=tol,
+                            atol=tol * 8)
+        del got, want
+        iters = 20 if n < 1_000_000 else 5
+        ms = cuda_ms(lambda: sr.segment_sum_sorted(values, ids, s), iters)
+        plain_ms = cuda_ms(lambda: ref.segment_sum_sorted_ref(values, ids, s),
+                           iters)
+        lengths = torch.bincount(ids, minlength=s)
+        library_ms = cuda_ms(lambda: torch.segment_reduce(
+            values, "sum", lengths=lengths, axis=0), iters)
+        es = values.element_size()
+        nbytes = n * d * es + 4 * n + s * d * es
+        bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
+        say("k5", shape=name, n=n, d=d, segments=s,
+            dtype=str(dtype).split(".")[-1], max_abs_err=f"{err:.3e}",
+            allclose=ok, ms=f"{ms:.4f}", plain_ms=f"{plain_ms:.4f}",
+            library_ms=f"{library_ms:.4f}", bound_ms=f"{bound_ms:.4f}",
+            of_bound=f"{bound_ms / ms:.3f}")
+        if not ok:
+            raise AssertionError(f"K5 differs from its twin at {name} "
+                                 f"{dtype}: max abs err {err}")
+        if name == "ogb_products" and dtype == torch.float32:
+            row = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                   "bound_ms": bound_ms, "bound_by": "bytes",
+                   "library_ms": library_ms}
+        del values, ids, lengths
+        torch.cuda.empty_cache()
+    return row
+
+
+def attention_bound(B, S, T, Hq, Hkv, D, causal, dtype):
+    """(ms, "bytes" or "operations"): 4·D operations per visible (query,
+    key) pair and query head against q, k, v read once and o written
+    once."""
+    if causal:   # query i sees keys 0 … i + T − S
+        pairs = sum(min(T, i + T - S + 1) for i in range(S))
+    else:
+        pairs = S * T
+    flops = 4 * B * Hq * D * pairs
+    es = torch.tensor([], dtype=dtype).element_size()
+    nbytes = es * D * B * (2 * S * Hq + 2 * T * Hkv)
+    ops_ms = flops / PEAK_FLOPS[dtype] * 1e3
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    return max(ops_ms, bytes_ms), ("operations" if ops_ms >= bytes_ms
+                                   else "bytes")
+
+
+def scaled_err(got: torch.Tensor, want: torch.Tensor) -> float:
+    """max |got − want| / (|want| + the RMS of want's row over the last
+    axis): the measure ``K6_BF16_TOL`` bounds."""
+    g, w = got.float(), want.float()
+    rms = w.pow(2).mean(-1, keepdim=True).sqrt().clamp_min(1e-30)
+    return float(((g - w).abs() / (w.abs() + rms)).max())
+
+
+def twin_dropping_keys(q, k, v, lo: int, hi: int) -> torch.Tensor:
+    """The causal twin (heads already repeated) with keys ``lo … hi − 1``
+    masked out: what a kernel that skipped one KV tile would return."""
+    S, T, D = q.shape[1], k.shape[1], q.shape[3]
+    scores = torch.einsum("bshd,bthd->bhst", q, k).float() / math.sqrt(D)
+    t = torch.arange(T, device=q.device)
+    seen = t[None, :] <= torch.arange(S, device=q.device)[:, None] + T - S
+    seen &= ((t < lo) | (t >= hi))[None, :]
+    probs = torch.softmax(scores.masked_fill(~seen, -1e30), -1).to(v.dtype)
+    return torch.einsum("bhst,bthd->bshd", probs, v)
+
+
+def k6_planted_faults(q, k, v, got) -> dict:
+    """``scaled_err`` of K6's output ``got`` against the twin of two
+    faulty kernels on the first sequence: one that drops the KV tile of
+    keys 2,048 … 2,111, and one that maps query head h to KV head
+    h mod Hkv instead of h // (Hq/Hkv)."""
+    q, k, v, got = q[:1], k[:1], v[:1], got[:1]
+    rep = q.shape[2] // k.shape[2]
+    kr, vr = k.repeat_interleave(rep, 2), v.repeat_interleave(rep, 2)
+    dropped = scaled_err(got, twin_dropping_keys(q, kr, vr, 2048, 2112))
+    del kr, vr
+    heads = scaled_err(got, ref.flash_attention_ref(
+        q, k.repeat(1, 1, rep, 1), v.repeat(1, 1, rep, 1), causal=True))
+    return {"dropped_tile": dropped, "wrong_heads": heads}
+
+
+def check_k6(dev) -> dict:
+    """Phase 7: K6 against its twin (f32 by ``allclose`` at 2e-5, bf16 by
+    ``scaled_err`` within ``K6_BF16_TOL``, which two planted faults at the
+    serving shape must exceed); times beside the bound and one
+    ``scaled_dot_product_attention`` call; then the kernel alone at
+    prefill_32k's sequence length.  Returns the serving shape's row."""
+    gen = torch.Generator(device=dev).manual_seed(0)
+    cases = [  # (label, B, S, T, Hq, Hkv, D, causal, dtype)
+        ("serving_prefill", LM_BATCH, LM_PROMPT, LM_PROMPT, 15, 5, 64, True,
+         torch.bfloat16),
+        ("noncausal_f32_d128", 1, 2048, 2048, 8, 2, 128, False,
+         torch.float32),
+        ("ragged_4097", 1, LM_PROMPT + 1, LM_PROMPT + 1, 15, 5, 64, True,
+         torch.bfloat16),
+    ]
+    row = None
+    for label, B, S, T, Hq, Hkv, D, causal, dtype in cases:
+        q = torch.randn(B, S, Hq, D, generator=gen, device=dev).to(dtype)
+        k = torch.randn(B, T, Hkv, D, generator=gen, device=dev).to(dtype)
+        v = torch.randn(B, T, Hkv, D, generator=gen, device=dev).to(dtype)
+        rep = Hq // Hkv
+        kr, vr = k.repeat_interleave(rep, 2), v.repeat_interleave(rep, 2)
+        got = fa.flash_attention(q, k, v, causal=causal)
+        want = ref.flash_attention_ref(q, kr, vr, causal=causal)
+        torch.cuda.synchronize()
+        err = float((got.float() - want.float()).abs().max())
+        scaled = scaled_err(got, want)
+        if dtype == torch.float32:
+            ok = torch.allclose(got, want, rtol=2e-5, atol=2e-5)
+        else:
+            ok = scaled <= K6_BF16_TOL
+        del want
+        torch.cuda.empty_cache()
+        faults = (k6_planted_faults(q, k, v, got)
+                  if label == "serving_prefill" else {})
+        del got
+        torch.cuda.empty_cache()
+        ms = cuda_ms(lambda: fa.flash_attention(q, k, v, causal=causal), 10)
+        plain_ms = cuda_ms(lambda: ref.flash_attention_ref(
+            q, kr, vr, causal=causal), 3)
+        qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+        library_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, is_causal=causal, enable_gqa=True), 10)
+        bound_ms, bound_by = attention_bound(B, S, T, Hq, Hkv, D, causal,
+                                             dtype)
+        say("k6", case=label, shape=f"B{B}_S{S}_T{T}_Hq{Hq}_Hkv{Hkv}_D{D}",
+            causal=causal, dtype=str(dtype).split(".")[-1],
+            max_abs_err=f"{err:.3e}", scaled_err=f"{scaled:.3e}",
+            within_tol=ok, ms=f"{ms:.4f}",
+            plain_ms=f"{plain_ms:.4f}", library_ms=f"{library_ms:.4f}",
+            bound_ms=f"{bound_ms:.4f}", bound_by=bound_by,
+            of_bound=f"{bound_ms / ms:.3f}",
+            **{f"planted_{k}_scaled_err": f"{x:.3e}"
+               for k, x in faults.items()})
+        if not ok:
+            raise AssertionError(f"K6 differs from its twin at {label}: "
+                                 f"max abs err {err}, scaled {scaled}")
+        missed = [k for k, x in faults.items() if not x > K6_BF16_TOL]
+        if missed:
+            raise AssertionError(f"the K6 check cannot see the planted "
+                                 f"faults {missed}: {faults}")
+        if label == "serving_prefill":
+            row = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                   "bound_ms": bound_ms, "bound_by": bound_by,
+                   "library_ms": library_ms}
+        del q, k, v, kr, vr, qt, kt, vt
+        torch.cuda.empty_cache()
+    # the kernel alone at prefill_32k's sequence (its twin's scores would
+    # be 64 GB at the cell's batch; one sequence is timed)
+    S = lm_shapes(True)["prefill_32k"].seq_len
+    q = torch.randn(1, S, 15, 64, generator=gen, device=dev).bfloat16()
+    k = torch.randn(1, S, 5, 64, generator=gen, device=dev).bfloat16()
+    v = torch.randn(1, S, 5, 64, generator=gen, device=dev).bfloat16()
+    ms = cuda_ms(lambda: fa.flash_attention(q, k, v, causal=True), 5)
+    bound_ms, bound_by = attention_bound(1, S, S, 15, 5, 64, True,
+                                         torch.bfloat16)
+    say("k6", case="prefill_32k_alone", shape=f"B1_S{S}_T{S}_Hq15_Hkv5_D64",
+        causal=True, dtype="bfloat16", finite=bool(torch.isfinite(
+            fa.flash_attention(q, k, v)).all()),
+        ms=f"{ms:.4f}", bound_ms=f"{bound_ms:.4f}", bound_by=bound_by,
+        of_bound=f"{bound_ms / ms:.3f}")
+    del q, k, v
+    torch.cuda.empty_cache()
+    return row
+
+
+def _to(params, where):
+    """``params`` with every tensor moved or cast by ``.to(where)``."""
+    return {k: ([{n: t.to(where) for n, t in layer.items()} for layer in v]
+                if k == "layers" else v.to(where))
+            for k, v in params.items()}
+
+
+def check_lm_parity(dev) -> None:
+    """Phase 8: the reduced config in f32, one set of seeded weights on
+    ``dev`` and on the CPU: prefill logits within 2e-5, greedy ids
+    equal."""
+    cfg = get_config("smollm-360m", reduced=True).model
+    params = tr.init_lm_params(torch.Generator().manual_seed(0), cfg)
+    on_card = _to(params, dev)
+    prompts = np.random.default_rng(0).integers(
+        0, cfg.vocab, (2, 64)).astype(np.int32)
+    want, _ = tr.prefill_step(params, cfg, torch.from_numpy(prompts))
+    got, _ = tr.prefill_step(on_card, cfg, torch.from_numpy(prompts).to(dev))
+    err = float((got.cpu() - want).abs().max())
+    ok = torch.allclose(got.cpu(), want, rtol=2e-5, atol=2e-5)
+    cpu = serve_lm(cfg, prompts, 8, "cpu", params=params)
+    card = serve_lm(cfg, prompts, 8, dev, params=on_card)
+    same = np.array_equal(cpu.ids, card.ids)
+    say("lm-parity", config=cfg.name, dtype="float32", batch=2, prompt=64,
+        gen=8, logits_max_abs_err=f"{err:.3e}", logits_allclose=ok,
+        greedy_ids_equal=same)
+    if not (ok and same):
+        raise AssertionError("reduced LM differs between cuda and cpu")
+
+
+def _fmt(fields: dict) -> dict:
+    return {k: f"{v:.3f}" if isinstance(v, float) else v
+            for k, v in fields.items()}
+
+
+def _profile_split(fn, top: int = 8) -> dict:
+    """One call of ``fn`` under torch.profiler: its wall milliseconds, the
+    device's busy milliseconds and idle share, the kernel launches, and
+    the busy time by kernel family (K6, matrix products, the rest); the
+    ``top`` kernels by device time are printed.  Only device-side rows are
+    summed: the aten rows repeat their kernels' time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t) * 1e3
+    split = {"flash_attention_ms": 0.0, "matmul_ms": 0.0, "other_ms": 0.0}
+    kernels, rows = 0, []
+    for ev in prof.key_averages():
+        if getattr(ev, "device_type", None) != torch.autograd.DeviceType.CUDA:
+            continue
+        kernels += ev.count
+        us = getattr(ev, "self_device_time_total", None)
+        us = ev.self_cuda_time_total if us is None else us
+        rows.append((us, ev.count, ev.key))
+        name = ev.key.lower()
+        if "flash_bf16_kernel" in name or "flash_f32_kernel" in name:
+            key = "flash_attention_ms"
+        elif any(w in name for w in ("gemm", "xmma", "cutlass", "nvjet")):
+            key = "matmul_ms"
+        else:
+            key = "other_ms"
+        split[key] += us / 1e3
+    busy_ms = sum(split.values())
+    for us, count, key in sorted(rows, reverse=True)[:top]:
+        print(f"[lm-profile] kernel {us / 1e3:9.3f} ms calls={count:5d} "
+              f"{key[:80]}", flush=True)
+    return {"wall_ms": wall_ms, "busy_ms": busy_ms,
+            "idle_share": max(0.0, 1 - busy_ms / wall_ms), "kernels": kernels,
+            **split}
+
+
+def plain_prefill(params, cfg, tokens):
+    """``tr.prefill_step`` with the decode's plain ``gqa_attention``
+    (scores rounded to the model's dtype, as the decode rounds them) in
+    place of K6."""
+    def attention(q, k, v, causal):
+        return gqa_attention(q, k, v, causal=causal)
+
+    with mock.patch.object(tr.ops, "flash_attention_gqa", attention):
+        return tr.prefill_step(params, cfg, tokens)
+
+
+def first_step(params, cfg, cache, first, dev, rows=None):
+    """Logits (f32) of the decode step that feeds ``first`` [B] after a
+    prefill's ``cache`` of P positions, widened to P + 1 with its first
+    ``rows`` positions copied (default all P; fewer plants a faulty
+    widening copy)."""
+    P = cache.k.shape[2]
+    rows = P if rows is None else rows
+    wide = tr.init_kv_cache(cfg, first.shape[0], P + 1, fill=P, device=dev)
+    wide.k[:, :, :rows] = cache.k[:, :, :rows]
+    wide.v[:, :, :rows] = cache.v[:, :, :rows]
+    step, _ = tr.decode_step(params, cfg, wide, first)
+    return step.float()
+
+
+def decode_against_prefill(params, cfg, tokens, first, dev,
+                           prefill=tr.prefill_step):
+    """The first decode step after ``prefill`` of ``tokens`` [B, P] and
+    a ``prefill`` of the P + 1 tokens (prompt and ``first``) at their
+    last position, both f32 logits; and the decode step after a widening
+    copy that drops the prompt's last position (a planted fault)."""
+    _, cache = prefill(params, cfg, tokens)
+    step = first_step(params, cfg, cache, first, dev)
+    fault = first_step(params, cfg, cache, first, dev,
+                       rows=tokens.shape[1] - 1)
+    del cache
+    full, _ = prefill(params, cfg, torch.cat([tokens, first[:, None]], 1))
+    return step, full.float(), fault
+
+
+def check_lm_slice(dev) -> dict:
+    """Phase 9: full-width SmolLM-360M serving through ``serve_lm``,
+    counters set to 0 just before and read just after; then the
+    decode-against-prefill check and a profiled prefill and decode step.
+    Returns the launch counts."""
+    cfg = get_config("smollm-360m").model
+    t = time.perf_counter()
+    params = tr.init_lm_params(torch.Generator(device=dev).manual_seed(0), cfg)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t
+    prompts = np.random.default_rng(0).integers(
+        0, cfg.vocab, (LM_BATCH, LM_PROMPT)).astype(np.int32)
+    # warm-up at the served shape: cuBLAS's first choice of kernels and
+    # the allocator's growth are set-up, not serving time
+    serve_lm(cfg, prompts, 2, dev, params=params)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    res = serve_lm(cfg, prompts, LM_GEN, dev, params=params)
+    counts = read_counts()
+    peak = torch.cuda.max_memory_allocated()
+    say("lm-slice", config=cfg.name, layers=cfg.n_layers,
+        d_model=cfg.d_model, params=cfg.param_count(), dtype="bfloat16",
+        batch=LM_BATCH, prompt=LM_PROMPT, gen=LM_GEN,
+        init_s=f"{init_s:.3f}", prefill_s=f"{res.prefill_s:.4f}",
+        decode_s=f"{res.decode_s:.4f}",
+        decode_tok_s=f"{res.decode_tok_s:.1f}",
+        prefill_tok_s=f"{LM_BATCH * LM_PROMPT / res.prefill_s:.1f}",
+        peak_gib=f"{peak / 2**30:.3f}",
+        ids_shape="x".join(map(str, res.ids.shape)),
+        launches=json.dumps(counts, separators=(",", ":")))
+    # one K6 launch per layer of the prefill: the decode launches none
+    want = {name: 0 for name in KERNELS}
+    want["flash_attention"] = cfg.n_layers
+    if res.ids.shape != (LM_BATCH, LM_GEN) or counts != want:
+        raise AssertionError(f"serving ran {res.ids.shape}, launches "
+                             f"{counts}, expected {want}")
+
+    # the first decode step against a prefill of prompt + first token:
+    # in bf16 with plain attention on both sides (the decode's rounding),
+    # in an f32 copy of the weights with K6 in the prefill, and the bf16
+    # serving path itself (K6 prefill, plain decode) for the record
+    tokens = torch.from_numpy(prompts).to(dev)
+    logits, _ = tr.prefill_step(params, cfg, tokens)
+    first = torch.argmax(logits, -1).to(torch.int32)
+    del logits
+    same_first = np.array_equal(first.cpu().numpy(), res.ids[:, 0])
+    step_p, full_p, fault_p = decode_against_prefill(
+        params, cfg, tokens, first, dev, prefill=plain_prefill)
+    torch.cuda.empty_cache()
+    step_b, full_b, _ = decode_against_prefill(params, cfg, tokens, first,
+                                               dev)
+    cfg32 = dataclasses.replace(cfg, dtype=torch.float32)
+    params32 = _to(params, torch.float32)
+    step_f, full_f, fault_f = decode_against_prefill(params32, cfg32, tokens,
+                                                     first, dev)
+    del params32
+    torch.cuda.empty_cache()
+    err_p = float((step_p - full_p).abs().max())
+    err_f = float((step_f - full_f).abs().max())
+    ok_p = err_p <= DECODE_BF16_TOL
+    ok_f = torch.allclose(step_f, full_f, rtol=DECODE_F32_TOL,
+                          atol=DECODE_F32_TOL)
+    seen_p = float((fault_p - full_p).abs().max()) > DECODE_BF16_TOL
+    seen_f = not torch.allclose(fault_f, full_f, rtol=DECODE_F32_TOL,
+                                atol=DECODE_F32_TOL)
+    say("lm-slice", check="decode_vs_prefill_4097",
+        bf16_plain_max_abs_err=f"{err_p:.3e}", bf16_plain_within_tol=ok_p,
+        f32_max_abs_err=f"{err_f:.3e}", f32_allclose=ok_f,
+        planted_bf16_plain_max_abs_err=
+        f"{float((fault_p - full_p).abs().max()):.3e}",
+        planted_f32_max_abs_err=f"{float((fault_f - full_f).abs().max()):.3e}",
+        planted_faults_seen=seen_p and seen_f,
+        bf16_serving_path_max_abs_err=
+        f"{float((step_b - full_b).abs().max()):.3e}",
+        bf16_vs_f32_prefill_max_abs_err=
+        f"{float((full_b - full_f).abs().max()):.3e}",
+        max_abs_logit=f"{float(full_f.abs().max()):.3f}",
+        first_token_matches_serve=same_first,
+        logits_finite=bool(torch.isfinite(step_b).all()))
+    if not (ok_p and ok_f and same_first):
+        raise AssertionError("first decode step differs from the "
+                             "4,097-token prefill")
+    if not (seen_p and seen_f):
+        raise AssertionError("the decode check cannot see a widening copy "
+                             "that drops the prompt's last position")
+
+    split = _profile_split(lambda: tr.prefill_step(params, cfg, tokens))
+    say("lm-profile", step="prefill", batch=LM_BATCH, prompt=LM_PROMPT,
+        **_fmt(split))
+    big = tr.init_kv_cache(cfg, LM_BATCH, LM_PROMPT + LM_GEN, fill=LM_PROMPT,
+                           device=dev)
+    reset_counts()
+    split = _profile_split(lambda: tr.decode_step(params, cfg, big, first))
+    decode_counts = read_counts()
+    say("lm-profile", step="decode", batch=LM_BATCH,
+        cache=LM_PROMPT + LM_GEN, **_fmt(split),
+        launches=json.dumps(decode_counts, separators=(",", ":")))
+    if any(decode_counts.values()):
+        raise AssertionError(f"a decode step launched {decode_counts}")
+    return counts
 
 
 def main(argv=None) -> int:
@@ -293,6 +795,9 @@ def main(argv=None) -> int:
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
         return 2
     dev = torch.device("cuda")
+    # f32 products in full f32 for the twins (both are PyTorch's default)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
     smi = nvidia_smi()
     say("device", name=torch.cuda.get_device_name(0),
         count=torch.cuda.device_count(), smi=f"'{smi}'",
@@ -364,6 +869,20 @@ def main(argv=None) -> int:
     say("slice", sharded_equals_replicated=same)
     if not same:
         raise AssertionError("sharded and replicated solves differ")
+    del results, res, g
+    torch.cuda.empty_cache()
+
+    # ---- 6–7. K5 and K6 against their twins, timed ----
+    table["segment_sum_sorted"] = check_k5(dev)
+    table["flash_attention"] = check_k6(dev)
+
+    # ---- 8. small LM parity: cuda against cpu ----
+    check_lm_parity(dev)
+
+    # ---- 9. the LM serving path at full width ----
+    counts = check_lm_slice(dev)
+    launches["segment_sum_sorted"] = counts["segment_sum_sorted"]
+    launches["flash_attention"] = counts["flash_attention"]
 
     print(json.dumps({"kernels": [
         {"name": name, **KERNELS[name], "launches": launches[name],

@@ -20,17 +20,20 @@ import shutil
 import subprocess
 import threading
 from pathlib import Path
-from typing import Dict, Iterable, Optional
+from typing import Callable, Dict, Iterable, Optional, Sequence, Tuple
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 #: Every CUDA source of the port, by library name.
-SOURCES = {"pointer_double": "pointer_double.cu"}
+SOURCES = {"pointer_double": "pointer_double.cu",
+           "segment_reduce": "segment_reduce.cu",
+           "flash_attention": "flash_attention.cu"}
 
 _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}
+_fns: Dict[Tuple[str, str], Callable] = {}
 
 
 def nvcc() -> str:
@@ -89,3 +92,31 @@ def load(name: str) -> ctypes.CDLL:
         if lib is None:
             lib = _libs[name] = ctypes.CDLL(str(build_all([name])[name]))
         return lib
+
+
+def function(name: str, symbol: str, argtypes: Sequence) -> Callable:
+    """The C entry point ``symbol`` of library ``name``, its ``argtypes``
+    set and returning ``int`` (a ``cudaError_t``); built and loaded at
+    first use."""
+    with _lock:
+        fn = _fns.get((name, symbol))
+    if fn is None:
+        fn = getattr(load(name), symbol)
+        fn.argtypes = list(argtypes)
+        fn.restype = ctypes.c_int
+        with _lock:
+            _fns[(name, symbol)] = fn
+    return fn
+
+
+def launch(kernel: str, fn: Callable, device: "torch.device", *args) -> None:
+    """Call ``fn(*args, stream)`` on ``device``'s current stream; raises
+    ``RuntimeError`` naming ``kernel`` if the launch returned a CUDA
+    error."""
+    import torch
+
+    with torch.cuda.device(device):
+        err = fn(*args, torch.cuda.current_stream().cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"{kernel}: kernel launch failed with CUDA error "
+                           f"{err}")

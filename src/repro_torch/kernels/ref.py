@@ -1,9 +1,9 @@
-"""Plain-torch twins of the pointer-doubling kernels (mirrors
-``repro/kernels/ref.py``).
+"""Plain-torch twins of every kernel (mirrors ``repro/kernels/ref.py``).
 
 The twins are what a kernel wrapper runs on CPU tensors, and what the
-CUDA kernels are held against bit for bit on the card.  Integer inputs
-only: ``nxt``/``ptr`` entries must lie in ``[0, N)``.
+CUDA kernels are held against on the card: bit for bit for the integer
+pointer-doubling rounds (``nxt``/``ptr`` entries must lie in ``[0, N)``),
+within a float tolerance for the segment sum and attention.
 
 The shard twins take the reference's single-shard form (``q`` [S],
 ``base`` [1], tables [T]) and also the port's all-shards form (``q``
@@ -12,7 +12,22 @@ its own visiting table slice and base.
 """
 from __future__ import annotations
 
+import math
+
 import torch
+
+
+def segment_sum_sorted_ref(values: torch.Tensor, seg_ids: torch.Tensor,
+                           num_segments: int) -> torch.Tensor:
+    """values [N, D], seg_ids [N] int32 sorted ascending; ids outside
+    ``[0, num_segments)`` are dropped (padding).  Sums in f32, like the
+    Pallas kernel, and casts back to the values' dtype."""
+    ok = (seg_ids >= 0) & (seg_ids < num_segments)
+    idx = torch.where(ok, seg_ids, num_segments).to(torch.int64)
+    out = torch.zeros(num_segments + 1, values.shape[1], dtype=torch.float32,
+                      device=values.device)
+    out.index_add_(0, idx, values.to(torch.float32))
+    return out[:num_segments].to(values.dtype)
 
 
 def pointer_double_ref(nxt: torch.Tensor, lab: torch.Tensor):
@@ -57,3 +72,21 @@ def pointer_double_rank_shard_ref(q, a_ptr, a_dist, a_reach, base,
     return (torch.where(own, tbl_ptr.gather(-1, idx), a_ptr),
             torch.where(own, tbl_dist.gather(-1, idx), a_dist),
             torch.where(own, tbl_reach.gather(-1, idx), a_reach))
+
+
+def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        causal: bool = True) -> torch.Tensor:
+    """q [B,S,H,D], k/v [B,T,H,D] (same head count — GQA is handled by the
+    wrapper repeating kv heads).  Causal with S < T treats the queries as
+    the suffix (offset T − S).  Scores in f32, masked with −1e30, softmax
+    probabilities cast to v's dtype before the PV product."""
+    S, D = q.shape[1], q.shape[3]
+    T = k.shape[1]
+    scores = torch.einsum("bshd,bthd->bhst", q, k).to(torch.float32)
+    scores = scores / math.sqrt(D)
+    if causal:
+        mask = (torch.arange(T, device=q.device)[None, :]
+                <= torch.arange(S, device=q.device)[:, None] + (T - S))
+        scores = scores.masked_fill(~mask, -1e30)
+    probs = torch.softmax(scores, dim=-1).to(v.dtype)
+    return torch.einsum("bhst,bthd->bshd", probs, v)

@@ -35,7 +35,28 @@ print(len(names))
     r = subprocess.run([sys.executable, "-c", code], capture_output=True,
                        text=True, env=env, timeout=300)
     assert r.returncode == 0, r.stdout + r.stderr
-    assert int(r.stdout.split()[-1]) >= 15     # every module was imported
+    assert int(r.stdout.split()[-1]) >= 28     # every module was imported
+
+
+@pytest.mark.parametrize("module", ["repro_torch.launch.serve",
+                                    "repro_torch.models.transformer",
+                                    "repro_torch.kernels.ops",
+                                    "repro_torch.configs.registry"])
+def test_serving_slice_imports_with_jax_blocked(module):
+    """The LM serving slice's entry points stand alone, each imported
+    first in a fresh process."""
+    code = f"""
+import importlib, sys
+sys.modules["jax"] = None
+sys.path[:0] = [{str(Path(REPO) / "src")!r}]
+importlib.import_module({module!r})
+bad = sorted(m for m in sys.modules if m == "repro" or m.startswith("repro."))
+assert not bad, bad
+"""
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    r = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                       text=True, env=env, timeout=300)
+    assert r.returncode == 0, r.stdout + r.stderr
 
 
 def _imported_roots(path: Path):
