@@ -39,16 +39,20 @@ exits non-zero:
                 shapes full_graph_sm and ogb_products (seeded sorted ids)
                 in f32, and ogb_products in bf16; kernel, twin and
                 ``torch.segment_reduce`` times beside the byte bound;
-  7. k6       — flash attention against its twin at the serving
-                prefill's shape (B 4, S = T = 4,096, 15 query and 5 KV
-                heads, D 64, bf16, causal), non-causal f32 at D 128, and
-                a ragged S = T = 4,097: f32 within 2e-5, bf16 elementwise
-                within 5e-2 of |want| plus its row's RMS, a limit that a
-                twin dropping one KV tile or mapping the heads wrongly
-                must exceed; kernel, twin and
-                ``scaled_dot_product_attention`` times beside the bound;
-                then the kernel alone at prefill_32k's sequence (B 1,
-                S = T = 32,768);
+  7. k6       — the bf16 instantiations' pipeline stages, tile sizes
+                and dynamic shared memory, then flash attention against
+                its twin at the serving prefill's shape (B 4, S = T =
+                4,096, 15 query and 5 KV heads, D 64, bf16, causal),
+                non-causal f32 at D 128, a ragged S = T = 4,097, causal
+                bf16 at D 128 (B 1, S = T = 4,096, 8/2 heads) and D 32
+                (B 2, S = T = 2,048, 6/2 heads), and a causal suffix
+                across tile edges (S = 1,000 queries over T = 4,097
+                keys): f32 within 2e-5, bf16 elementwise within 5e-2 of
+                |want| plus its row's RMS, a limit that a twin dropping
+                one KV tile or mapping the heads wrongly must exceed;
+                kernel, twin and ``scaled_dot_product_attention`` times
+                beside the bound; then the kernel alone at prefill_32k's
+                sequence (B 1, S = T = 32,768);
   8. lm-parity — the reduced SmolLM-360M config in f32 (batch 2, prompt
                 64, gen 8), one set of seeded weights on ``cuda`` and on
                 ``cpu``: prefill logits within 2e-5, greedy ids equal;
@@ -72,8 +76,10 @@ line, and ``{"ok": true, "device": {...}}``.
 from __future__ import annotations
 
 import argparse
+import ctypes
 import dataclasses
 import json
+import re
 import subprocess
 import sys
 import math
@@ -192,6 +198,20 @@ def nvidia_smi() -> str:
          "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60, check=True)
     return out.stdout.strip().splitlines()[0]
+
+
+def entry_name(line: str) -> str:
+    """The kernel a ``ptxas`` "Compiling entry function" line names, read
+    from its mangled name (a length, the name, then any template
+    argument): ``flash_bf16_kernel<64>``, ``pointer_double_kernel``."""
+    m = re.search(r"(\d+)((?:flash|pointer|segment)\w*)", line)
+    digits, tail = m.groups() if m else ("", "")
+    for i in range(len(digits)):        # the length is a suffix of digits
+        n = int(digits[i:])
+        if tail[:n].endswith("_kernel"):
+            arg = re.match(r"I(?:Li)?(?:\d+(?=_))?(\w+?)E", tail[n:])
+            return f"{tail[:n]}<{arg.group(1)}>" if arg else tail[:n]
+    return line.strip()
 
 
 def cuda_ms(fn, iters: int) -> float:
@@ -492,7 +512,19 @@ def check_k6(dev) -> dict:
          torch.float32),
         ("ragged_4097", 1, LM_PROMPT + 1, LM_PROMPT + 1, 15, 5, 64, True,
          torch.bfloat16),
+        ("causal_d128", 1, 4096, 4096, 8, 2, 128, True, torch.bfloat16),
+        ("causal_d32", 2, 2048, 2048, 6, 2, 32, True, torch.bfloat16),
+        ("suffix_1000_of_4097", 1, 1000, LM_PROMPT + 1, 15, 5, 64, True,
+         torch.bfloat16),
     ]
+    config = build.function("flash_attention", "fa_bf16_config",
+                            (ctypes.c_int, ctypes.POINTER(ctypes.c_int)))
+    for D in fa.HEAD_DIMS:
+        got = (ctypes.c_int * 4)()
+        if config(D, got) != 0:
+            raise AssertionError(f"fa_bf16_config({D}) failed")
+        say("k6", config=f"bf16_D{D}", stages=got[0], block_rows=got[1],
+            block_keys=got[2], dynamic_smem_bytes=got[3])
     row = None
     for label, B, S, T, Hq, Hkv, D, causal, dtype in cases:
         q = torch.randn(B, S, Hq, D, generator=gen, device=dev).to(dtype)
@@ -519,8 +551,13 @@ def check_k6(dev) -> dict:
         plain_ms = cuda_ms(lambda: ref.flash_attention_ref(
             q, kr, vr, causal=causal), 3)
         qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+        # SDPA's is_causal aligns the diagonal top-left; a suffix of the
+        # keys (S < T) needs the mask written out
+        mask = (torch.ones(S, T, dtype=torch.bool, device=dev).tril(T - S)
+                if causal and S != T else None)
         library_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
-            qt, kt, vt, is_causal=causal, enable_gqa=True), 10)
+            qt, kt, vt, attn_mask=mask, is_causal=causal and mask is None,
+            enable_gqa=True), 10)
         bound_ms, bound_by = attention_bound(B, S, T, Hq, Hkv, D, causal,
                                              dtype)
         say("k6", case=label, shape=f"B{B}_S{S}_T{T}_Hq{Hq}_Hkv{Hkv}_D{D}",
@@ -543,7 +580,7 @@ def check_k6(dev) -> dict:
             row = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
                    "bound_ms": bound_ms, "bound_by": bound_by,
                    "library_ms": library_ms}
-        del q, k, v, kr, vr, qt, kt, vt
+        del q, k, v, kr, vr, qt, kt, vt, mask
         torch.cuda.empty_cache()
     # the kernel alone at prefill_32k's sequence (its twin's scores would
     # be 64 GB at the cell's batch; one sequence is timed)
@@ -810,9 +847,12 @@ def main(argv=None) -> int:
     say("build", seconds=f"{time.perf_counter() - t:.2f}",
         libs=",".join(p.name for p in libs.values()))
     for p in libs.values():
+        kernel = None
         for line in p.with_suffix(".log").read_text().splitlines():
-            if "registers" in line or "spill" in line:
-                say("build", ptxas=f"'{line.strip()}'")
+            if "Compiling entry function" in line:
+                kernel = entry_name(line)
+            elif "registers" in line or "spill" in line or "C75" in line:
+                say("build", kernel=kernel, ptxas=f"'{line.strip()}'")
 
     # ---- 3. kernels against their twins at the main path's width ----
     rounds = p3.sharded_phase3_schedule(N_MAIN // 2, PARTS)["doubling_rounds"]

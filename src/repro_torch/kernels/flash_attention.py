@@ -35,7 +35,9 @@ DTYPES = {torch.float32: 0, torch.bfloat16: 2}
 HEAD_DIMS = (32, 64, 128)
 _ARGS = ((ctypes.c_void_p,) * 4 + (ctypes.c_int,) * 8
          + (ctypes.c_void_p,))
-#: the grid's y (heads) and z (batch) limit
+#: the f32 grid's y (heads) and z (batch) limit (the bf16 kernel's grid
+#: puts the batch in y and the query blocks in z, and rejects what is
+#: over)
 _MAX_GRID_YZ = 65535
 
 

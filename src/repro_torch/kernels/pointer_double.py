@@ -40,24 +40,12 @@ from . import build
 from .ref import (pointer_double_rank_ref, pointer_double_rank_shard_ref,
                   pointer_double_ref, pointer_double_shard_ref)
 
-_fns: dict = {}
 #: the C entry points' trailing arguments after the tensor pointers
 _ROUND_ARGS = (ctypes.c_longlong,)                      # n
 _SHARD_ARGS = (ctypes.c_longlong, ctypes.c_longlong,    # rows, cols,
                ctypes.c_longlong, ctypes.c_int)         # tcols, s_real
 #: gridDim.y holds the shard rows of one launch
 _MAX_ROWS = 65535
-
-
-def _kernel_fn(symbol: str, n_ptrs: int, scalars):
-    fn = _fns.get(symbol)
-    if fn is None:
-        fn = getattr(build.load("pointer_double"), symbol)
-        fn.argtypes = ([ctypes.c_void_p] * n_ptrs + list(scalars)
-                       + [ctypes.c_void_p])
-        fn.restype = ctypes.c_int
-        _fns[symbol] = fn
-    return fn
 
 
 def _check_tensor(name: str, t: torch.Tensor, dev: torch.device) -> None:
@@ -126,14 +114,10 @@ def _check_shard(name: str, q: torch.Tensor, carries, base: torch.Tensor,
     _check_apart(name, (q, *carries, base, *tables), outs)
 
 
-def _launch(name: str, symbol: str, ptrs, scalars, types) -> None:
-    fn = _kernel_fn(symbol, len(ptrs), types)
-    with torch.cuda.device(ptrs[0].device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = fn(*(t.data_ptr() for t in ptrs), *scalars, stream)
-    if err != 0:
-        raise RuntimeError(f"{name}: kernel launch failed with CUDA error "
-                           f"{err}")
+def _argtypes(n_ptrs: int, scalars: Tuple) -> Tuple:
+    """A C entry point's argument types: ``n_ptrs`` tensor pointers, the
+    trailing ``scalars``, then the stream."""
+    return (ctypes.c_void_p,) * n_ptrs + scalars + (ctypes.c_void_p,)
 
 
 def _device_rule(name: str, t: torch.Tensor) -> bool:
@@ -160,8 +144,10 @@ def pointer_double(nxt: torch.Tensor, lab: torch.Tensor,
             o.copy_(r)
         return out
     if nxt.numel():
-        _launch("pointer_double", "pd_pointer_double", (*ins, *out),
-                (nxt.numel(),), _ROUND_ARGS)
+        fn = build.function("pointer_double", "pd_pointer_double",
+                            _argtypes(4, _ROUND_ARGS))
+        build.launch("pointer_double", fn, nxt.device,
+                     *(t.data_ptr() for t in (*ins, *out)), nxt.numel())
         pointer_double.launches += 1
     return out
 
@@ -187,8 +173,10 @@ def pointer_double_rank(ptr: torch.Tensor, dist: torch.Tensor,
             o.copy_(r)
         return out
     if ptr.numel():
-        _launch("pointer_double_rank", "pd_pointer_double_rank",
-                (*ins, *out), (ptr.numel(),), _ROUND_ARGS)
+        fn = build.function("pointer_double", "pd_pointer_double_rank",
+                            _argtypes(6, _ROUND_ARGS))
+        build.launch("pointer_double_rank", fn, ptr.device,
+                     *(t.data_ptr() for t in (*ins, *out)), ptr.numel())
         pointer_double_rank.launches += 1
     return out
 
@@ -210,8 +198,11 @@ def _shard_step(name: str, symbol: str, twin, q, carries, base, tables,
     if q.numel() == 0:
         return out, False
     rows = q.shape[0] if q.dim() == 2 else 1
-    _launch(name, symbol, (q, *carries, base, *tables, *out),
-            (rows, q.shape[-1], tables[0].shape[-1], s_real), _SHARD_ARGS)
+    ptrs = (q, *carries, base, *tables, *out)
+    fn = build.function("pointer_double", symbol,
+                        _argtypes(len(ptrs), _SHARD_ARGS))
+    build.launch(name, fn, q.device, *(t.data_ptr() for t in ptrs), rows,
+                 q.shape[-1], tables[0].shape[-1], s_real)
     return out, True
 
 

@@ -231,7 +231,11 @@ def test_cuda_k5_matches_twin(dtype, N, D, S, pad):
     (1, 128, 1, 1, 64, 128), (2, 256, 3, 3, 64, 256),
     (1, 256, 2, 2, 128, 512), (2, 64, 3, 1, 32, 64),
     (1, 97, 6, 2, 64, 203), (2, 4097, 15, 5, 64, 4097),
-    (1, 1, 15, 5, 64, 1), (1, 300, 4, 4, 128, 300)])
+    (1, 1, 15, 5, 64, 1), (1, 300, 4, 4, 128, 300),
+    # the wgmma kernel's edges: one row past a 128-row block, a causal
+    # offset with ragged query and key tiles, GQA 4/1 at D 128, D 32
+    (1, 129, 2, 1, 64, 129), (1, 191, 3, 1, 64, 383),
+    (3, 1024, 4, 1, 128, 1024), (2, 200, 2, 2, 32, 200)])
 def test_cuda_k6_matches_twin(dtype, causal, B, S, Hq, Hkv, D, T):
     dev = _cuda()
     q, k, v = (torch.from_numpy(x).to(dev, TORCH_DT[dtype])
