@@ -113,24 +113,25 @@ def circuit_from_mate(mate: torch.Tensor,
     ``mate`` int32 [2E], ``start_stub`` a 0-d int tensor.  Returns arrival
     stubs in walk order, ``[E]`` int32, padded with -1 where ``mate`` is
     invalid.  The doubling rounds run the K2 kernel
-    (:func:`pointer_double_rank`), ping-ponging two sets of buffers.
+    (:func:`pointer_double_rank`) on packed records ``(ptr, dist, reach,
+    0)``, built once and ping-ponged between two buffers; the ``dist``
+    and ``reach`` columns of the last round go to :func:`emit_circuit`.
     """
     n_stubs = mate.shape[0]
     iota = torch.arange(n_stubs, dtype=I32, device=mate.device)
     valid = mate >= 0
-    nxt = torch.where(valid, mate ^ 1, iota)
-
     t = mate[(start_stub ^ 1).reshape(1)]                # [1], no host sync
-    ptr = nxt.index_put((t,), t)
-    dist = torch.ones(n_stubs, dtype=I32, device=mate.device)
-    dist = dist.index_put((t,), torch.zeros_like(t))
-    reach = torch.zeros(n_stubs, dtype=I32, device=mate.device)
-    reach = reach.index_put((t,), torch.ones_like(t))
-    cur = (ptr, dist, reach)
-    spare = tuple(torch.empty_like(x) for x in cur)
+    # halt node t: self-loop, dist 0, reach 1; the rest (nxt, 1, 0, 0)
+    cur = torch.zeros(n_stubs, 4, dtype=I32, device=mate.device)
+    cur[:, 0] = torch.where(valid, mate ^ 1, iota)
+    cur[:, 1] = 1
+    halt = torch.stack([t, torch.zeros_like(t), torch.ones_like(t),
+                        torch.zeros_like(t)], 1)
+    cur.index_put_((t,), halt)
+    spare = torch.empty_like(cur)
     for _ in range(_doubling_rounds(n_stubs)):
-        cur, spare = pointer_double_rank(*cur, out=spare), cur
-    return emit_circuit(valid, cur[1], cur[2])
+        cur, spare = pointer_double_rank(cur, out=spare), cur
+    return emit_circuit(valid, cur[:, 1], cur[:, 2])
 
 
 def _cc_cycle_labels(mate: torch.Tensor,

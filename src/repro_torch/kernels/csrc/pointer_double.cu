@@ -6,7 +6,8 @@
 //                                                    round)
 //       nxt'[i] = nxt[nxt[i]];  lab'[i] = min(lab[i], lab[nxt[i]])
 //   pd_pointer_double_rank  <- pointer_double_rank  (K2, :152, list-ranking
-//                                                    round)
+//                                                    round, on packed records)
+//       rec[i] = (ptr, dist, reach, 0), one int4 per element:
 //       ptr'[i] = ptr[ptr[i]];  dist'[i] = dist[i] + dist[ptr[i]];
 //       reach'[i] = max(reach[i], reach[ptr[i]])
 //   pd_pointer_double_shard       <- pointer_double_shard       (K3, :220)
@@ -19,39 +20,48 @@
 //       for each of the 2 (K3: nxt, lab) or 3 (K4: ptr, dist, reach)
 //       tables.  The 1-D single-shard form is the case n = 1.
 //
-// All arrays are int32.  K1/K2 take [n] arrays with 0 <= nxt[i], ptr[i] < n
-// (the caller's contract, as in the reference); dist adds with int32
-// wrap-around, like the torch twin.  K3/K4 take any query values: a query
-// outside [base, base + s_real) is simply not owned.
+// All arrays are int32.  K1 takes [n] arrays and K2 [n, 4] records with
+// 0 <= nxt[i], ptr[i] < n (the caller's contract, as in the reference),
+// the records 16-byte aligned; dist adds with int32 wrap-around, like the
+// torch twin.  K3/K4 take any query values: a query outside
+// [base, base + s_real) is simply not owned.
 //
 // Bound: device-memory bytes; almost no arithmetic.  Each launch reads
 // every input once and writes every output once.  K1: 16 bytes per
-// element (two tables in, two out), K2: 24.  K3: 28 (q, two carried
-// answers, two table slices of T = S rows, two outputs), K4: 40.  At the
-// main path's 8,388,608 stubs (n = 8 shards of S = 1,048,576) that is
-// 134, 201, 235 and 336 MB: 0.040, 0.060, 0.070 and 0.100 ms at 3.35 TB/s.
+// element (two tables in, two out), K2: 24 (three in, three out; the
+// record's fourth lane is the layout's cost, not the work's, and is not
+// counted), K3: 28 (q, two carried answers, two table slices of T = S
+// rows, two outputs), K4: 40.  At the main path's 8,388,608 stubs (n = 8
+// shards of S = 1,048,576) that is 134, 201, 235 and 336 MB: 0.040,
+// 0.060, 0.070 and 0.100 ms at 3.35 TB/s.
 //
 // Design.  The Pallas kernels keep the whole jump table (K1/K2) or the
 // visiting table slice (K3/K4) resident in VMEM and tile the queries;
-// Hopper has no store that large (K1/K2's tables are 67 MB and 101 MB at
-// that size, above the 50 MB L2).  So the tables stay in device memory:
-// one thread per element in a grid-stride loop, the queries and the own
-// values read coalesced, the table values at the pointer gathered at
-// random, every output written coalesced.  Enough threads stay resident
-// (256 per block, up to 8 blocks per SM) to keep many independent gathers
-// in flight.  K3/K4 give each query shard its own grid row (blockIdx.y),
-// so a thread reads its shard's base once, and only the owned queries,
-// about 1/n of them, gather: most of each launch is the coalesced stream
-// the bound counts, which is why K3/K4 can come nearer their bound than
-// K1/K2, whose every element gathers a whole 32-byte sector per table.
+// Hopper has no store that large (K1's tables are 67 MB and K2's records
+// 134 MB at that size, above the 50 MB L2).  So the tables stay in device
+// memory: one thread per element in a grid-stride loop, the queries and
+// the own values read coalesced, the table values at the pointer
+// gathered at random, every output written coalesced.  Each random
+// gather fetches a whole 32-byte sector, so K1, gathering 4 bytes from
+// each of two tables, moves about 80 bytes an element where its bound
+// counts 16.  K2 keeps its state as one 16-byte record per element
+// (ptr, dist, reach, 0): a round reads its own record and the record at
+// ptr with one 16-byte load each and writes one record, one random sector
+// an element instead of three, about 64 bytes an element in all where the
+// three-table form moved about 120.  Enough threads stay resident (256
+// per block, up to 8 blocks per SM) to keep many independent gathers in
+// flight.  K3/K4 give each query shard its own grid row (blockIdx.y), so
+// a thread reads its shard's base once, and only the owned queries, about
+// 1/n of them, gather: most of each launch is the coalesced stream the
+// bound counts, which is why K3/K4 come nearer their bound than K1/K2.
 // Round k (K1/K2) and ring step k (K3/K4) must read only the values of
 // step k-1, so inputs and outputs are separate buffers that the caller
 // ping-pongs; an in-place update would race in K1/K2 and, in K3/K4, would
 // move fewer bytes than the bound counts (left for later work).  Nothing
-// is padded: the loop bound masks the ragged edge, and s_real masks a
-// table slice's pad rows.  Each entry point launches on the given stream,
-// allocates nothing, does not synchronise, and returns cudaGetLastError()
-// so the caller can raise on a refused launch.
+// is padded but K2's records: the loop bound masks the ragged edge, and
+// s_real masks a table slice's pad rows.  Each entry point launches on
+// the given stream, allocates nothing, does not synchronise, and returns
+// cudaGetLastError() so the caller can raise on a refused launch.
 
 #include <cuda_runtime.h>
 
@@ -79,23 +89,21 @@ pointer_double_kernel(const int32_t* __restrict__ nxt,
 }
 
 __global__ void __launch_bounds__(kThreads)
-pointer_double_rank_kernel(const int32_t* __restrict__ ptr,
-                           const int32_t* __restrict__ dist,
-                           const int32_t* __restrict__ reach,
-                           int32_t* __restrict__ ptr_out,
-                           int32_t* __restrict__ dist_out,
-                           int32_t* __restrict__ reach_out, int64_t n) {
+pointer_double_rank_kernel(const int4* __restrict__ rec,
+                           int4* __restrict__ rec_out, int64_t n) {
   const int64_t stride = static_cast<int64_t>(gridDim.x) * blockDim.x;
   for (int64_t i = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
        i < n; i += stride) {
-    const int32_t j = ptr[i];
-    const int32_t r_own = reach[i];
-    const int32_t r_far = reach[j];
-    ptr_out[i] = ptr[j];
+    const int4 own = __ldg(rec + i);
+    const int4 far = __ldg(rec + own.x);
+    int4 next;
+    next.x = far.x;
     // unsigned add: int32 wrap-around without signed-overflow UB
-    dist_out[i] = static_cast<int32_t>(static_cast<uint32_t>(dist[i]) +
-                                       static_cast<uint32_t>(dist[j]));
-    reach_out[i] = r_far > r_own ? r_far : r_own;
+    next.y = static_cast<int32_t>(static_cast<uint32_t>(own.y) +
+                                  static_cast<uint32_t>(far.y));
+    next.z = far.z > own.z ? far.z : own.z;
+    next.w = 0;
+    rec_out[i] = next;
   }
 }
 
@@ -207,16 +215,13 @@ extern "C" int pd_pointer_double(const void* nxt, const void* lab,
   return static_cast<int>(cudaGetLastError());
 }
 
-extern "C" int pd_pointer_double_rank(const void* ptr, const void* dist,
-                                      const void* reach, void* ptr_out,
-                                      void* dist_out, void* reach_out,
+// rec and rec_out: n records of 4 int32, 16-byte aligned.
+extern "C" int pd_pointer_double_rank(const void* rec, void* rec_out,
                                       long long n, void* stream) {
   if (n <= 0) return 0;
   pointer_double_rank_kernel<<<grid_for(n), kThreads, 0,
                                static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const int32_t*>(ptr), static_cast<const int32_t*>(dist),
-      static_cast<const int32_t*>(reach), static_cast<int32_t*>(ptr_out),
-      static_cast<int32_t*>(dist_out), static_cast<int32_t*>(reach_out), n);
+      static_cast<const int4*>(rec), static_cast<int4*>(rec_out), n);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -6,7 +6,9 @@ replace).
                            (min-label connected components)
   ``pointer_double_rank``  ptr' = ptr[ptr];  dist' = dist + dist[ptr];
                            reach' = max(reach, reach[ptr])
-                           (list ranking for circuit emission)
+                           (list ranking for circuit emission), on packed
+                           records: int32 [N, 4], row i = (ptr, dist,
+                           reach, 0), so a gather reads one sector
   ``pointer_double_shard``       one ring step of the sharded CC: queries
                                  owned by the visiting table slice take
                                  its (nxt, lab), the rest keep theirs
@@ -37,8 +39,9 @@ from typing import Optional, Sequence, Tuple
 import torch
 
 from . import build
-from .ref import (pointer_double_rank_ref, pointer_double_rank_shard_ref,
-                  pointer_double_ref, pointer_double_shard_ref)
+from .ref import (pointer_double_rank_packed_ref,
+                  pointer_double_rank_shard_ref, pointer_double_ref,
+                  pointer_double_shard_ref)
 
 #: the C entry points' trailing arguments after the tensor pointers
 _ROUND_ARGS = (ctypes.c_longlong,)                      # n
@@ -155,28 +158,36 @@ def pointer_double(nxt: torch.Tensor, lab: torch.Tensor,
 pointer_double.launches = 0
 
 
-def pointer_double_rank(ptr: torch.Tensor, dist: torch.Tensor,
-                        reach: torch.Tensor,
-                        out: Optional[Tuple[torch.Tensor, torch.Tensor,
-                                            torch.Tensor]] = None
-                        ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """One list-ranking doubling round (K2).  ``ptr``/``dist``/``reach``
-    int32 [N] (reach 0/1), ``0 ≤ ptr[i] < N``; halt nodes self-loop with
-    dist 0.  Returns ``(ptr', dist', reach')``, written into ``out`` when
-    given."""
-    ins = (ptr, dist, reach)
+def _check_records(name: str, rec: torch.Tensor, out: torch.Tensor) -> None:
+    """``rec`` and ``out``: int32 [N, 4], contiguous, on one device, apart;
+    on the card also 16-byte aligned (one load a record)."""
+    for t in (rec, out):
+        _check_tensor(name, t, rec.device)
+        if t.dim() != 2 or t.shape[1] != 4 or t.shape != rec.shape:
+            raise ValueError(f"{name}: records must both be [N, 4], got "
+                             f"{tuple(rec.shape)} and {tuple(out.shape)}")
+        if t.device.type == "cuda" and t.data_ptr() % 16:
+            raise ValueError(f"{name}: records must be 16-byte aligned")
+    _check_apart(name, (rec,), (out,))
+
+
+def pointer_double_rank(rec: torch.Tensor,
+                        out: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """One list-ranking doubling round (K2) on packed records.  ``rec``
+    int32 [N, 4], row i = ``(ptr, dist, reach, 0)`` (reach 0/1),
+    ``0 ≤ ptr < N``; halt nodes self-loop with dist 0.  Returns the next
+    round's records, written into ``out`` when given."""
     if out is None:
-        out = tuple(torch.empty_like(t) for t in ins)
-    _check("pointer_double_rank", ins, out)
-    if not _device_rule("pointer_double_rank", ptr):
-        for o, r in zip(out, pointer_double_rank_ref(ptr, dist, reach)):
-            o.copy_(r)
+        out = torch.empty_like(rec)
+    _check_records("pointer_double_rank", rec, out)
+    if not _device_rule("pointer_double_rank", rec):
+        out.copy_(pointer_double_rank_packed_ref(rec))
         return out
-    if ptr.numel():
+    if rec.shape[0]:
         fn = build.function("pointer_double", "pd_pointer_double_rank",
-                            _argtypes(6, _ROUND_ARGS))
-        build.launch("pointer_double_rank", fn, ptr.device,
-                     *(t.data_ptr() for t in (*ins, *out)), ptr.numel())
+                            _argtypes(2, _ROUND_ARGS))
+        build.launch("pointer_double_rank", fn, rec.device, rec.data_ptr(),
+                     out.data_ptr(), rec.shape[0])
         pointer_double_rank.launches += 1
     return out
 

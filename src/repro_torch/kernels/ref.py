@@ -3,7 +3,10 @@
 The twins are what a kernel wrapper runs on CPU tensors, and what the
 CUDA kernels are held against on the card: bit for bit for the integer
 pointer-doubling rounds (``nxt``/``ptr`` entries must lie in ``[0, N)``),
-within a float tolerance for the segment sum and attention.
+within a float tolerance for the segment sum and attention.  K2's kernel
+takes packed records; ``pointer_double_rank_ref`` stays the three-array
+oracle that mirrors the reference, and ``pointer_double_rank_packed_ref``
+is its packed form.
 
 The shard twins take the reference's single-shard form (``q`` [S],
 ``base`` [1], tables [T]) and also the port's all-shards form (``q``
@@ -41,6 +44,17 @@ def pointer_double_rank_ref(ptr: torch.Tensor, dist: torch.Tensor,
     """One list-ranking round: ``dist' = dist + dist[ptr]``;
     ``reach' = max(reach, reach[ptr])``; ``ptr' = ptr[ptr]``."""
     return ptr[ptr], dist + dist[ptr], torch.maximum(reach, reach[ptr])
+
+
+def pointer_double_rank_packed_ref(rec: torch.Tensor) -> torch.Tensor:
+    """K2's twin on packed records: ``rec`` int32 [N, 4], row i =
+    ``(ptr, dist, reach, 0)``; :func:`pointer_double_rank_ref` on the
+    three columns, packed again."""
+    out = torch.zeros_like(rec)
+    for j, col in enumerate(pointer_double_rank_ref(rec[:, 0], rec[:, 1],
+                                                    rec[:, 2])):
+        out[:, j] = col
+    return out
 
 
 def _shard_own(q: torch.Tensor, base: torch.Tensor, s_real: int):

@@ -14,8 +14,12 @@ through ``ctypes``.  The wrapper checks its tensors and then:
   * on CUDA tensors, launches the kernel on the current stream, or
     raises.  No fallback: a failed build or launch is an error.
 
-``segment_sum_sorted.launches`` counts the kernel launches (twin calls do
-not count).  The ids must be sorted; the wrapper does not check it (that
+On the card a call runs one CUDA launch per level of the row-tiled
+reduce-by-key (the tiles, then their carries, until one tile is left);
+the wrapper allocates the carries' workspace with ``torch.empty``.
+``segment_sum_sorted.launches`` counts one per call that launched,
+however many levels it ran (twin calls, and calls with no rows, do not
+count).  The ids must be sorted; the wrapper does not check it (that
 would cost a pass over them), and unsorted ids give wrong sums.
 """
 from __future__ import annotations
@@ -31,7 +35,9 @@ from .ref import segment_sum_sorted_ref
 DTYPES = {torch.float32: 0, torch.float16: 1, torch.bfloat16: 2}
 _ARGS = (ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
          ctypes.c_longlong, ctypes.c_longlong, ctypes.c_longlong,
-         ctypes.c_int, ctypes.c_void_p)
+         ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p)
+_WORK_ARGS = (ctypes.c_longlong, ctypes.c_longlong, ctypes.c_int,
+              ctypes.POINTER(ctypes.c_longlong))
 
 
 def _check(values: torch.Tensor, seg_ids: torch.Tensor,
@@ -68,14 +74,25 @@ def segment_sum_sorted(values: torch.Tensor, seg_ids: torch.Tensor,
         raise ValueError(f"segment_sum_sorted: unsupported device "
                          f"{values.device}")
     n, d = values.shape
+    if n == 0:
+        return torch.zeros(num_segments, d, dtype=values.dtype,
+                           device=values.device)
     out = torch.empty(num_segments, d, dtype=values.dtype,
                       device=values.device)
     if out.numel() == 0:
         return out
+    dtype = DTYPES[values.dtype]
+    work_bytes = ctypes.c_longlong()
+    if build.function("segment_reduce", "sr_workspace_bytes", _WORK_ARGS)(
+            n, d, dtype, ctypes.byref(work_bytes)) != 0:
+        raise RuntimeError(f"segment_sum_sorted: no workspace size for "
+                           f"[{n}, {d}] {values.dtype}")
+    work = torch.empty(work_bytes.value, dtype=torch.uint8,
+                       device=values.device)
     fn = build.function("segment_reduce", "sr_segment_sum_sorted", _ARGS)
     build.launch("segment_sum_sorted", fn, values.device, values.data_ptr(),
                  seg_ids.data_ptr(), out.data_ptr(), n, d, num_segments,
-                 DTYPES[values.dtype])
+                 dtype, work.data_ptr() if work.numel() else None)
     segment_sum_sorted.launches += 1
     return out
 

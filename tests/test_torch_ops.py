@@ -1,6 +1,7 @@
 """K5 (sorted segment sum) and K6 (flash attention): the port's plain-torch
 twins against the JAX oracles (and, for K5, the Pallas kernel in
-interpret mode), ``ops`` against the model's row-blocked attention, the
+interpret mode, also on skewed ids that reach the CUDA kernel's tile
+edges), ``ops`` against the model's row-blocked attention, the
 wrappers' device rule and checks on the CPU, and — on a card — the CUDA
 kernels against the twins.
 
@@ -30,6 +31,33 @@ def seg_inputs(N, D, S, dtype, pad=0, seed=None):
     seg = np.sort(rng.integers(0, S + pad, N)).astype(np.int32)
     vals = rng.normal(size=(N, D)).astype(dtype)
     return vals, seg
+
+
+def skewed_seg_inputs(D, dtype, N=4096, S=300, seed=11):
+    """Sorted ids that reach the CUDA kernel's edges at any tile of 128,
+    256, 512 or 1,024 rows: 8 padding ids below 0 first; segment 0 over
+    rows 8 … 1,535 (many tiles of 128 rows); segments 1 and 2 empty;
+    segment 3 over rows 1,536 … 2,047, so a tile edge falls on each of its
+    two segment edges; then skewed ids ``4 + floor((S − 12)·u²)``, which
+    leave gaps and the last 8 segments empty; 6 ids ≥ S last."""
+    rng = np.random.default_rng(seed)
+    tail = N - 2048 - 6
+    seg = np.concatenate([
+        np.full(5, -3), np.full(3, -1), np.zeros(1528), np.full(512, 3),
+        np.sort(4 + np.floor((S - 12) * rng.random(tail) ** 2)),
+        np.full(6, S + 1)]).astype(np.int32)
+    return rng.normal(size=(N, D)).astype(dtype), seg
+
+
+def long_segment_atol(seg, S, atol):
+    """``atol`` per output row plus 2^-22 per input row of the segment:
+    two f32 sums of n unit-normal terms taken in different orders differ by
+    about 2^-24·n (the rounding of n partial sums up to about √n each), so
+    a segment of 1,528 rows may differ by 1e-4, more than the
+    ``tol · 8`` that covers short ones."""
+    ok = (seg >= 0) & (seg < S)
+    counts = np.bincount(seg[ok], minlength=S).astype(np.float64)
+    return (atol + counts * 2.0 ** -22)[:, None]
 
 
 def as_f32(x):
@@ -84,6 +112,34 @@ def test_k5_twin_with_padding_ids():
                        interpret=True)):
         np.testing.assert_allclose(mine.numpy(), as_f32(want), rtol=1e-5,
                                    atol=1e-5)
+
+
+@pytest.mark.parametrize("D", [16, 128])
+@pytest.mark.parametrize("dtype", [np.float32, np.float16])
+def test_k5_twin_matches_jax_ref_and_pallas_on_skewed_ids(D, dtype):
+    """Padding at both ends, a segment of many tiles, empty segments and
+    tile edges on segment edges (:func:`skewed_seg_inputs`): the twin
+    against the jnp oracle in f32 and the Pallas kernel in interpret
+    mode."""
+    import jax.numpy as jnp
+    from repro.kernels import ref as jref
+    from repro.kernels.segment_reduce import segment_sum_sorted as j_seg
+
+    S = 300
+    vals, seg = skewed_seg_inputs(D, dtype)
+    mine = ref.segment_sum_sorted_ref(torch.from_numpy(vals),
+                                      torch.from_numpy(seg), S)
+    assert mine.dtype == torch.from_numpy(vals).dtype
+    assert not bool(mine[[1, 2, S - 1]].any())
+    tol = 1e-5 if dtype == np.float32 else 2e-2
+    atol = long_segment_atol(seg, S, tol * 8)
+    for want in (jref.segment_sum_sorted_ref(
+                     jnp.asarray(vals.astype(np.float32)), jnp.asarray(seg),
+                     S),
+                 j_seg(jnp.asarray(vals), jnp.asarray(seg), S,
+                       interpret=True)):
+        got, want = as_f32(mine.float()), as_f32(want)
+        assert (np.abs(got - want) <= tol * np.abs(want) + atol).all()
 
 
 def test_k5_twin_drops_negative_ids_and_zeroes_empty_segments():
@@ -222,6 +278,39 @@ def test_cuda_k5_matches_twin(dtype, N, D, S, pad):
     tol = 1e-5 if dtype == "float32" else 2e-2
     torch.testing.assert_close(got.float(), want.float(), rtol=tol,
                                atol=tol * 8)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "float16", "bfloat16"])
+@pytest.mark.parametrize("D,offset", [
+    # row pitch (f32 / half) and the vector the kernel takes
+    (128, 0),    # 512 / 256 B: 16-byte loads
+    (100, 0),    # 400 / 200 B: 16 / 8
+    (50, 0),     # 200 / 100 B: 8 / 4
+    (1433, 0),   # 5,732 / 2,866 B: 4 / 2
+    (128, 1)])   # base one element past 16-byte alignment: 4 / 2
+def test_cuda_k5_skewed_matches_twin(dtype, D, offset):
+    """The row-tiled kernel on :func:`skewed_seg_inputs` against the
+    twin, at every vector width the kernel picks."""
+    dev = _cuda()
+    S = 300
+    vals, seg = skewed_seg_inputs(D, np.float32)
+    flat = torch.empty(vals.size + offset, dtype=TORCH_DT[dtype],
+                       device=dev)
+    v = flat[offset:].view(vals.shape)
+    v.copy_(torch.from_numpy(vals))
+    s = torch.from_numpy(seg).to(dev)
+    before = sr.segment_sum_sorted.launches
+    got = sr.segment_sum_sorted(v, s, S)
+    want = ref.segment_sum_sorted_ref(v.cpu(), s.cpu(), S)
+    torch.cuda.synchronize()
+    assert sr.segment_sum_sorted.launches == before + 1
+    assert got.dtype == v.dtype and got.shape == (S, D)
+    tol = 1e-5 if dtype == "float32" else 2e-2
+    atol = torch.from_numpy(long_segment_atol(seg, S, tol * 8)).float()
+    diff = (got.cpu().float() - want.float()).abs()
+    assert bool((diff <= tol * want.float().abs() + atol).all())
+    assert not bool(got[[1, 2, S - 1]].any())
 
 
 @pytest.mark.gpu
