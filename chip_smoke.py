@@ -19,9 +19,10 @@ exits non-zero:
                 24 rounds of 8 ring steps with rolled tables), ending at
                 the converged labels and ranks of a seeded one-cycle
                 input, then its time from CUDA events beside the twin's
-                and the bound (K2 runs on packed (ptr, dist, reach, 0)
-                records; its packed twin and the three-array oracle are
-                both timed; its bound counts the three tables);
+                and the bound (K1 runs on packed (nxt, lab) records and
+                K2 on packed (ptr, dist, reach, 0) records; the packed
+                twins and the two- and three-array oracles are all
+                timed; K2's bound counts the three tables);
   4. parity   — a scale-8, 2-partition solve on ``cuda`` and on ``cpu``
                 in each Phase 3 mode (sharded, the default; replicated;
                 ``gather_circuit=False``): every circuit and mate
@@ -272,8 +273,8 @@ def _timed_row(name, kernel, twin, ins, outs, kw, one, chained,
 
 
 def _packed(fn):
-    """K2's wrapper or packed twin (one record tensor in, one out) in the
-    tuple form the round loop uses."""
+    """K1's or K2's wrapper or packed twin (one record tensor in, one out)
+    in the tuple form the round loop uses."""
     def run(rec, out=None):
         return (fn(rec) if out is None else fn(rec, out=out[0]),)
     return run
@@ -297,16 +298,17 @@ def check_kernels(dev, rounds: int) -> dict:
     dist[halt] = 0
     reach = torch.zeros(N_MAIN, dtype=torch.int32, device=dev)
     reach[halt] = 1
-    # K2's packed records (ptr, dist, reach, 0)
+    # K1's packed records (nxt, lab) and K2's (ptr, dist, reach, 0)
+    rec1 = torch.stack([nxt, lab], 1)
     rec = torch.stack([ptr, dist, reach, torch.zeros_like(ptr)], 1)
     # after the chained rounds a single cycle labels every stub 0, and a
     # chain reaches its halt from every stub with ranks 0 … N-1; K2's
     # bound counts its three tables (24 bytes an element), not the
     # record's padding lane
     cases = {
-        "pointer_double": (pd.pointer_double, ref.pointer_double_ref,
-                           (nxt, lab),
-                           lambda out: int(out[1].max()) == 0, None),
+        "pointer_double": (_packed(pd.pointer_double),
+                           _packed(ref.pointer_double_packed_ref), (rec1,),
+                           lambda out: int(out[0][:, 1].max()) == 0, None),
         "pointer_double_rank": (_packed(pd.pointer_double_rank),
                                 _packed(ref.pointer_double_rank_packed_ref),
                                 (rec,),
@@ -331,6 +333,9 @@ def check_kernels(dev, rounds: int) -> dict:
                                  f"rounds {chained}")
         outs = tuple(torch.empty_like(x) for x in ins)
         extra = {}
+        if name == "pointer_double":        # the two-array oracle, timed
+            two_ms = cuda_ms(lambda: ref.pointer_double_ref(nxt, lab), 50)
+            extra["plain_two_array_ms"] = f"{two_ms:.4f}"
         if name == "pointer_double_rank":   # the three-array oracle, timed
             three_ms = cuda_ms(
                 lambda: ref.pointer_double_rank_ref(ptr, dist, reach), 50)

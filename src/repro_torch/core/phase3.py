@@ -141,15 +141,17 @@ def _cc_cycle_labels(mate: torch.Tensor,
 
     Each closed cycle splits into two pointer orbits (forward and reverse
     traversal); doubling converges each to its own min, and a final min
-    with the sibling's label merges the two into the cycle id.
+    with the sibling's label merges the two into the cycle id.  The
+    rounds run on packed records ``(nxt, lab)``, built once and
+    ping-ponged between two buffers, as in :func:`circuit_from_mate`.
     """
     n = mate.shape[0]
     iota = torch.arange(n, dtype=I32, device=mate.device)
-    cur = (torch.where(valid, mate ^ 1, iota), iota)
-    spare = (torch.empty_like(iota), torch.empty_like(iota))
+    cur = torch.stack([torch.where(valid, mate ^ 1, iota), iota], 1)
+    spare = torch.empty_like(cur)
     for _ in range(_doubling_rounds(n)):
-        cur, spare = pointer_double(*cur, out=spare), cur
-    lab = cur[1]
+        cur, spare = pointer_double(cur, out=spare), cur
+    lab = cur[:, 1]
     return torch.minimum(lab, lab[iota ^ 1])
 
 

@@ -3,7 +3,8 @@
 // Replaces four Pallas TPU kernels of repro/kernels/pointer_double.py:
 //
 //   pd_pointer_double       <- pointer_double       (K1, :108, min-label CC
-//                                                    round)
+//                                                    round, on packed records)
+//       rec[i] = (nxt, lab), one int2 per element:
 //       nxt'[i] = nxt[nxt[i]];  lab'[i] = min(lab[i], lab[nxt[i]])
 //   pd_pointer_double_rank  <- pointer_double_rank  (K2, :152, list-ranking
 //                                                    round, on packed records)
@@ -20,48 +21,67 @@
 //       for each of the 2 (K3: nxt, lab) or 3 (K4: ptr, dist, reach)
 //       tables.  The 1-D single-shard form is the case n = 1.
 //
-// All arrays are int32.  K1 takes [n] arrays and K2 [n, 4] records with
-// 0 <= nxt[i], ptr[i] < n (the caller's contract, as in the reference),
-// the records 16-byte aligned; dist adds with int32 wrap-around, like the
-// torch twin.  K3/K4 take any query values: a query outside
-// [base, base + s_real) is simply not owned.
+// All values are int32.  K1 takes [n, 2] and K2 [n, 4] records, 8- and
+// 16-byte aligned, with 0 <= nxt[i], ptr[i] < n (the caller's contract, as
+// in the reference); dist adds with int32 wrap-around, like the torch
+// twin.  K3/K4 take any query values: a query outside [base, base +
+// s_real) is simply not owned.
 //
 // Bound: device-memory bytes; almost no arithmetic.  Each launch reads
 // every input once and writes every output once.  K1: 16 bytes per
-// element (two tables in, two out), K2: 24 (three in, three out; the
-// record's fourth lane is the layout's cost, not the work's, and is not
-// counted), K3: 28 (q, two carried answers, two table slices of T = S
-// rows, two outputs), K4: 40.  At the main path's 8,388,608 stubs (n = 8
-// shards of S = 1,048,576) that is 134, 201, 235 and 336 MB: 0.040,
-// 0.060, 0.070 and 0.100 ms at 3.35 TB/s.
+// element (two tables in, two out: the packed record adds no padding),
+// K2: 24 (three in, three out; the record's fourth lane is the layout's
+// cost, not the work's, and is not counted), K3: 28 (q, two carried
+// answers, two table slices of T = S rows, two outputs), K4: 40.  At the
+// main path's 8,388,608 stubs (n = 8 shards of S = 1,048,576) that is
+// 134, 201, 235 and 336 MB: 0.040, 0.060, 0.070 and 0.100 ms at
+// 3.35 TB/s.
 //
 // Design.  The Pallas kernels keep the whole jump table (K1/K2) or the
 // visiting table slice (K3/K4) resident in VMEM and tile the queries;
-// Hopper has no store that large (K1's tables are 67 MB and K2's records
-// 134 MB at that size, above the 50 MB L2).  So the tables stay in device
-// memory: one thread per element in a grid-stride loop, the queries and
-// the own values read coalesced, the table values at the pointer
-// gathered at random, every output written coalesced.  Each random
-// gather fetches a whole 32-byte sector, so K1, gathering 4 bytes from
-// each of two tables, moves about 80 bytes an element where its bound
-// counts 16.  K2 keeps its state as one 16-byte record per element
-// (ptr, dist, reach, 0): a round reads its own record and the record at
-// ptr with one 16-byte load each and writes one record, one random sector
-// an element instead of three, about 64 bytes an element in all where the
-// three-table form moved about 120.  Enough threads stay resident (256
-// per block, up to 8 blocks per SM) to keep many independent gathers in
-// flight.  K3/K4 give each query shard its own grid row (blockIdx.y), so
-// a thread reads its shard's base once, and only the owned queries, about
-// 1/n of them, gather: most of each launch is the coalesced stream the
-// bound counts, which is why K3/K4 come nearer their bound than K1/K2.
-// Round k (K1/K2) and ring step k (K3/K4) must read only the values of
-// step k-1, so inputs and outputs are separate buffers that the caller
-// ping-pongs; an in-place update would race in K1/K2 and, in K3/K4, would
-// move fewer bytes than the bound counts (left for later work).  Nothing
-// is padded but K2's records: the loop bound masks the ragged edge, and
-// s_real masks a table slice's pad rows.  Each entry point launches on
-// the given stream, allocates nothing, does not synchronise, and returns
-// cudaGetLastError() so the caller can raise on a refused launch.
+// Hopper has no store that large (K1's records are 67 MB and K2's 134 MB
+// at that size, above the 50 MB L2).  So the tables stay in device
+// memory: one thread per element in a grid-stride loop, the own record
+// read coalesced, the record at the pointer gathered at random, the
+// result written coalesced.  A random gather fetches a whole 32-byte
+// sector for the 8 or 16 bytes it uses, so each round keeps its state as
+// one record per element: K1's (nxt, lab) in one 8-byte load, K2's (ptr,
+// dist, reach, 0) in one 16-byte load, one random sector an element
+// where separate tables cost one a table.  K1 moves about 48 bytes an
+// element where its bound counts 16 (its two-table form moved about 80).
+//
+// What the L2 does for K1.  Half of K1's 67 MB of records fits in the
+// 50 MB L2, and the coalesced streams (own records in, results out, 134
+// MB a round) pass through it too.  A round's results are read only by
+// the next round, after all of this one's traffic, so K1 stores them
+// evict-first (a createpolicy policy passed with .L2::cache_hint): they
+// leave the L2 before table lines do.  Measured on an H100 with
+// launch/k1_variants.py (PERF.md), that store hint gains 0.6-1.6 % on a
+// random one-cycle input and on the solve's own input, and the other L2
+// controls lose: evict-first own-record loads lose up to 9 % (the own
+// records a round streams are the very lines its gathers hit, so marking
+// them evict-first throws hits away); evict-last gathers lose up to 9 %
+// on the random cycle; a persisting access-policy window set and cleared
+// around each launch costs 0.03-0.04 ms a call in limit and reset calls
+// alone and loses 65-120 %; two passes over table halves lose 15-25 % (a
+// second stream of the records and partial-sector writes); 2 or 4
+// records a thread with every load issued first gain nothing (256
+// threads x 8 blocks an SM already keep about 2,000 gathers in flight).
+//
+// Enough threads stay resident (256 per block, up to 8 blocks per SM) to
+// keep many independent gathers in flight.  K3/K4 give each query shard
+// its own grid row (blockIdx.y), so a thread reads its shard's base once,
+// and only the owned queries, about 1/n of them, gather: most of each
+// launch is the coalesced stream the bound counts, which is why K3/K4
+// come nearer their bound than K1/K2.  Round k (K1/K2) and ring step k
+// (K3/K4) must read only the values of step k-1, so inputs and outputs
+// are separate buffers that the caller ping-pongs; an in-place update
+// would race in K1/K2 and, in K3/K4, would move fewer bytes than the
+// bound counts (left for later work).  Nothing is padded but K2's
+// records: the loop bound masks the ragged edge, and s_real masks a table
+// slice's pad rows.  Each entry point launches on the given stream,
+// allocates nothing, does not synchronise, and returns cudaGetLastError()
+// so the caller can raise on a refused launch.
 
 #include <cuda_runtime.h>
 
@@ -72,19 +92,30 @@ namespace {
 constexpr int kThreads = 256;
 constexpr int kBlocksPerSm = 8;
 
+// K1 on records rec[i] = (nxt, lab): one 8-byte load of the own record
+// (coalesced), one of the record at nxt (gathered), one 8-byte store,
+// marked evict-first in L2 under the cache policy pol.
+__device__ __forceinline__ void store_evict_first(int2* p, int2 v,
+                                                  uint64_t pol) {
+  asm volatile("st.global.L2::cache_hint.v2.s32 [%0], {%1, %2}, %3;" ::"l"(p),
+               "r"(v.x), "r"(v.y), "l"(pol)
+               : "memory");
+}
+
 __global__ void __launch_bounds__(kThreads)
-pointer_double_kernel(const int32_t* __restrict__ nxt,
-                      const int32_t* __restrict__ lab,
-                      int32_t* __restrict__ nxt_out,
-                      int32_t* __restrict__ lab_out, int64_t n) {
+pointer_double_kernel(const int2* __restrict__ rec, int2* __restrict__ out,
+                      int64_t n) {
+  uint64_t evict_first;
+  asm("createpolicy.fractional.L2::evict_first.b64 %0, 1.0;"
+      : "=l"(evict_first));
   const int64_t stride = static_cast<int64_t>(gridDim.x) * blockDim.x;
   for (int64_t i = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
        i < n; i += stride) {
-    const int32_t j = nxt[i];
-    const int32_t own = lab[i];
-    const int32_t far = lab[j];
-    nxt_out[i] = nxt[j];
-    lab_out[i] = far < own ? far : own;
+    const int2 own = __ldg(rec + i);
+    const int2 far = __ldg(rec + own.x);
+    store_evict_first(
+        out + i, make_int2(far.x, far.y < own.y ? far.y : own.y),
+        evict_first);
   }
 }
 
@@ -204,14 +235,13 @@ unsigned shard_grid_x(int64_t rows, int64_t cols) {
 
 }  // namespace
 
-extern "C" int pd_pointer_double(const void* nxt, const void* lab,
-                                 void* nxt_out, void* lab_out, long long n,
-                                 void* stream) {
+// rec and rec_out: n records (nxt, lab) of 2 int32, 8-byte aligned.
+extern "C" int pd_pointer_double(const void* rec, void* rec_out,
+                                 long long n, void* stream) {
   if (n <= 0) return 0;
   pointer_double_kernel<<<grid_for(n), kThreads, 0,
                           static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const int32_t*>(nxt), static_cast<const int32_t*>(lab),
-      static_cast<int32_t*>(nxt_out), static_cast<int32_t*>(lab_out), n);
+      static_cast<const int2*>(rec), static_cast<int2*>(rec_out), n);
   return static_cast<int>(cudaGetLastError());
 }
 

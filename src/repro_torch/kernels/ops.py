@@ -24,8 +24,10 @@ def segment_sum_sorted(values: torch.Tensor, seg_ids: torch.Tensor,
 
 def pointer_double(nxt: torch.Tensor, lab: torch.Tensor):
     """One pointer-doubling round: ``(nxt[nxt], min(lab, lab[nxt]))``
-    (K1)."""
-    return _pdouble.pointer_double(nxt, lab)
+    (K1).  The kernel runs on packed ``(nxt, lab)`` records: the arrays
+    are packed, and the result unpacked into two contiguous arrays."""
+    rec = _pdouble.pointer_double(torch.stack([nxt, lab], 1))
+    return tuple(rec.t().contiguous())
 
 
 def flash_attention_gqa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

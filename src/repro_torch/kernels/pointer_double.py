@@ -3,7 +3,9 @@
 replace).
 
   ``pointer_double``       nxt' = nxt[nxt];  lab' = min(lab, lab[nxt])
-                           (min-label connected components)
+                           (min-label connected components), on packed
+                           records: int32 [N, 2], row i = (nxt, lab), so
+                           a gather reads one sector
   ``pointer_double_rank``  ptr' = ptr[ptr];  dist' = dist + dist[ptr];
                            reach' = max(reach, reach[ptr])
                            (list ranking for circuit emission), on packed
@@ -39,9 +41,9 @@ from typing import Optional, Sequence, Tuple
 import torch
 
 from . import build
-from .ref import (pointer_double_rank_packed_ref,
-                  pointer_double_rank_shard_ref, pointer_double_ref,
-                  pointer_double_shard_ref)
+from .ref import (pointer_double_packed_ref,
+                  pointer_double_rank_packed_ref,
+                  pointer_double_rank_shard_ref, pointer_double_shard_ref)
 
 #: the C entry points' trailing arguments after the tensor pointers
 _ROUND_ARGS = (ctypes.c_longlong,)                      # n
@@ -71,17 +73,6 @@ def _check_apart(name: str, ins: Sequence[torch.Tensor],
                 raise ValueError(
                     f"{name}: output overlaps another buffer; step k must "
                     f"read only step k-1 values, so ping-pong two sets")
-
-
-def _check(name: str, ins: Sequence[torch.Tensor],
-           outs: Sequence[torch.Tensor]) -> None:
-    n = ins[0].shape
-    for t in (*ins, *outs):
-        _check_tensor(name, t, ins[0].device)
-        if t.dim() != 1 or t.shape != n:
-            raise ValueError(f"{name}: tensors must all be 1-D of shape "
-                             f"{tuple(n)}, got {tuple(t.shape)}")
-    _check_apart(name, ins, outs)
 
 
 def _check_shard(name: str, q: torch.Tensor, carries, base: torch.Tensor,
@@ -132,43 +123,53 @@ def _device_rule(name: str, t: torch.Tensor) -> bool:
     raise ValueError(f"{name}: unsupported device {t.device}")
 
 
-def pointer_double(nxt: torch.Tensor, lab: torch.Tensor,
-                   out: Optional[Tuple[torch.Tensor, torch.Tensor]] = None
-                   ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """One min-label doubling round over the full table (K1).  ``nxt``,
-    ``lab`` int32 [N] with ``0 ≤ nxt[i] < N``; returns ``(nxt', lab')``,
-    written into ``out`` when given."""
-    ins = (nxt, lab)
+def _check_records(name: str, rec: torch.Tensor, out: torch.Tensor,
+                   width: int) -> None:
+    """``rec`` and ``out``: int32 [N, width], contiguous, on one device,
+    apart; on the card also aligned to the record (one load a record)."""
+    for t in (rec, out):
+        _check_tensor(name, t, rec.device)
+        if t.dim() != 2 or t.shape[1] != width or t.shape != rec.shape:
+            raise ValueError(f"{name}: records must both be [N, {width}], "
+                             f"got {tuple(rec.shape)} and "
+                             f"{tuple(out.shape)}")
+        if t.device.type == "cuda" and t.data_ptr() % (4 * width):
+            raise ValueError(f"{name}: records must be {4 * width}-byte "
+                             f"aligned")
+    _check_apart(name, (rec,), (out,))
+
+
+def _round(name: str, symbol: str, twin, rec: torch.Tensor,
+           out: Optional[torch.Tensor], width: int):
+    """One doubling round on [N, ``width``] records through the C entry
+    ``symbol`` (the twin on CPU tensors); returns ``(out, launched)``."""
     if out is None:
-        out = (torch.empty_like(nxt), torch.empty_like(lab))
-    _check("pointer_double", ins, out)
-    if not _device_rule("pointer_double", nxt):
-        for o, r in zip(out, pointer_double_ref(nxt, lab)):
-            o.copy_(r)
-        return out
-    if nxt.numel():
-        fn = build.function("pointer_double", "pd_pointer_double",
-                            _argtypes(4, _ROUND_ARGS))
-        build.launch("pointer_double", fn, nxt.device,
-                     *(t.data_ptr() for t in (*ins, *out)), nxt.numel())
-        pointer_double.launches += 1
+        out = torch.empty_like(rec)
+    _check_records(name, rec, out, width)
+    if not _device_rule(name, rec):
+        out.copy_(twin(rec))
+        return out, False
+    if rec.shape[0] == 0:
+        return out, False
+    fn = build.function("pointer_double", symbol, _argtypes(2, _ROUND_ARGS))
+    build.launch(name, fn, rec.device, rec.data_ptr(), out.data_ptr(),
+                 rec.shape[0])
+    return out, True
+
+
+def pointer_double(rec: torch.Tensor,
+                   out: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """One min-label doubling round over the full table (K1) on packed
+    records.  ``rec`` int32 [N, 2], row i = ``(nxt, lab)``,
+    ``0 ≤ nxt < N``.  Returns the next round's records, written into
+    ``out`` when given."""
+    out, launched = _round("pointer_double", "pd_pointer_double",
+                           pointer_double_packed_ref, rec, out, 2)
+    pointer_double.launches += int(launched)
     return out
 
 
 pointer_double.launches = 0
-
-
-def _check_records(name: str, rec: torch.Tensor, out: torch.Tensor) -> None:
-    """``rec`` and ``out``: int32 [N, 4], contiguous, on one device, apart;
-    on the card also 16-byte aligned (one load a record)."""
-    for t in (rec, out):
-        _check_tensor(name, t, rec.device)
-        if t.dim() != 2 or t.shape[1] != 4 or t.shape != rec.shape:
-            raise ValueError(f"{name}: records must both be [N, 4], got "
-                             f"{tuple(rec.shape)} and {tuple(out.shape)}")
-        if t.device.type == "cuda" and t.data_ptr() % 16:
-            raise ValueError(f"{name}: records must be 16-byte aligned")
-    _check_apart(name, (rec,), (out,))
 
 
 def pointer_double_rank(rec: torch.Tensor,
@@ -177,18 +178,9 @@ def pointer_double_rank(rec: torch.Tensor,
     int32 [N, 4], row i = ``(ptr, dist, reach, 0)`` (reach 0/1),
     ``0 ≤ ptr < N``; halt nodes self-loop with dist 0.  Returns the next
     round's records, written into ``out`` when given."""
-    if out is None:
-        out = torch.empty_like(rec)
-    _check_records("pointer_double_rank", rec, out)
-    if not _device_rule("pointer_double_rank", rec):
-        out.copy_(pointer_double_rank_packed_ref(rec))
-        return out
-    if rec.shape[0]:
-        fn = build.function("pointer_double", "pd_pointer_double_rank",
-                            _argtypes(2, _ROUND_ARGS))
-        build.launch("pointer_double_rank", fn, rec.device, rec.data_ptr(),
-                     out.data_ptr(), rec.shape[0])
-        pointer_double_rank.launches += 1
+    out, launched = _round("pointer_double_rank", "pd_pointer_double_rank",
+                           pointer_double_rank_packed_ref, rec, out, 4)
+    pointer_double_rank.launches += int(launched)
     return out
 
 

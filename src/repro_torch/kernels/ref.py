@@ -3,10 +3,11 @@
 The twins are what a kernel wrapper runs on CPU tensors, and what the
 CUDA kernels are held against on the card: bit for bit for the integer
 pointer-doubling rounds (``nxt``/``ptr`` entries must lie in ``[0, N)``),
-within a float tolerance for the segment sum and attention.  K2's kernel
-takes packed records; ``pointer_double_rank_ref`` stays the three-array
-oracle that mirrors the reference, and ``pointer_double_rank_packed_ref``
-is its packed form.
+within a float tolerance for the segment sum and attention.  K1's and
+K2's kernels take packed records; ``pointer_double_ref`` and
+``pointer_double_rank_ref`` stay the two- and three-array oracles that
+mirror the reference, and ``pointer_double_packed_ref`` and
+``pointer_double_rank_packed_ref`` are their packed forms.
 
 The shard twins take the reference's single-shard form (``q`` [S],
 ``base`` [1], tables [T]) and also the port's all-shards form (``q``
@@ -37,6 +38,13 @@ def pointer_double_ref(nxt: torch.Tensor, lab: torch.Tensor):
     """One pointer-doubling round: ``lab' = min(lab, lab[nxt])``;
     ``nxt' = nxt[nxt]``."""
     return nxt[nxt], torch.minimum(lab, lab[nxt])
+
+
+def pointer_double_packed_ref(rec: torch.Tensor) -> torch.Tensor:
+    """K1's twin on packed records: ``rec`` int32 [N, 2], row i =
+    ``(nxt, lab)``; :func:`pointer_double_ref` on the two columns, packed
+    again."""
+    return torch.stack(pointer_double_ref(rec[:, 0], rec[:, 1]), 1)
 
 
 def pointer_double_rank_ref(ptr: torch.Tensor, dist: torch.Tensor,

@@ -1,7 +1,7 @@
 """K1/K2 pointer-doubling: the port's plain-torch twins against the JAX
-oracles and Pallas kernels (interpret mode), K2's packed-record twin
-against its three-array form, the wrappers' device rule and checks on the
-CPU, and — on a card — the CUDA kernels K1–K4 against the twins (the
+oracles and Pallas kernels (interpret mode), K1's and K2's packed-record
+twins against their two- and three-array forms, the wrappers' device rule
+and checks on the CPU, and — on a card — the CUDA kernels K1–K4 against the twins (the
 K3/K4 CPU cases are in tests/test_torch_phase3_sharded.py).
 
 JAX is imported inside the tests that compare with it, so the ``gpu``
@@ -24,6 +24,12 @@ def k1_inputs(N):
             rng.permutation(N).astype(np.int32))
 
 
+def k1_packed_inputs(N):
+    """:func:`k1_inputs` as K1's packed records, int32 [N, 2] =
+    (nxt, lab)."""
+    return (np.stack(k1_inputs(N), 1),)
+
+
 def k2_inputs(N):
     rng = np.random.default_rng(N + 1)
     ptr = rng.integers(0, N, N).astype(np.int32)
@@ -43,12 +49,6 @@ def k2_packed_inputs(N):
     return (np.stack([ptr, dist, reach, np.zeros_like(ptr)], 1),)
 
 
-def outs(x):
-    """A wrapper's or twin's result as a tuple of tensors (K2's packed
-    form returns one tensor)."""
-    return x if isinstance(x, tuple) else (x,)
-
-
 def same(a, b):
     return all(np.array_equal(np.asarray(x), y.numpy()) for x, y in zip(a, b))
 
@@ -64,6 +64,26 @@ def test_k1_twin_matches_jax_ref_and_pallas(N, block):
     assert same(jref.pointer_double_ref(*(jnp.asarray(x) for x in ins)), mine)
     assert same(j_pd(*(jnp.asarray(x) for x in ins), block=block,
                      interpret=True), mine)
+
+
+@pytest.mark.parametrize("N,block", CASES)
+def test_k1_packed_twin_matches_two_array_twin_jax_and_pallas(N, block):
+    """K1's packed twin is the two-array twin on the record's columns,
+    and so the JAX oracle and the Pallas kernel."""
+    import jax.numpy as jnp
+    from repro.kernels import ref as jref
+    from repro.kernels.pointer_double import pointer_double as j_pd
+
+    ins = k1_inputs(N)
+    (rec,) = k1_packed_inputs(N)
+    got = ref.pointer_double_packed_ref(torch.from_numpy(rec))
+    assert got.dtype == torch.int32 and got.shape == (N, 2)
+    cols = (got[:, 0], got[:, 1])
+    two = ref.pointer_double_ref(*(torch.from_numpy(x) for x in ins))
+    assert all(torch.equal(a, b) for a, b in zip(cols, two))
+    assert same(jref.pointer_double_ref(*(jnp.asarray(x) for x in ins)), cols)
+    assert same(j_pd(*(jnp.asarray(x) for x in ins), block=block,
+                     interpret=True), cols)
 
 
 @pytest.mark.parametrize("N,block", CASES)
@@ -103,34 +123,81 @@ def test_k2_packed_twin_matches_three_array_twin_jax_and_pallas(N, block):
 
 
 @pytest.mark.parametrize("kernel,twin,make", [
-    (pd.pointer_double, ref.pointer_double_ref, k1_inputs),
+    (pd.pointer_double, ref.pointer_double_packed_ref, k1_packed_inputs),
     (pd.pointer_double_rank, ref.pointer_double_rank_packed_ref,
      k2_packed_inputs),
 ])
 def test_wrapper_on_cpu_runs_the_twin_and_counts_nothing(kernel, twin, make):
-    ins = tuple(torch.from_numpy(x) for x in make(1000))
+    (rec,) = (torch.from_numpy(x) for x in make(1000))
     before = kernel.launches
-    want = outs(twin(*ins))
-    assert all(torch.equal(a, b) for a, b in zip(outs(kernel(*ins)), want))
-    out = tuple(torch.empty_like(x) for x in want)
-    got = outs(kernel(*ins, out=out if len(out) > 1 else out[0]))
-    assert all(g is o for g, o in zip(got, out))
-    assert all(torch.equal(a, b) for a, b in zip(out, want))
+    want = twin(rec)
+    assert torch.equal(kernel(rec), want)
+    out = torch.empty_like(want)
+    assert kernel(rec, out=out) is out
+    assert torch.equal(out, want)
     assert kernel.launches == before
 
 
 def test_wrapper_checks_its_tensors():
-    nxt, lab = (torch.from_numpy(x) for x in k1_inputs(64))
+    """K1's wrapper refuses what its kernel does not take: another dtype,
+    records of other shapes, strided records, an output in place."""
+    (rec,) = (torch.from_numpy(x) for x in k1_packed_inputs(64))
     with pytest.raises(TypeError):
-        pd.pointer_double(nxt.long(), lab.long())
+        pd.pointer_double(rec.long())
     with pytest.raises(ValueError):
-        pd.pointer_double(nxt, lab[:32])
+        pd.pointer_double(rec, out=torch.empty(32, 2, dtype=torch.int32))
     with pytest.raises(ValueError):
-        pd.pointer_double(nxt[::2], lab[::2])
+        pd.pointer_double(rec[::2])
     with pytest.raises(ValueError):                 # in place would race
-        pd.pointer_double(nxt, lab, out=(nxt, torch.empty_like(lab)))
+        pd.pointer_double(rec, out=rec)
     with pytest.raises(ValueError):
-        pd.pointer_double(nxt, lab, out=(lab[:64].clone(), lab))
+        pd.pointer_double(rec[:32], out=rec[16:48])
+
+
+def test_k1_wrapper_checks_its_records():
+    """Only int32 [N, 2] records, contiguous, with an output apart."""
+    (rec,) = (torch.from_numpy(x) for x in k1_packed_inputs(64))
+    with pytest.raises(TypeError):
+        pd.pointer_double(rec.long())
+    with pytest.raises(ValueError):                 # not [N, 2]
+        pd.pointer_double(torch.zeros(64, 3, dtype=torch.int32))
+    with pytest.raises(ValueError):                 # K2's records
+        pd.pointer_double(torch.zeros(64, 4, dtype=torch.int32))
+    with pytest.raises(ValueError):
+        pd.pointer_double(rec[:, 0].contiguous())
+    with pytest.raises(ValueError):                 # strided
+        pd.pointer_double(rec.t().contiguous().t())
+    with pytest.raises(ValueError):                 # out overlaps the input
+        pd.pointer_double(rec[:48], out=rec[8:56])
+    with pytest.raises(TypeError):
+        pd.pointer_double(rec, out=torch.empty(64, 2, dtype=torch.int64))
+
+
+def one_cycle(N, seed):
+    """A seeded random order of all N stubs closed into one cycle, as K1's
+    packed start records (succ, i)."""
+    order = np.random.default_rng(seed).permutation(N)
+    rec = np.empty((N, 2), np.int32)
+    rec[order, 0] = np.roll(order, -1)
+    rec[:, 1] = np.arange(N)
+    return rec
+
+
+@pytest.mark.parametrize("N", [1000, 4096])
+def test_packed_doubling_rounds_label_a_cycle(N):
+    """``_doubling_rounds(N)`` packed K1 rounds through the wrapper on the
+    CPU, ping-ponging two buffers as ``_cc_cycle_labels`` does, label every
+    stub of a seeded one-cycle input 0, as the two-array twin does."""
+    from repro_torch.core.phase3 import _doubling_rounds
+
+    rec = torch.from_numpy(one_cycle(N, N))
+    cur, spare = rec.clone(), torch.empty_like(rec)
+    two = (rec[:, 0].clone(), rec[:, 1].clone())
+    for _ in range(_doubling_rounds(N)):
+        cur, spare = pd.pointer_double(cur, out=spare), cur
+        two = ref.pointer_double_ref(*two)
+    assert not bool(cur[:, 1].any())
+    assert torch.equal(cur[:, 0], two[0]) and torch.equal(cur[:, 1], two[1])
 
 
 def test_k2_wrapper_checks_its_records():
@@ -190,7 +257,7 @@ def test_packed_doubling_rounds_rank_a_list():
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("kernel,twin,make", [
-    (pd.pointer_double, ref.pointer_double_ref, k1_inputs),
+    (pd.pointer_double, ref.pointer_double_packed_ref, k1_packed_inputs),
     (pd.pointer_double_rank, ref.pointer_double_rank_packed_ref,
      k2_packed_inputs),
 ])
@@ -198,13 +265,58 @@ def test_packed_doubling_rounds_rank_a_list():
 def test_cuda_kernel_bit_equal_to_twin(kernel, twin, make, N):
     if not torch.cuda.is_available():
         pytest.skip("no CUDA device: the kernel runs only on the card")
-    ins = tuple(torch.from_numpy(x).cuda() for x in make(N))
+    (rec,) = (torch.from_numpy(x).cuda() for x in make(N))
     before = kernel.launches
-    got = outs(kernel(*ins))
-    want = outs(twin(*ins))
+    got = kernel(rec)
+    want = twin(rec)
     torch.cuda.synchronize()
     assert kernel.launches == before + 1
-    assert all(torch.equal(a, b) for a, b in zip(got, want))
+    assert torch.equal(got, want)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("N", [1, 1000, 3000, (1 << 20) + 7])
+def test_cuda_packed_k1_bit_equal_at_ragged_n(N):
+    """Packed K1 against its twin at lengths no block or thread's share
+    of records divides."""
+    if not torch.cuda.is_available():
+        pytest.skip("no CUDA device: the kernel runs only on the card")
+    (rec,) = (torch.from_numpy(x).cuda() for x in k1_packed_inputs(N))
+    got = pd.pointer_double(rec)
+    torch.cuda.synchronize()
+    assert torch.equal(got, ref.pointer_double_packed_ref(rec))
+
+
+@pytest.mark.gpu
+def test_cuda_packed_k1_labels_a_seeded_cycle():
+    """24 chained K1 rounds on a seeded one-cycle input of 2^22 records
+    are bit-equal to the packed twin's and label every stub 0."""
+    if not torch.cuda.is_available():
+        pytest.skip("no CUDA device: the kernel runs only on the card")
+    cur = torch.from_numpy(one_cycle(1 << 22, 7)).cuda()
+    want, spare = cur, torch.empty_like(cur)
+    for _ in range(24):
+        cur, spare = pd.pointer_double(cur, out=spare), cur
+        want = ref.pointer_double_packed_ref(want)
+    torch.cuda.synchronize()
+    assert torch.equal(cur, want)
+    assert not bool(cur[:, 1].any())
+
+
+@pytest.mark.gpu
+def test_cuda_k1_refuses_misaligned_records():
+    """Records 4 bytes past an 8-byte boundary would split a record's load:
+    the wrapper refuses them, as input and as output."""
+    if not torch.cuda.is_available():
+        pytest.skip("no CUDA device: the kernel runs only on the card")
+    buf = torch.zeros(2 * 64 + 1, dtype=torch.int32, device="cuda")
+    odd = buf[1:].view(64, 2)
+    assert odd.data_ptr() % 8 == 4
+    with pytest.raises(ValueError):
+        pd.pointer_double(odd)
+    with pytest.raises(ValueError):
+        pd.pointer_double(torch.zeros(64, 2, dtype=torch.int32,
+                                      device="cuda"), out=odd)
 
 
 @pytest.mark.gpu

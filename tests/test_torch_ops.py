@@ -14,6 +14,7 @@ import torch
 
 from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import ops, ref
+from repro_torch.kernels import pointer_double as pd
 from repro_torch.kernels import segment_reduce as sr
 
 # tests/test_kernels.py's sweeps
@@ -208,9 +209,14 @@ def test_ops_route_to_the_wrappers_on_cpu():
     assert torch.equal(ops.segment_sum_sorted(v, s, 10),
                        ref.segment_sum_sorted_ref(v, s, 10))
     assert sr.segment_sum_sorted.launches == before
+    # K1 keeps the reference's two-array signature: packed, one round
+    # through the packed wrapper's twin, unpacked into contiguous arrays
     nxt = torch.tensor([1, 2, 0], dtype=torch.int32)
     lab = torch.tensor([2, 0, 1], dtype=torch.int32)
+    before = pd.pointer_double.launches
     got = ops.pointer_double(nxt, lab)
+    assert pd.pointer_double.launches == before
+    assert len(got) == 2 and all(g.is_contiguous() for g in got)
     assert all(torch.equal(a, b)
                for a, b in zip(got, ref.pointer_double_ref(nxt, lab)))
 
