@@ -23,20 +23,42 @@ exits non-zero:
                 K2 on packed (ptr, dist, reach, 0) records; the packed
                 twins and the two- and three-array oracles are all
                 timed; K2's bound counts the three tables);
-  4. parity   — a scale-8, 2-partition solve on ``cuda`` and on ``cpu``
-                in each Phase 3 mode (sharded, the default; replicated;
-                ``gather_circuit=False``): every circuit and mate
-                byte-identical, all validated;
+  4. parity   — a scale-8, 2-partition eager solve (``fused=False``) on
+                ``cuda`` and on ``cpu`` in each Phase 3 mode (sharded, the
+                default; replicated; ``gather_circuit=False``): every
+                circuit and mate byte-identical, all validated;
   5. slice    — the main path: ``repro_torch.euler.solve`` of an Eulerian
                 RMAT graph (scale 20, average degree 5, seed 0) with 8
-                partitions on ``cuda``, twice: with the default sharded
-                Phase 3 and with ``sharded_phase3=False``, launch
-                counters reset just before each and read just after.
-                Both circuits are validated, byte-identical to each other
-                and to the numpy list-rank twin of the spliced mate; the
-                replicated solve must launch K1/K2 once per doubling
-                round and K3/K4 never, the sharded one K3/K4 once per
-                ring step of each round (rounds × 8) and K1/K2 never;
+                partitions on ``cuda``, eagerly (``fused=False``, each
+                level and Phase 3 step clocked), twice: with the default
+                sharded Phase 3 and with ``sharded_phase3=False``, launch
+                counters reset just before each and read just after, and
+                the rounds each splice loop ran printed beside its
+                budget.  Both circuits are validated, byte-identical to
+                each other and to the numpy list-rank twin of the spliced
+                mate; the replicated solve must launch K1/K2 once per
+                doubling round and K3/K4 never, the sharded one K3/K4
+                once per ring step of each round (rounds × 8) and K1/K2
+                never;
+  5b. fused   — the solver's default mode, one recorded CUDA graph per
+                bucket: at scale 8 with 2 partitions, fused on ``cuda``
+                and on ``cpu`` in each Phase 3 mode, byte-identical to
+                each other and to the eager solves; at the main path's
+                scale, a fused sharded solve of seed 0 (cold: warms up
+                and records), byte-identical to the eager ``[slice]``
+                solve, then one of seed 1 (2,739,077 edges, the same
+                bucket, its key printed and checked), which must replay
+                the graph (``capture_s`` 0, one capture in all, no
+                kernel launched from Python), validated and held against
+                the numpy list-rank twin; then a fused replicated solve
+                of seed 0, byte-identical to the eager one.  The launch
+                counters read around each recording must equal the
+                eager counts (K3/K4 rounds × 8 sharded, K1/K2 rounds
+                replicated).  Each solve prints ``warmup_s``,
+                ``capture_s``, ``run_s``, ``fetch_s`` and its peak
+                allocated and reserved memory beside the eager
+                ``supersteps_s + phase3_s``; the solvers and their graphs
+                are freed before the next phase;
   6. k5       — the sorted segment sum against its twin (f32 tolerance
                 1e-5, half types 2e-2, atol ×8) at the GNN aggregation
                 shapes full_graph_sm and ogb_products (seeded sorted ids)
@@ -103,9 +125,12 @@ import torch.nn.functional as F  # noqa: E402
 
 from repro_torch.configs.base import gnn_shapes, lm_shapes  # noqa: E402
 from repro_torch.configs.registry import get_config  # noqa: E402
+from repro_torch.core import capture  # noqa: E402
+from repro_torch.core import phase1 as p1  # noqa: E402
 from repro_torch.core import phase3 as p3  # noqa: E402
+from repro_torch.core.engine import FusedRun  # noqa: E402
 from repro_torch.core.phase3 import circuit_from_mate_np  # noqa: E402
-from repro_torch.euler import solve  # noqa: E402
+from repro_torch.euler import EulerSolver, solve  # noqa: E402
 from repro_torch.euler.bucket import strip_circuit  # noqa: E402
 from repro_torch.graphgen.eulerize import eulerian_rmat  # noqa: E402
 from repro_torch.kernels import build, ref  # noqa: E402
@@ -417,14 +442,146 @@ def read_counts() -> dict:
     return {name: fn.launches for name, fn in WRAPPERS.items()}
 
 
+def counting_rounds(rounds: list):
+    """A stand-in for ``capture.converge`` that appends ``(module, rounds
+    run, budget)`` for every splice loop."""
+    def wrap(module):
+        def converge(step, carry, budget):
+            ran = [0]
+
+            def counted(*args):
+                ran[0] += 1
+                return step(*args)
+            out = capture.converge(counted, carry, budget)
+            rounds.append((module, ran[0], budget))
+            return out
+        return converge
+    return wrap
+
+
 def solve_counted(g, **opts):
-    """``solve`` on ``cuda`` with every launch counter set to 0 just
-    before and read just after; returns ``(result, launches, peak)``."""
+    """An eager ``solve`` on ``cuda`` with every launch counter set to 0
+    just before and read just after; returns ``(result, launches, peak,
+    rounds)``, ``rounds`` the ``(loop, rounds run, budget)`` of every
+    splice loop."""
+    rounds = []
+    wrap = counting_rounds(rounds)
     reset_counts()
     torch.cuda.reset_peak_memory_stats()
-    res = solve(g, n_parts=PARTS, device="cuda", **opts)
+    with mock.patch.object(p1, "converge", wrap("phase1")), \
+            mock.patch.object(p3, "converge", wrap("phase3")):
+        res = solve(g, n_parts=PARTS, device="cuda", fused=False, **opts)
     launches = read_counts()
-    return res, launches, torch.cuda.max_memory_allocated()
+    return res, launches, torch.cuda.max_memory_allocated(), rounds
+
+
+def fused_counted(solver, g):
+    """A fused ``solver.solve(g)`` on ``cuda``: the launch counters are
+    set to 0 just before the solve and read just after, and separately
+    around the graph's recording if the solve records one.  Returns
+    ``(result, launches of the solve, launches while recording or None,
+    peak allocated, peak reserved)``."""
+    recorded = []
+    record = FusedRun._record
+
+    def counted_record(run):
+        reset_counts()
+        record(run)
+        recorded.append(read_counts())
+
+    reset_counts()
+    torch.cuda.reset_peak_memory_stats()
+    with mock.patch.object(FusedRun, "_record", counted_record):
+        res = solver.solve(g)
+    if not recorded:
+        launches = read_counts()
+    else:
+        launches = None                 # the warm-up's and the recording's
+    return (res, launches, recorded[0] if recorded else None,
+            torch.cuda.max_memory_allocated(),
+            torch.cuda.max_memory_reserved())
+
+
+def same_bytes(a, b) -> bool:
+    return (np.array_equal(a.circuit, b.circuit)
+            and np.array_equal(a.mate, b.mate))
+
+
+def check_fused(scale: int, g, eager: dict) -> None:
+    """Phase 5b: the fused run (module docstring).  ``eager`` holds the
+    ``[slice]`` results of ``g`` by ``sharded_phase3``."""
+    small = eulerian_rmat(8, avg_degree=AVG_DEGREE, seed=SEED)
+    for mode, opts in MODES.items():
+        ref = solve(small, n_parts=2, device="cuda", fused=False,
+                    **opts).validate()
+        for device in ("cuda", "cpu"):
+            r = solve(small, n_parts=2, device=device, **opts).validate()
+            same = r.fused and same_bytes(ref, r)
+            say("fused", scale=8, parts=2, mode=mode, device=device,
+                byte_identical_to_eager=same)
+            if not same:
+                raise AssertionError(f"fused {mode} solve on {device} "
+                                     f"differs from the eager one")
+
+    def report(res, solver, seed, launches, recorded, peak, reserved):
+        base = eager[solver.sharded_phase3].timings
+        say("fused", scale=scale,
+            phase3="sharded" if solver.sharded_phase3 else "replicated",
+            seed=seed, edges=res.graph.num_edges, valid=res.valid,
+            captures=solver.captures,
+            launches=json.dumps(launches, separators=(",", ":")),
+            recorded_launches=json.dumps(recorded, separators=(",", ":")),
+            peak_gib=f"{peak / 2**30:.3f}",
+            reserved_gib=f"{reserved / 2**30:.3f}",
+            eager_supersteps_plus_phase3_s=(
+                f"{base['supersteps_s'] + base['phase3_s']:.4f}"),
+            **{k: f"{v:.4f}" for k, v in res.timings.items()})
+
+    for sharded in (True, False):
+        phase3 = "sharded" if sharded else "replicated"
+        solver = EulerSolver(n_parts=PARTS, sharded_phase3=sharded)
+        res, launches, recorded, peak, reserved = fused_counted(solver, g)
+        res.validate()
+        report(res, solver, SEED, launches, recorded, peak, reserved)
+        rounds = p3.sharded_phase3_schedule(
+            g.num_edges + res.padded_edges, PARTS)["doubling_rounds"]
+        want = {name: 0 for name in KERNELS}
+        want.update({name: rounds * (PARTS if sharded else 1)
+                     for name in PATH_KERNELS[sharded]})
+        if recorded != want:
+            raise AssertionError(f"{phase3} recording launched {recorded}, "
+                                 f"the eager solve {want}")
+        if not same_bytes(res, eager[sharded]):
+            raise AssertionError(f"fused {phase3} solve differs from the "
+                                 f"eager one")
+        if solver.captures != 1 or res.timings["capture_s"] <= 0:
+            raise AssertionError("the cold fused solve did not record")
+        if sharded:
+            g1 = eulerian_rmat(scale, avg_degree=AVG_DEGREE, seed=SEED + 1)
+            key0, key1 = solver.prepare(g)[2], solver.prepare(g1)[2]
+            say("fused", seed=SEED + 1, edges=g1.num_edges,
+                bucket=f"'{key1}'", same_bucket=key0 == key1)
+            if key0 != key1:
+                raise AssertionError(f"seed {SEED + 1} lands in another "
+                                     f"bucket: {key1} against {key0}")
+            res, launches, recorded, peak, reserved = fused_counted(solver,
+                                                                    g1)
+            res.validate()
+            report(res, solver, SEED + 1, launches, recorded, peak,
+                   reserved)
+            twin = strip_circuit(circuit_from_mate_np(res.mate, 0),
+                                 g1.num_edges)
+            if recorded is not None or solver.captures != 1 \
+                    or res.timings["capture_s"] != 0.0 \
+                    or any(launches.values()):
+                raise AssertionError("the same-bucket solve did not "
+                                     "replay the recorded graph")
+            if not np.array_equal(twin, res.circuit):
+                raise AssertionError("replayed circuit differs from the "
+                                     "numpy list-rank twin")
+            del g1
+        del solver, res
+        torch.cuda.empty_cache()
 
 
 def k5_ids(n: int, s: int, skewed: bool, gen, dev) -> torch.Tensor:
@@ -960,7 +1117,8 @@ def main(argv=None) -> int:
     first = None
     for mode, opts in MODES.items():
         for device in ("cuda", "cpu"):
-            r = solve(g, n_parts=2, device=device, **opts).validate()
+            r = solve(g, n_parts=2, device=device, fused=False,
+                      **opts).validate()
             first = first or r
             same = (np.array_equal(first.circuit, r.circuit)
                     and np.array_equal(first.mate, r.mate))
@@ -977,7 +1135,8 @@ def main(argv=None) -> int:
         edges=g.num_edges, graphgen_s=f"{gen_s:.2f}")
     launches, results = {}, {}
     for sharded in (True, False):
-        res, counts, peak = solve_counted(g, sharded_phase3=sharded)
+        res, counts, peak, rounds_run = solve_counted(
+            g, sharded_phase3=sharded)
         res.validate()
         e_cap = g.num_edges + res.padded_edges
         schedule = p3.sharded_phase3_schedule(e_cap, PARTS)
@@ -992,6 +1151,8 @@ def main(argv=None) -> int:
             matches_numpy_twin=matches,
             launches=json.dumps(counts, separators=(",", ":")),
             peak_gib=f"{peak / 2**30:.3f}",
+            splice_rounds="'" + ",".join(f"{m}:{r}/{b}" for m, r, b
+                                         in rounds_run) + "'",
             **{k: f"{v:.3f}" for k, v in res.timings.items()})
         if not matches:
             raise AssertionError("circuit differs from the numpy list-rank "
@@ -1006,7 +1167,12 @@ def main(argv=None) -> int:
     say("slice", sharded_equals_replicated=same)
     if not same:
         raise AssertionError("sharded and replicated solves differ")
-    del results, res, g
+    del res
+    torch.cuda.empty_cache()
+
+    # ---- 5b. the fused run: one recorded graph per bucket ----
+    check_fused(args.scale, g, results)
+    del results, g
     torch.cuda.empty_cache()
 
     # ---- 6–7. K5 and K6 against their twins, timed ----

@@ -1,19 +1,38 @@
 """BSP engine on one device: partitions as a leading tensor dimension,
-supersteps as a Python loop (mirrors ``repro/core/engine.py``).
+every superstep over all of them at once (mirrors
+``repro/core/engine.py``).
 
-The reference maps each partition to a mesh device and runs the whole
-level scan in one ``shard_map`` program.  Here all partitions live on one
-device and each superstep loops over them:
+The reference maps each partition to a mesh device and runs the level
+scan in one ``shard_map`` program.  Here all partitions live on one
+device as the rows of ``[n, ·]`` tensors, and each superstep runs them
+all in one pass (:meth:`Engine.superstep`, the counterpart of the
+reference's ``_make_superstep_core``):
 
-  * ``axis_index`` is the partition's index in the loop;
-  * the tiled ``all_to_all`` of each partition's ``[n, lane]`` send
-    buffers is a transpose ``[n_src, n_dst, lane] → [n_dst, n_src, lane]``
-    (:func:`_receive`), so every receiver sees its lanes source-major, as
-    on the mesh;
+  * ``axis_index`` is the row index;
+  * the tiled ``all_to_all`` of each source's ``[n_dst, lane]`` send
+    lanes is the transpose ``[n_src, n_dst, lane] → [n_dst,
+    n_src·lane]``, so every receiver sees its lanes source-major, as on
+    the mesh.  Only the receive-side mask is materialised (a bool copy);
+    the fields a receiver keeps are gathered through flat indices
+    straight from the send buffers (:func:`_gather_received`), so the
+    wide touch lanes are never held twice;
   * the post-scan ``all_gather`` of mate shards disappears: one
     ``[2E + 1]`` int32 mate tensor (pad slot at ``2E``) takes each level's
     logged pairs in level order, so later levels win; within a level the
     pairs are disjoint, so the scatter is deterministic.
+
+Two execution modes, as in the reference (DESIGN.md §4):
+
+  * **eager** (``fused=False``): :meth:`Engine.run_levels` steps the
+    levels in Python and clocks each; the solver then runs and clocks
+    Phase 3's steps;
+  * **fused** (``fused=True``, the default): :meth:`Engine.make_fused`
+    returns a :class:`FusedRun`, which records the whole solve — every
+    level, the mate accumulation and Phase 3 in the engine's mode — once
+    as one CUDA graph, replays it for every solve of the bucket and
+    fetches the outputs with one drain.  Both modes run the same
+    superstep and Phase 3 functions, so their bits are equal; on the CPU
+    the fused body runs uncaptured.
 
 Host-side planning (:meth:`Engine.plan`, :meth:`Engine.size_caps`,
 :meth:`Engine.load`) is the reference's numpy, unchanged.
@@ -36,9 +55,9 @@ import torch
 from .graph import PartitionedGraph
 from .phase1 import (BIG, I32, NewEdges, OpenTable, Phase1Caps, TouchTable,
                      _compact, _seg_starts, _valid_first, pair_table_cap,
-                     phase1_local)
+                     phase1_local, take)
 from .phase2 import MergeTree, generate_merge_tree
-from .phase3 import shard_width
+from .phase3 import phase3_device, phase3_sharded, shard_width
 
 
 @dataclasses.dataclass(frozen=True)
@@ -124,6 +143,20 @@ class RunOut(NamedTuple):
     level_s: Tuple[float, ...]  # wall seconds of each superstep
 
 
+class FusedOut(NamedTuple):
+    """Everything the fused run leaves on the device, fetched with one
+    drain (the reference's ``FusedOut``).  Under ``gather_circuit=False``
+    ``circuit`` is the still-sharded rank triple ``(mate, dist, reach)``
+    as ``[n·S, 3]`` and ``mate`` its first column cut to ``2E``; the host
+    emits the circuit from them."""
+
+    circuit: torch.Tensor    # [E] int32 arrival stubs in walk order
+    mate: torch.Tensor       # [2E] int32 post-splice mate
+    flags: torch.Tensor      # [n, L, 4] bool
+    metrics: torch.Tensor    # [n, L, 4] int32
+    phase3_ok: torch.Tensor  # [] bool
+
+
 def drained_clock(device: torch.device) -> float:
     """Host clock read after ``device`` has drained its queue."""
     if device.type == "cuda":
@@ -183,60 +216,107 @@ def stub_shards(x: torch.Tensor, n: int, fill: int) -> torch.Tensor:
 
 def _route(dest: torch.Tensor, mask: torch.Tensor, fields, n: int,
            lane: int):
-    """Scatter entries into an [n, lane] send buffer keyed by dest
-    partition.  Returns (buffers..., buf_mask, overflow)."""
-    dev = dest.device
+    """Every source row's entries into its ``n`` send lanes of width
+    ``lane``, keyed by destination partition: one per-row stable argsort
+    of the ``[n_src, X]`` keys and one scatter per field into
+    ``[n_src, n·lane + 1]`` buffers (BIG-filled; the last column is the
+    pad slot that takes every entry that does not ship).  Returns
+    (buffers, mask buffer, per-source overflow [n_src])."""
     key = torch.where(mask, dest, n)          # pads route to virtual slot n
-    order = torch.argsort(key, stable=True)
-    kd = key[order]
-    idx = torch.arange(kd.shape[0], dtype=I32, device=dev)
+    order = torch.argsort(key, dim=-1, stable=True)
+    kd = take(key, order)
+    idx = torch.arange(kd.shape[-1], device=kd.device)
     lane_pos = idx - _seg_starts(kd)
     ok = (kd < n) & (lane_pos < lane)
-    overflow = ((kd < n) & (lane_pos >= lane)).any()
-    flat = torch.where(ok, kd * lane + lane_pos, n * lane).to(torch.int64)
+    overflow = ((kd < n) & (lane_pos >= lane)).any(-1)
+    flat = torch.where(ok, kd * lane + lane_pos, n * lane)
+    width = (kd.shape[0], n * lane + 1)
     outs = []
-    for f in fields:
-        buf = torch.full((n * lane + 1,), BIG, dtype=f.dtype, device=dev)
-        buf[flat] = torch.where(ok, f[order], BIG)   # pads all write BIG
-        outs.append(buf[:-1].reshape(n, lane))
-    bm = torch.zeros(n * lane + 1, dtype=torch.bool, device=dev)
-    bm[flat] = ok
-    return outs, bm[:-1].reshape(n, lane), overflow
+    for f in fields:                          # pads all write BIG
+        buf = torch.full(width, BIG, dtype=f.dtype, device=f.device)
+        outs.append(buf.scatter_(-1, flat, torch.where(ok, take(f, order),
+                                                       BIG)))
+    bm = torch.zeros(width, dtype=torch.bool, device=kd.device)
+    return outs, bm.scatter_(-1, flat, ok), overflow
 
 
-def _receive(sent, dst: int):
-    """Destination ``dst``'s side of the tiled ``all_to_all``: lane
-    ``dst`` of every source's ``[n_dst, lane]`` send buffers, concatenated
-    source-major — row ``dst`` of the transpose ``[n_src, n_dst, lane] →
-    [n_dst, n_src, lane]``, built one destination at a time so the full
-    transpose is never held.  ``sent[src]`` is source src's ``_route``
-    output; returns (flat fields, flat mask)."""
-    fields = [torch.cat([x[0][i][dst] for x in sent])
-              for i in range(len(sent[0][0]))]
-    return fields, torch.cat([x[1][dst] for x in sent])
+def _received_mask(bm: torch.Tensor, lane: int) -> torch.Tensor:
+    """Destination side of the tiled ``all_to_all`` of the mask lanes:
+    row ``dst`` holds lane ``dst`` of every source, source-major —
+    ``[n_src, n_dst, lane] → [n_dst, n_src·lane]``, a bool copy."""
+    n = bm.shape[0]
+    return bm[:, :n * lane].view(n, n, lane).transpose(0, 1).reshape(n, -1)
+
+
+def _gather_received(buf: torch.Tensor, pos: torch.Tensor,
+                     lane: int) -> torch.Tensor:
+    """Destination ``dst``'s received entries at positions ``pos[dst]``
+    (received position ``j`` is lane slot ``j % lane`` of source
+    ``j // lane``), read through flat indices from the ``[n_src, n·lane +
+    1]`` send buffer ``buf``, so the receive side is never materialised."""
+    width = buf.shape[1]
+    dst = torch.arange(pos.shape[0], device=pos.device)[:, None]
+    flat = (pos // lane) * width + dst * lane + pos % lane
+    return buf.reshape(-1)[flat]
+
+
+def _receive_compact(bufs, rmask: torch.Tensor, lane: int, cap: int):
+    """Each destination's received entries where ``rmask`` holds, moved
+    to the front and cut to ``cap`` (``_compact`` of the received rows).
+    Returns (fields, mask, per-destination overflow)."""
+    order = _valid_first(rmask)[:, :cap]
+    return (tuple(_gather_received(b, order, lane) for b in bufs),
+            take(rmask, order), rmask.sum(-1) > cap)
+
+
+def _ship(dest, mask, fields, n: int, lane: int, cap: int):
+    """Route, exchange and compact one table group (opens or touch
+    pairs): ``(fields, mask, route overflow, compaction overflow)``, the
+    first three per destination, the route overflow per source."""
+    bufs, bm, of_route = _route(dest, mask, fields, n, lane)
+    out, om, of_cap = _receive_compact(bufs, _received_mask(bm, lane), lane,
+                                       cap)
+    return out, om, of_route, of_cap
 
 
 def _fit(x: torch.Tensor, cap: int, fill=None):
-    """Pad/trim a 1-D tensor to ``cap``."""
+    """Pad/trim the last dimension to ``cap``."""
     if fill is None:
         fill = False if x.dtype == torch.bool else BIG
-    if x.shape[0] >= cap:
-        return x[:cap]
-    pad = torch.full((cap - x.shape[0],), fill, dtype=x.dtype,
-                     device=x.device)
-    return torch.cat([x, pad])
+    if x.shape[-1] >= cap:
+        return x[..., :cap]
+    pad = torch.full((*x.shape[:-1], cap - x.shape[-1]), fill,
+                     dtype=x.dtype, device=x.device)
+    return torch.cat([x, pad], -1)
+
+
+def _log_mates(mate: torch.Tensor, s1, s2, lm, n_stubs: int) -> None:
+    """Scatter one level's logged pairs, both directions, into ``mate``
+    ``[2E + 1]`` (masked writes all put −1 into the pad slot ``2E``)."""
+    ws = torch.cat([s1.reshape(-1), s2.reshape(-1)])
+    wv = torch.cat([s2.reshape(-1), s1.reshape(-1)])
+    wm = torch.cat([lm.reshape(-1), lm.reshape(-1)])
+    # disjoint within a level; later levels overwrite earlier ones
+    mate[torch.where(wm, ws, n_stubs).to(torch.int64)] = \
+        torch.where(wm, wv, -1)
 
 
 class Engine:
-    """Drives the supersteps of one partitioned graph on one device
-    (counterpart of ``repro.core.engine.DistributedEngine``; Phase 3 is
-    left to the solver, which runs :mod:`repro_torch.core.phase3` on
-    :attr:`RunOut.mate` or on its :func:`stub_shards`)."""
+    """Drives the supersteps and Phase 3 of one partitioned graph on one
+    device (counterpart of ``repro.core.engine.DistributedEngine``).
 
-    def __init__(self, n_parts: int, caps: EngineCaps, n_levels: int):
+    ``sharded_phase3`` and ``gather_circuit`` pick the fused run's Phase 3
+    (the solver resolves the reference's defaults); the eager path leaves
+    Phase 3 to the solver, which runs :mod:`repro_torch.core.phase3` on
+    :attr:`RunOut.mate` or on its :func:`stub_shards`."""
+
+    def __init__(self, n_parts: int, caps: EngineCaps, n_levels: int,
+                 sharded_phase3: bool = False, gather_circuit: bool = True):
         self.n = int(n_parts)
         self.caps = caps
         self.n_levels = n_levels  # supersteps ≥ tree height + 1 (ladder)
+        self.sharded_phase3 = bool(sharded_phase3)
+        self.gather_circuit = bool(gather_circuit)
 
     # ------------------------------------------------------------------
     # loading (host numpy, as in the reference)
@@ -432,131 +512,249 @@ class Engine:
     # the superstep
     # ------------------------------------------------------------------
     def superstep(self, lvl: int, anc: torch.Tensor, state: EngineState):
-        """One level over every partition: ship parked edges, opens and
-        touch pairs to their active partition, run Phase 1 there, refresh
-        the tables.  Returns ``(state', log_s1, log_s2, log_mask, flags,
-        metrics)``, the per-partition outputs stacked on a leading axis
-        (logs ``[n, PC]``, flags ``[n, 4]`` bool, metrics ``[n, 4]``)."""
+        """One level over every partition at once: ship parked edges,
+        opens and touch pairs to their active partition, run Phase 1
+        there, refresh the tables.  Returns ``(state', log_s1, log_s2,
+        log_mask, flags, metrics)``, every field ``[n, ·]`` (logs
+        ``[n, PC]``, flags ``[n, 4]`` bool, metrics ``[n, 4]``)."""
         n, c = self.n, self.caps
         osc = c.open_ship_cap or c.open_cap
         tsc = c.touch_ship_cap or c.touch_cap
+        dev = state.pk_eid.device
+        me = torch.arange(n, dtype=I32, device=dev)[:, None]
         dest_row = anc[max(lvl - 1, 0)]              # [n] part0 → active pid
-        st = [EngineState(*(x[p] for x in state)) for p in range(n)]
 
-        # ---- 1. route parked edges, opens, touch pairs (per source) ----
-        sends, pk_sent, op_sent, tc_sent = [], [], [], []
-        for me, s in enumerate(st):
-            # deferred transfer (§5): parked edges ship at their level only
-            send = s.pk_mask & (s.pk_act == lvl - 1)
-            sends.append(send)
-            e_dest = torch.where(send, dest_row[s.pk_own0.clamp(0, n - 1)], n)
-            pk_sent.append(_route(
-                e_dest, send,
-                (s.pk_eid, s.pk_u, s.pk_v, s.pk_lau, s.pk_lav, s.pk_act,
-                 s.pk_own0),
-                n, c.ship_cap))
-            o_dest = dest_row[s.op_own0.clamp(0, n - 1)] if lvl > 0 \
-                else torch.full_like(s.op_own0, me)
-            op_sent.append(_route(
-                torch.where(s.op_mask, o_dest, n), s.op_mask,
-                (s.op_stub, s.op_vert, s.op_la, s.op_comp, s.op_own0),
-                n, osc))
-            t_dest = dest_row[s.tc_own0.clamp(0, n - 1)] if lvl > 0 \
-                else torch.full_like(s.tc_own0, me)
-            tc_sent.append(_route(
-                torch.where(s.tc_mask, t_dest, n), s.tc_mask,
-                (s.tc_s1, s.tc_s2, s.tc_vert, s.tc_la, s.tc_comp,
-                 s.tc_own0),
-                n, tsc))
+        # ---- 1. ship activated parked edges (deferred transfer, §5) ----
+        send = state.pk_mask & (state.pk_act == lvl - 1)
+        e_dest = torch.where(send, dest_row[state.pk_own0.clamp(0, n - 1)], n)
+        if lvl == 0:       # level 0 consumes the initial local edges
+            _, _, of1 = _route(e_dest, send, (), n, c.ship_cap)
+            ne = NewEdges(*(_fit(x, c.new_cap) for x in
+                            (state.le_eid, state.le_u, state.le_v,
+                             state.le_lau, state.le_lav, state.le_mask)))
+            of_new = state.le_mask.sum(-1) > c.new_cap
+        else:
+            bufs, bm, of1 = _route(
+                e_dest, send, (state.pk_eid, state.pk_u, state.pk_v,
+                               state.pk_lau, state.pk_lav, state.pk_act),
+                n, c.ship_cap)
+            arrived = _received_mask(bm & (bufs[5] == lvl - 1), c.ship_cap)
+            del bm
+            fields, am, of_new = _receive_compact(bufs[:5], arrived,
+                                                  c.ship_cap, c.new_cap)
+            del bufs, arrived
+            ne = NewEdges(*(_fit(x, c.new_cap) for x in (*fields, am)))
 
-        # ---- 2. per destination: receive, Phase 1, table refresh ----
-        p1caps = c.phase1()
-        outs = []
-        for me, s in enumerate(st):
-            (r_eid, r_u, r_v, r_lau, r_lav, r_act, _), r_mask = \
-                _receive(pk_sent, me)
-            arrived_now = r_mask & (r_act == lvl - 1)
-            if lvl == 0:       # level 0 consumes the initial local edges
-                ne = NewEdges(*(_fit(x, c.new_cap) for x in
-                                (s.le_eid, s.le_u, s.le_v, s.le_lau,
-                                 s.le_lav, s.le_mask)))
-                of_new = s.le_mask.sum() > c.new_cap
-            else:
-                order = _valid_first(arrived_now)
-                ne = NewEdges(*(_fit(x[order], c.new_cap) for x in
-                                (r_eid, r_u, r_v, r_lau, r_lav,
-                                 arrived_now)))
-                of_new = arrived_now.sum() > c.new_cap
-            (os_, ov_, ol_, oc_, _oo), om_, of3 = _compact(
-                *_receive(op_sent, me), c.open_cap)
-            opens = OpenTable(os_, ov_, ol_, oc_, om_)
-            (ts1, ts2, tv_, tl_, tc_, _to), tm_, of5 = _compact(
-                *_receive(tc_sent, me), c.touch_cap)
-            touch = TouchTable(ts1, ts2, tv_, tl_, tc_, tm_)
+        # ---- 2. ship opens + touch pairs to their active partition ----
+        o_dest = dest_row[state.op_own0.clamp(0, n - 1)] if lvl > 0 \
+            else me.expand_as(state.op_own0)
+        (os_, ov_, ol_, oc_), om_, of2, of3 = _ship(
+            torch.where(state.op_mask, o_dest, n), state.op_mask,
+            (state.op_stub, state.op_vert, state.op_la, state.op_comp),
+            n, osc, c.open_cap)
+        opens = OpenTable(os_, ov_, ol_, oc_, om_)
+        t_dest = dest_row[state.tc_own0.clamp(0, n - 1)] if lvl > 0 \
+            else me.expand_as(state.tc_own0)
+        (ts1, ts2, tv_, tl_, tc_), tm_, of4, of5 = _ship(
+            torch.where(state.tc_mask, t_dest, n), state.tc_mask,
+            (state.tc_s1, state.tc_s2, state.tc_vert, state.tc_la,
+             state.tc_comp),
+            n, tsc, c.touch_cap)
+        touch = TouchTable(ts1, ts2, tv_, tl_, tc_, tm_)
 
-            out = phase1_local(ne, opens, touch, lvl, p1caps)
+        # ---- 3. Phase 1 ----
+        out = phase1_local(ne, opens, touch, lvl, c.phase1())
+        del ne, opens, touch
 
-            (pe, pu, pv, plau, plav, pact, pown), pm, of6 = _compact(
-                (s.pk_eid, s.pk_u, s.pk_v, s.pk_lau, s.pk_lav, s.pk_act,
-                 s.pk_own0), s.pk_mask & ~sends[me], c.park_cap)
-            # own0 of new opens/touch: the current active pid routes them
-            # to every future ancestor (anc rows are constant per subtree)
-            new_oo = torch.where(out.opens.mask, me, BIG)
-            new_to = torch.where(out.touch.mask, me, BIG)
-            nstate = EngineState(
-                pk_eid=pe, pk_u=pu, pk_v=pv, pk_lau=plau, pk_lav=plav,
-                pk_act=pact, pk_own0=pown, pk_mask=pm,
-                op_stub=out.opens.stub, op_vert=out.opens.vert,
-                op_la=out.opens.la, op_comp=out.opens.comp,
-                op_own0=new_oo, op_mask=out.opens.mask,
-                tc_s1=out.touch.s1, tc_s2=out.touch.s2,
-                tc_vert=out.touch.vert, tc_la=out.touch.la,
-                tc_comp=out.touch.comp, tc_own0=new_to,
-                tc_mask=out.touch.mask,
-                le_eid=s.le_eid, le_u=s.le_u, le_v=s.le_v,
-                le_lau=s.le_lau, le_lav=s.le_lav,
-                le_mask=torch.zeros_like(s.le_mask),
-            )
-            ship_of = (pk_sent[me][2] | op_sent[me][2] | of3
-                       | tc_sent[me][2] | of5 | of6 | of_new)
-            flags = torch.cat([out.flags, (~ship_of).reshape(1)])
-            metrics = torch.stack(
-                [2 * pm.sum().to(I32),
-                 3 * out.opens.mask.sum().to(I32),
-                 4 * out.touch.mask.sum().to(I32),
-                 4 * out.n_components])
-            outs.append((nstate, out.log_s1, out.log_s2, out.log_mask,
-                         flags, metrics))
-
-        nstate = EngineState(*(torch.stack([o[0][i] for o in outs])
-                               for i in range(len(EngineState._fields))))
-        return (nstate,) + tuple(torch.stack([o[k] for o in outs])
-                                 for k in range(1, 6))
+        # ---- 4. refresh the parked table ----
+        (pe, pu, pv, plau, plav, pact, pown), pm, of6 = _compact(
+            (state.pk_eid, state.pk_u, state.pk_v, state.pk_lau,
+             state.pk_lav, state.pk_act, state.pk_own0),
+            state.pk_mask & ~send, c.park_cap)
+        # own0 of new opens/touch: the current active pid routes them
+        # to every future ancestor (anc rows are constant per subtree)
+        nstate = EngineState(
+            pk_eid=pe, pk_u=pu, pk_v=pv, pk_lau=plau, pk_lav=plav,
+            pk_act=pact, pk_own0=pown, pk_mask=pm,
+            op_stub=out.opens.stub, op_vert=out.opens.vert,
+            op_la=out.opens.la, op_comp=out.opens.comp,
+            op_own0=torch.where(out.opens.mask, me, BIG),
+            op_mask=out.opens.mask,
+            tc_s1=out.touch.s1, tc_s2=out.touch.s2,
+            tc_vert=out.touch.vert, tc_la=out.touch.la,
+            tc_comp=out.touch.comp,
+            tc_own0=torch.where(out.touch.mask, me, BIG),
+            tc_mask=out.touch.mask,
+            le_eid=state.le_eid, le_u=state.le_u, le_v=state.le_v,
+            le_lau=state.le_lau, le_lav=state.le_lav,
+            le_mask=torch.zeros_like(state.le_mask),
+        )
+        ship_of = of1 | of2 | of3 | of4 | of5 | of6 | of_new
+        flags = torch.cat([out.flags, (~ship_of)[:, None]], -1)
+        metrics = torch.stack(
+            [2 * pm.sum(-1).to(I32),
+             3 * out.opens.mask.sum(-1).to(I32),
+             4 * out.touch.mask.sum(-1).to(I32),
+             4 * out.n_components], -1)
+        return nstate, out.log_s1, out.log_s2, out.log_mask, flags, metrics
 
     def run_levels(self, state: EngineState, anc: torch.Tensor,
-                   num_edges: int) -> RunOut:
+                   num_edges: int, clock: bool = True) -> RunOut:
         """Every superstep in level order, accumulating the mate logs
         into one ``[2E + 1]`` tensor (pad slot ``2E`` takes the masked
         writes, all −1).  The mesh's mate-lane overflow flag has no
         counterpart on one device: flag 3 carries only the table lanes.
-        Each level is clocked after the device drained; Phase 1 reads a
-        flag on the host every round, so the drain costs little."""
+        The eager path clocks each level after the device drained (Phase
+        1 reads a flag on the host every splice round, so the drain costs
+        little); the fused run passes ``clock=False``, drains nothing and
+        gets no ``level_s``."""
         n_stubs = 2 * num_edges
         dev = state.pk_eid.device
         mate = torch.full((n_stubs + 1,), -1, dtype=I32, device=dev)
-        flags, metrics, marks = [], [], [drained_clock(dev)]
+        flags, metrics = [], []
+        marks = [drained_clock(dev)] if clock else []
         for lvl in range(self.n_levels):
             state, s1, s2, lm, fl, mt = self.superstep(lvl, anc, state)
-            ws = torch.cat([s1.reshape(-1), s2.reshape(-1)])
-            wv = torch.cat([s2.reshape(-1), s1.reshape(-1)])
-            wm = torch.cat([lm.reshape(-1), lm.reshape(-1)])
-            # disjoint within a level; later levels overwrite earlier ones
-            mate[torch.where(wm, ws, n_stubs).to(torch.int64)] = \
-                torch.where(wm, wv, -1)
+            _log_mates(mate, s1, s2, lm, n_stubs)
             flags.append(fl)
             metrics.append(mt)
-            marks.append(drained_clock(dev))
+            if clock:
+                marks.append(drained_clock(dev))
         return RunOut(mate=mate[:n_stubs],
                       flags=torch.stack(flags, dim=1),
                       metrics=torch.stack(metrics, dim=1),
                       level_s=tuple(b - a for a, b in zip(marks, marks[1:])))
+
+    # ------------------------------------------------------------------
+    # the fused whole run
+    # ------------------------------------------------------------------
+    def whole_run(self, state: EngineState, anc: torch.Tensor,
+                  sv: torch.Tensor, num_edges: int) -> FusedOut:
+        """The fused run's body (the reference's ``one_graph``): the
+        levels unrolled over the static ``n_levels``, each level's logs
+        scattered into one mate, then Phase 3 in the engine's mode.
+        ``sv`` is the stub-vertex map, ``[2E]`` for the replicated Phase
+        3 or :func:`stub_shards` ``[n, S]`` for the sharded one.  Reads
+        nothing on the host (apart from the eager splice loops' flags
+        when it runs uncaptured), so a CUDA graph can hold it."""
+        c, n_stubs = self.caps, 2 * num_edges
+        mate, flags, metrics, _ = self.run_levels(state, anc, num_edges,
+                                                  clock=False)
+        if not self.sharded_phase3:
+            circuit, mate2, ok = phase3_device(
+                mate, sv, splice_rounds=c.phase3_rounds)
+            return FusedOut(circuit, mate2, flags, metrics, ok)
+        res = phase3_sharded(stub_shards(mate, self.n, -1), sv, n_stubs,
+                             c.p3v_cap or num_edges,
+                             splice_rounds=c.phase3_rounds,
+                             gather_circuit=self.gather_circuit)
+        if self.gather_circuit:
+            return FusedOut(*res[:2], flags, metrics, res[2])
+        mate_sh, dist_sh, reach_sh, ok = res
+        packed = torch.stack([mate_sh, dist_sh, reach_sh], -1).reshape(-1, 3)
+        return FusedOut(packed, mate_sh.reshape(-1)[:n_stubs], flags,
+                        metrics, ok)
+
+    def make_fused(self, num_edges: int) -> "FusedRun":
+        """The whole run of this bucket as one recorded program
+        (counterpart of the reference's ``make_fused``); see
+        :class:`FusedRun`."""
+        return FusedRun(self, num_edges)
+
+
+class FusedRun:
+    """One bucket's whole solve, recorded once as a CUDA graph and
+    replayed for every solve of the bucket (the reference's jitted
+    ``make_fused`` program and ``PendingRun.wait``).
+
+    It holds static input buffers (the :class:`EngineState` fields, the
+    ancestor table and the stub-vertex map, whole or as ``[n, S]``
+    shards), one ``torch.cuda.CUDAGraph`` and its static
+    :class:`FusedOut`.  :meth:`run` copies a new graph's uploaded tables
+    into the inputs and replays; the first run builds the kernel
+    libraries, warms the body up once eagerly on a side stream (as
+    torch's graph rules ask) and records it.  A host read inside the
+    recorded region makes the capture raise; nothing catches it.  On the
+    CPU the same body runs uncaptured on the inputs.
+    """
+
+    def __init__(self, engine: Engine, num_edges: int):
+        self.engine = engine
+        self.num_edges = int(num_edges)
+        self.inputs: Optional[Tuple[EngineState, torch.Tensor,
+                                    torch.Tensor]] = None
+        self.graph: Optional["torch.cuda.CUDAGraph"] = None
+        self.out: Optional[FusedOut] = None
+        self.captures = 0
+
+    def _load(self, state: EngineState, anc: torch.Tensor,
+              sv: torch.Tensor) -> None:
+        """Copy one graph's uploaded tables into the static inputs
+        (allocated from the first graph's)."""
+        if self.engine.sharded_phase3:
+            sv = stub_shards(sv, self.engine.n, 0)
+        if self.inputs is None:
+            self.inputs = (EngineState(*(x.clone() for x in state)),
+                           anc.clone(), sv.clone())
+            return
+        for dst, src in zip((*self.inputs[0], *self.inputs[1:]),
+                            (*state, anc, sv)):
+            if dst.shape != src.shape or dst.dtype != src.dtype:
+                raise ValueError(
+                    f"this fused run holds {tuple(dst.shape)} "
+                    f"{dst.dtype} tables, got {tuple(src.shape)} "
+                    f"{src.dtype}: not the same bucket")
+            dst.copy_(src)
+
+    def _capture(self) -> Tuple[float, float]:
+        """Build the kernel libraries, warm the body up once, then record
+        it.  Returns (warm-up s, capture s), each read after the device
+        drained."""
+        from ..kernels import build
+
+        dev = self.inputs[1].device
+        build.build_all()
+        t0 = drained_clock(dev)
+        side = torch.cuda.Stream(dev)
+        side.wait_stream(torch.cuda.current_stream(dev))
+        with torch.cuda.stream(side):
+            self.engine.whole_run(*self.inputs, self.num_edges)
+        torch.cuda.current_stream(dev).wait_stream(side)
+        t1 = drained_clock(dev)
+        self._record()
+        return t1 - t0, drained_clock(dev) - t1
+
+    def _record(self) -> None:
+        """Record the body into a new graph (a host read in it raises)."""
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            self.out = self.engine.whole_run(*self.inputs, self.num_edges)
+        self.graph = graph
+        self.captures += 1
+
+    def run(self, state: EngineState, anc: torch.Tensor, sv: torch.Tensor):
+        """Solve one graph of the bucket: load its tables, replay (the
+        first call records), then the one device→host fetch.  Returns
+        ``(outputs as numpy, timings)``: ``load_s`` (the copies into the
+        static inputs), ``warmup_s`` and ``capture_s`` (0.0 on a replay),
+        ``run_s`` (replay through fetch) and ``fetch_s`` (the copies
+        after the drain, part of ``run_s``)."""
+        dev = anc.device
+        t0 = drained_clock(dev)
+        self._load(state, anc, sv)
+        t1 = drained_clock(dev)
+        warm_s = cap_s = 0.0
+        if dev.type == "cuda" and self.graph is None:
+            warm_s, cap_s = self._capture()
+        t2 = drained_clock(dev)
+        if dev.type == "cuda":
+            self.graph.replay()
+            out = self.out
+        else:
+            out = self.engine.whole_run(*self.inputs, self.num_edges)
+        t3 = drained_clock(dev)
+        host = FusedOut(*(x.cpu().numpy() for x in out))
+        t4 = time.perf_counter()
+        return host, {"load_s": t1 - t0, "warmup_s": warm_s,
+                      "capture_s": cap_s, "run_s": t4 - t2,
+                      "fetch_s": t4 - t3}

@@ -23,8 +23,12 @@ parameters.  The kernel/twin seam is the wrappers' own device rule: on
 CUDA tensors the doubling rounds launch the kernels, on CPU tensors the
 wrappers compute the plain twins of :mod:`repro_torch.kernels.ref`.
 
-The splice ``while_loop``s become Python loops that read one flag per
-round on the host, with the reference's stop rule.
+The splice ``while_loop``s run through
+:func:`~repro_torch.core.capture.converge`: eagerly they read one flag a
+round on the host, with the reference's stop rule; inside a CUDA graph
+capture they run the whole round budget.  Nothing else here reads the
+device: round counts are static and the walk's start stays a tensor, so
+the fused run can record every step.
 """
 from __future__ import annotations
 
@@ -37,8 +41,9 @@ import torch
 from ..kernels.pointer_double import (pointer_double, pointer_double_rank,
                                       pointer_double_rank_shard,
                                       pointer_double_shard)
-from .phase1 import (BIG, I32, _seg_starts, lexsort2, segment_min,
-                     segment_sum)
+from .capture import converge
+from .phase1 import (BIG, I32, _edge, _seg_starts, lexsort2, segment_min,
+                     segment_sum, take)
 
 
 def circuit_from_mate_np(mate: np.ndarray, start_stub: int = -1) -> np.ndarray:
@@ -178,7 +183,7 @@ def splice_components(
     pad_m1 = torch.full((1,), -1, dtype=I32, device=dev)
     pad_0 = torch.zeros((1,), dtype=I32, device=dev)
 
-    def round_fn(mate, lab):
+    def round_fn(mate, lab, _changed):
         cm = valid & (mate > iota)                 # canonical stub per pair
         vkey = torch.where(cm, sv, BIG)
         ckey = torch.where(cm, lab, BIG)
@@ -219,11 +224,9 @@ def splice_components(
         lmap[torch.where(hm, hc, n)] = torch.where(hm, minc[hstart], 0)
         return mpad[:n], lmap[lab.clamp(0, n - 1)], hm.any()
 
-    changed = torch.ones((), dtype=torch.bool, device=dev)
-    left = rounds
-    while left > 0 and bool(changed):              # one host read per round
-        mate, lab, changed = round_fn(mate, lab)
-        left -= 1
+    mate, _, changed = converge(
+        round_fn, (mate, lab, torch.ones((), dtype=torch.bool, device=dev)),
+        rounds)
     return mate, ~changed
 
 
@@ -323,11 +326,6 @@ def _ring_bases(me: torch.Tensor, k: int, S: int) -> torch.Tensor:
     return ((me - k) % n) * S
 
 
-def _rows(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
-    """Per-row gather ``x[r, idx[r, j]]`` (``x[idx]`` on each device)."""
-    return x.gather(1, idx.to(torch.int64))
-
-
 def _doubling_sharded(kernel, q, carries, tables, me, S: int):
     """One doubling round's table rotation: ``n`` ring steps of the shard
     kernel, each answering the queries the visiting slices own.  The
@@ -369,23 +367,8 @@ def _lexsort3_rows(k1, k2, k3) -> torch.Tensor:
     that order by k1."""
     order = torch.argsort((k2.to(torch.int64) << 32) | k3.to(torch.int64),
                           dim=1, stable=True)
-    return order.gather(1, torch.argsort(_rows(k1, order), dim=1,
+    return order.gather(1, torch.argsort(take(k1, order), dim=1,
                                          stable=True))
-
-
-def _row_segments(vals, seg, width: int, live, reduce):
-    """Per-row ``segment_sum``/``segment_min`` over [n, K] rows with
-    segment ids in [0, width): ``reduce`` on flat ids, back to [n, width]."""
-    n = vals.shape[0]
-    off = (torch.arange(n, dtype=torch.int64, device=vals.device)
-           * width)[:, None]
-    return reduce(vals.reshape(-1), (seg.to(torch.int64) + off).reshape(-1),
-                  n * width, live=live.reshape(-1)).view(n, width)
-
-
-def _first_col(x: torch.Tensor, fill: bool) -> torch.Tensor:
-    return torch.full((x.shape[0], 1), fill, dtype=torch.bool,
-                      device=x.device)
 
 
 def splice_components_sharded(mate_sh: torch.Tensor, sv_sh: torch.Tensor,
@@ -420,7 +403,7 @@ def splice_components_sharded(mate_sh: torch.Tensor, sv_sh: torch.Tensor,
     spill_v = n * S + torch.arange(n * P, dtype=torch.int64,
                                    device=dev).view(n, P)
 
-    def round_fn(mate, lab):
+    def round_fn(mate, lab, of, _changed):
         cm = (mate >= 0) & (mate > gid)           # canonical stub per pair
 
         # ---- ring 1: ship canonical records to their vertex owner ----
@@ -435,27 +418,27 @@ def splice_components_sharded(mate_sh: torch.Tensor, sv_sh: torch.Tensor,
             if k:
                 buf = _ring(buf, 1)
             bs, bv, bc, bm, bmk = buf
-            take = (bmk > 0) & (bv % n == me[:, None])
-            pos = cnt[:, None] + torch.cumsum(take, dim=1, dtype=I32) - 1
-            okw = take & (pos < P)
+            mine = (bmk > 0) & (bv % n == me[:, None])
+            pos = cnt[:, None] + torch.cumsum(mine, dim=1, dtype=I32) - 1
+            okw = mine & (pos < P)
             slot = me64 * (P + 1) + torch.where(okw, pos, P)
             tbl[:, slot.reshape(-1)] = torch.where(
                 okw, torch.stack([bv, bc, bs, bm]), BIG).reshape(4, -1)
-            cnt = cnt + take.sum(1, dtype=I32)
+            cnt = cnt + mine.sum(1, dtype=I32)
             of_t = of_t | (cnt > P)
         tv, tc, ts, tm = tbl.view(4, n, P + 1)[:, :, :P]
 
         # ---- local per-vertex logic (the replicated path's) ----
         order = _lexsort3_rows(tv, tc, ts)
-        gv, gc, gs, gm = (_rows(x, order) for x in (tv, tc, ts, tm))
+        gv, gc, gs, gm = (take(x, order) for x in (tv, tc, ts, tm))
         gmk = gv < BIG
-        dup = torch.cat([_first_col(gv, False),
+        dup = torch.cat([_edge(gv, False),
                          (gv[:, 1:] == gv[:, :-1]) & (gc[:, 1:] == gc[:, :-1])],
                         dim=1)
         rep = gmk & ~dup
         vseg = torch.searchsorted(gv, gv, out_int32=True)
-        n_rep = _row_segments(rep.to(I32), vseg, P, rep, segment_sum)
-        cand = rep & (_rows(n_rep, vseg) >= 2)
+        n_rep = segment_sum(rep.to(I32), vseg, P, live=rep)
+        cand = rep & (take(n_rep, vseg) >= 2)
 
         # ---- ring 2: scatter-min votes onto the comp-label owners ----
         vbuf = torch.stack([torch.where(cand, gc, BIG),
@@ -475,26 +458,26 @@ def splice_components_sharded(mate_sh: torch.Tensor, sv_sh: torch.Tensor,
         va = torch.full_like(qc, BIG)
         for _ in range(n):
             own = (qc >= lo) & (qc < hi)
-            va = torch.where(own, _rows(vote, torch.where(own, qc - lo, 0)),
+            va = torch.where(own, take(vote, torch.where(own, qc - lo, 0)),
                              va)
             qc, va = _ring(torch.stack([qc, va]), 1)
 
         voted = cand & (va == gv)
-        n_take = _row_segments(voted.to(I32), vseg, P, voted, segment_sum)
-        act = voted & (_rows(n_take, vseg) >= 2)
+        n_take = segment_sum(voted.to(I32), vseg, P, live=voted)
+        act = voted & (take(n_take, vseg) >= 2)
 
         # circular rotation pairs within each pivot vertex's act group
         akey = torch.where(act, gv, BIG)
         o2 = torch.argsort(akey, dim=1, stable=True)
-        hv, hs, hc, hmate = (_rows(x, o2) for x in (akey, gs, gc, gm))
+        hv, hs, hc, hmate = (take(x, o2) for x in (akey, gs, gc, gm))
         hm = act.gather(1, o2)
         hstart = torch.searchsorted(hv, hv, out_int32=True)
-        hlast = torch.cat([hv[:, 1:] != hv[:, :-1], _first_col(hv, True)],
+        hlast = torch.cat([hv[:, 1:] != hv[:, :-1], _edge(hv, True)],
                           dim=1)
         hnxt = torch.where(hlast, hstart, col + 1).clamp(0, P - 1)
-        b = _rows(hmate, hnxt)                     # mate of the next rep
-        minc = _row_segments(hc, hstart, P, hm, segment_min)
-        rot_c = _rows(minc, hstart)
+        b = take(hmate, hnxt)                     # mate of the next rep
+        minc = segment_min(hc, hstart, P, live=hm)
+        rot_c = take(minc, hstart)
 
         # ---- ring 4: deliver mate[a_i] ← b_{i+1}, mate[b_{i+1}] ← a_i ----
         wbuf = torch.stack([torch.where(hm, hs, BIG), torch.where(hm, b, BIG),
@@ -532,18 +515,14 @@ def splice_components_sharded(mate_sh: torch.Tensor, sv_sh: torch.Tensor,
         for _ in range(n):
             own = (ql >= lo) & (ql < hi)
             lab_new = torch.where(
-                own, _rows(lmap, torch.where(own, ql - lo, 0)), lab_new)
+                own, take(lmap, torch.where(own, ql - lo, 0)), lab_new)
             ql, lab_new = _ring(torch.stack([ql, lab_new]), 1)
 
-        return mate_new, lab_new, hm.any(), of_t.any()
+        return mate_new, lab_new, of | of_t.any(), hm.any()
 
-    changed = torch.ones((), dtype=torch.bool, device=dev)
-    of = torch.zeros((), dtype=torch.bool, device=dev)
-    left = rounds
-    while left > 0 and bool(changed):              # one host read per round
-        mate_sh, lab, changed, of_r = round_fn(mate_sh, lab)
-        of = of | of_r
-        left -= 1
+    mate_sh, _, of, changed = converge(
+        round_fn, (mate_sh, lab, torch.zeros((), dtype=torch.bool, device=dev),
+                   torch.ones((), dtype=torch.bool, device=dev)), rounds)
     return mate_sh, ~changed & ~of
 
 

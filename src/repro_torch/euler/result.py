@@ -28,6 +28,8 @@ class EulerResult:
     tree: MergeTree
     levels: List[LevelStats]         # per-level Int64 state
     supersteps: int
+    backend: str = "device"          # the port has the device backend only
+    fused: bool = False              # one recorded graph vs eager steps
     device: str = "cuda"             # where the engine ran
     graph: Optional[Graph] = None    # the (unpadded) input graph
     padded_edges: int = 0            # dummy edges added for shape bucketing

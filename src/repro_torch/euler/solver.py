@@ -8,6 +8,16 @@ One solve runs the reference's device path:
   accumulated on the device) → Phase 3 → one fetch → the reference's
   error checks → strip the bucket's dummy edges.
 
+Two execution modes, as in the reference.  ``fused=True`` (the default)
+runs everything from the supersteps through Phase 3 as one recorded
+CUDA graph per bucket (:class:`~repro_torch.core.engine.FusedRun`):
+the first solve of a bucket records it, later solves of the bucket copy
+their tables in and replay it, and the outputs come back with one
+drain.  The solver keeps one bucket's graph alive at a time: a solve in
+another bucket frees it before recording its own.  ``fused=False`` is
+the eager oracle: the levels and Phase 3's steps run one by one, each
+clocked.  Both give the same bits.
+
 Phase 3 is sharded over the partitions by default when ``n_parts > 1``
 (the CC, splice and rank steps over ``[n, S]`` stub shards, K3/K4) and
 replicated for ``n_parts = 1`` (K1/K2), as in the reference;
@@ -17,8 +27,9 @@ only) fetches the rank shards and emits the circuit on the host.
 It runs on ``"cuda"`` unless the caller passes ``device="cpu"``; with no
 card it raises instead of falling back.  The paper's two §5 heuristics
 are always on, as in the reference's defaults.  Not ported yet: batching,
-the host backend, the program LRU, the autotuner, the observability hooks
-and the ``deferred_transfer=False`` baseline.
+``solve_many``/``solve_async``, the host backend, the byte-aware program
+LRU, the autotuner, the observability hooks and the
+``deferred_transfer=False`` baseline.
 
     >>> from repro_torch.euler import solve                 # doctest: +SKIP
     >>> res = solve(graph, n_parts=8).validate()            # doctest: +SKIP
@@ -31,8 +42,9 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
-from ..core.engine import (Engine, EngineCaps, drained_clock,
-                           state_from_numpy, stub_shards, stub_vertex)
+from ..core.engine import (Engine, EngineCaps, FusedOut, FusedRun,
+                           drained_clock, state_from_numpy, stub_shards,
+                           stub_vertex)
 from ..core.graph import Graph, PartitionedGraph, partition_graph
 from ..core.phase2 import MergeTree, generate_merge_tree
 from ..core.phase3 import (_cc_labels_sharded, _rank_sharded,
@@ -78,15 +90,21 @@ class EulerSolver:
 
     ``sharded_phase3=None`` shards Phase 3 over the partitions when
     ``n_parts > 1``; ``gather_circuit=False`` (sharded only) leaves the
-    rank shards unreduced on the device and emits on the host.  Both are
-    the reference's options with its defaults.
+    rank shards unreduced on the device and emits on the host;
+    ``fused=True`` runs each solve as one recorded graph per bucket,
+    ``fused=False`` eagerly (overridable per :meth:`solve`).  All three
+    are the reference's options with its defaults.  ``captures`` counts
+    the graphs this solver recorded.
     """
 
     def __init__(self, n_parts: int = 1, device=None,
                  sharded_phase3: Optional[bool] = None,
-                 gather_circuit: bool = True):
+                 gather_circuit: bool = True, fused: bool = True):
         self.n_parts = int(n_parts)
         self.device = resolve_device(device)
+        self.fused = bool(fused)
+        self.captures = 0
+        self._fused: Optional[Tuple[BucketKey, FusedRun]] = None
         if sharded_phase3 is None:
             sharded_phase3 = self.n_parts > 1
         self.sharded_phase3 = bool(sharded_phase3)
@@ -136,37 +154,80 @@ class EulerSolver:
         return pg, tree, (e_cap, self.n_parts, n_levels, caps)
 
     def solve(self, graph: Graph,
-              part_of_vertex: Optional[np.ndarray] = None) -> EulerResult:
+              part_of_vertex: Optional[np.ndarray] = None,
+              fused: Optional[bool] = None) -> EulerResult:
         """Find an Euler circuit of ``graph``; returns :class:`EulerResult`.
 
+        ``fused`` overrides the solver's execution mode for this call.
         ``timings`` holds wall seconds per phase, each read after the
         device drained: ``prepare_s`` (host partition, plan, caps, table
-        build), ``upload_s``, ``supersteps_s`` and each level's
-        ``superstep_<L>_s``, ``phase3_s``, ``fetch_s`` and ``total_s``.
-        ``phase3_s`` splits into ``splice_s`` (CC labels included) and
-        ``emit_s`` on the replicated path, and into ``cc_s``, ``splice_s``,
-        ``rank_s`` and ``emit_s`` on the sharded one, where ``emit_s`` is
-        the gather and emission, or under ``gather_circuit=False`` only
-        the packing of the rank shards; the host emission that follows
-        the fetch is then ``host_emit_s``.  The Phase 3 functions' steps
-        run one by one to clock each.
+        build), ``upload_s``, then
+
+          * fused: ``warmup_s`` and ``capture_s`` (the eager warm-up and
+            the recording, both 0.0 on a replay), ``run_s`` (replay
+            through fetch) and its ``fetch_s``;
+          * eager: ``supersteps_s`` and each level's ``superstep_<L>_s``,
+            ``phase3_s``, ``fetch_s``.  ``phase3_s`` splits into
+            ``splice_s`` (CC labels included) and ``emit_s`` on the
+            replicated path, and into ``cc_s``, ``splice_s``, ``rank_s``
+            and ``emit_s`` on the sharded one, where ``emit_s`` is the
+            gather and emission, or under ``gather_circuit=False`` only
+            the packing of the rank shards.  The Phase 3 functions' steps
+            run one by one to clock each;
+
+        and ``total_s``.  Under ``gather_circuit=False`` the host emission
+        that follows the fetch is ``host_emit_s``.
         """
+        fused = self.fused if fused is None else bool(fused)
         dev = self.device
         t0 = time.perf_counter()
         pg, tree, key = self.prepare(graph, part_of_vertex)
         e_cap, n_parts, n_levels, caps = key
-        eng = Engine(n_parts, caps, n_levels)
+        eng = Engine(n_parts, caps, n_levels,
+                     sharded_phase3=self.sharded_phase3,
+                     gather_circuit=self.gather_circuit)
         state_np, anc = eng.load(pg)
         t1 = drained_clock(dev)
         state, anc_t, sv = state_from_numpy(state_np, anc, stub_vertex(pg),
                                             dev)
         t2 = drained_clock(dev)
-        run = eng.run_levels(state, anc_t, e_cap)
-        del state
+        timings = {"prepare_s": t1 - t0, "upload_s": t2 - t1}
+        if fused:
+            run = self._fused_run(key, eng)
+            before = run.captures
+            out, marks = run.run(state, anc_t, sv)
+            self.captures += run.captures - before
+            timings["upload_s"] += marks.pop("load_s")
+            timings.update(marks)
+        else:
+            out = self._eager(eng, state, anc_t, sv, timings)
+        return self._result(graph, tree, key, out, timings, fused, t0)
+
+    def _fused_run(self, key: BucketKey, eng: Engine) -> FusedRun:
+        """The bucket's fused run, reused for every solve of the bucket.
+        At most one is alive: another bucket's is dropped, and its graph
+        and memory pool freed, before the new one records."""
+        if self._fused is not None and self._fused[0] == key:
+            return self._fused[1]
+        if self._fused is not None:
+            self._fused = None
+            if self.device.type == "cuda":
+                torch.cuda.empty_cache()
+        run = eng.make_fused(key[0])
+        self._fused = (key, run)
+        return run
+
+    def _eager(self, eng: Engine, state, anc: torch.Tensor,
+               sv: torch.Tensor, timings: dict) -> FusedOut:
+        """The eager oracle: the levels, then Phase 3's steps, each
+        clocked into ``timings``; returns the fetched outputs."""
+        dev, caps = self.device, eng.caps
+        t2 = drained_clock(dev)
+        run = eng.run_levels(state, anc, sv.shape[0] // 2)
         t3 = drained_clock(dev)
         if self.sharded_phase3:
             circuit, mate, ok3, marks = self._phase3_sharded(
-                run.mate, sv, caps, 2 * e_cap, t3)
+                run.mate, sv, caps, sv.shape[0], t3)
             names = ("cc_s", "splice_s", "rank_s", "emit_s")
         else:
             valid = run.mate >= 0
@@ -176,20 +237,32 @@ class EulerSolver:
             circuit = circuit_from_mate(mate, first_valid(valid))
             marks = (t3, t3b, drained_clock(dev))
             names = ("splice_s", "emit_s")
-        p3 = {k: b - a for k, a, b in zip(names, marks, marks[1:])}
         t4 = marks[-1]
-        circuit, mate, flags, metrics, ok3 = (
-            x.cpu().numpy() for x in (circuit, mate, run.flags, run.metrics,
-                                      ok3))
-        t5 = time.perf_counter()
+        out = FusedOut(*(x.cpu().numpy() for x in
+                         (circuit, mate, run.flags, run.metrics, ok3)))
+        timings.update({"supersteps_s": t3 - t2,
+                        **{f"superstep_{lvl}_s": sec
+                           for lvl, sec in enumerate(run.level_s)},
+                        "phase3_s": t4 - t3,
+                        **{k: b - a for k, a, b in
+                           zip(names, marks, marks[1:])},
+                        "fetch_s": time.perf_counter() - t4})
+        return out
+
+    def _result(self, graph: Graph, tree: MergeTree, key: BucketKey,
+                out: FusedOut, timings: dict, fused: bool,
+                t0: float) -> EulerResult:
+        """The reference's checks on the fetched run (``PendingRun.wait``)
+        and the result."""
+        e_cap, n_levels = key[0], key[2]
+        circuit, mate, flags, metrics, ok3 = out
         if not self.gather_circuit:
             # the rank triple [n·S, 3] came back still sharded; emit
-            # host-side with the device path's ordering (the reference's
-            # PendingRun.wait)
+            # host-side with the device path's ordering
+            t = time.perf_counter()
             packed = circuit[:2 * e_cap]
             circuit = emit_circuit_np(mate >= 0, packed[:, 1], packed[:, 2])
-            p3["host_emit_s"] = time.perf_counter() - t5
-        # the reference's checks on the fetched run (PendingRun.wait)
+            timings["host_emit_s"] = time.perf_counter() - t
         if not flags.all():
             raise RuntimeError(
                 f"convergence/capacity flags failed: {flags.all((0, 1))}")
@@ -200,6 +273,7 @@ class EulerSolver:
         circuit = circuit.astype(np.int64)
         if not (circuit >= 0).all():
             raise RuntimeError("circuit emission left gaps")
+        timings["total_s"] = time.perf_counter() - t0
         return EulerResult(
             circuit=strip_circuit(circuit, graph.num_edges),
             mate=mate.astype(np.int64),
@@ -207,16 +281,13 @@ class EulerSolver:
             levels=EulerResult.levels_from_metrics(
                 [metrics[:, lvl] for lvl in range(n_levels)]),
             supersteps=n_levels,
-            device=str(dev),
+            backend="device",
+            fused=fused,
+            device=str(self.device),
             graph=graph,
             padded_edges=e_cap - graph.num_edges,
             phase3_converged=bool(ok3),
-            timings={"prepare_s": t1 - t0, "upload_s": t2 - t1,
-                     "supersteps_s": t3 - t2,
-                     **{f"superstep_{lvl}_s": sec
-                        for lvl, sec in enumerate(run.level_s)},
-                     "phase3_s": t4 - t3, **p3, "fetch_s": t5 - t4,
-                     "total_s": time.perf_counter() - t0},
+            timings=timings,
         )
 
     def _phase3_sharded(self, mate: torch.Tensor, sv: torch.Tensor,

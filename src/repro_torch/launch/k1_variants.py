@@ -376,7 +376,8 @@ def path_input(scale: int) -> torch.Tensor:
         return real(rec, out=out)
 
     with mock.patch.object(p3, "pointer_double", capture):
-        solve(g, n_parts=8, device="cuda", sharded_phase3=False)
+        solve(g, n_parts=8, device="cuda", sharded_phase3=False,
+              fused=False)
     return seen[0]
 
 

@@ -2,18 +2,26 @@
 
     python -m repro_torch.launch.profile --scale 20               # sharded
     python -m repro_torch.launch.profile --scale 20 --replicated
+    python -m repro_torch.launch.profile --scale 20 --fused [--replicated]
 
 Calls :meth:`repro_torch.euler.EulerSolver.solve` on ``cuda`` twice for
 an Eulerian RMAT graph (average degree 5, seed 0, 8 partitions:
 ``chip_smoke.py``'s main path), with the solver's default Phase 3 (the
 sharded one, K3/K4) or, under ``--replicated``, the replicated one
-(K1/K2).  The first solve runs plain: its
-``timings`` (each phase and each superstep read after the device
-drained) and the peak device memory are printed and the circuit is
-validated.  The second runs under ``torch.profiler``: its timings, the
-device's busy and idle share of the whole solve and of its device phases
-(everything after the host prep), the kernels by total device time, and
-the rows of the port's own kernels K1–K4 by name.
+(K1/K2).  The first solve runs plain: its ``timings`` and the peak
+device memory are printed and the circuit is validated.  The second runs
+under ``torch.profiler``: its timings, the device's busy and idle share,
+the kernels by total device time, and the rows of the port's own kernels
+K1–K4 by name.
+
+Without ``--fused`` both solves are eager (``fused=False``): each phase
+and each superstep is read after the device drained, and the idle share
+is given of the whole solve and of its device phases (everything after
+the host prep).  With ``--fused`` the first solve records the bucket's
+graph and the profiled one replays it: the idle share is of its
+``run_s`` (replay through fetch), and the K1–K4 rows count the kernels'
+launches inside the graph, which the wrappers' launch counters do not
+see on a replay.
 
 No file of ``repro/launch`` matches this script: the JAX package timed
 its phases with ``repro.obs`` spans, which the port does not have yet.
@@ -68,10 +76,14 @@ def main(argv=None) -> int:
     ap.add_argument("--replicated", action="store_true",
                     help="profile the replicated Phase 3 (K1/K2) instead "
                          "of the default sharded one (K3/K4)")
+    ap.add_argument("--fused", action="store_true",
+                    help="profile a warm replay of the fused run instead "
+                         "of an eager solve")
     args = ap.parse_args(argv)
 
     # raises with no card
-    solver = EulerSolver(n_parts=8, sharded_phase3=not args.replicated)
+    solver = EulerSolver(n_parts=8, sharded_phase3=not args.replicated,
+                         fused=args.fused)
     t = time.perf_counter()
     build.build_all()                                 # set-up, not solve time
     _say("build", s=f"{time.perf_counter() - t:.4f}")
@@ -83,9 +95,10 @@ def main(argv=None) -> int:
     torch.cuda.reset_peak_memory_stats()
     res = solver.solve(g).validate()
     _say("solve", valid=res.valid, supersteps=res.supersteps,
-         sharded_phase3=solver.sharded_phase3,
+         sharded_phase3=solver.sharded_phase3, fused=res.fused,
          peak_gib=f"{torch.cuda.max_memory_allocated() / 2**30:.3f}",
-         **_timings(res))
+         reserved_gib=f"{torch.cuda.max_memory_reserved() / 2**30:.3f}",
+         captures=solver.captures, **_timings(res))
 
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
@@ -95,11 +108,20 @@ def main(argv=None) -> int:
             if _is_kernel(e) and _device_us(e) > 0]
     busy_s = sum(_device_us(e) for e in rows) / 1e6
     tm = res.timings
-    device_s = tm["total_s"] - tm["prepare_s"]
-    _say("profiled solve", **_timings(res))
-    _say("profiled device", busy_s=f"{busy_s:.4f}",
-         idle_share_solve=f"{max(0.0, 1 - busy_s / tm['total_s']):.3f}",
-         idle_share_device_phases=f"{max(0.0, 1 - busy_s / device_s):.3f}")
+    _say("profiled solve", captures=solver.captures, **_timings(res))
+    if args.fused:
+        # the replay copies nothing host→device: those rows are the upload
+        run_busy_s = busy_s - sum(_device_us(e) for e in rows
+                                  if "HtoD" in e.key) / 1e6
+        _say("profiled device", busy_s=f"{busy_s:.4f}",
+             run_busy_s=f"{run_busy_s:.4f}",
+             idle_share_run=f"{max(0.0, 1 - run_busy_s / tm['run_s']):.3f}",
+             idle_share_solve=f"{max(0.0, 1 - busy_s / tm['total_s']):.3f}")
+    else:
+        device_s = tm["total_s"] - tm["prepare_s"]
+        _say("profiled device", busy_s=f"{busy_s:.4f}",
+             idle_share_solve=f"{max(0.0, 1 - busy_s / tm['total_s']):.3f}",
+             idle_share_device_phases=f"{max(0.0, 1 - busy_s / device_s):.3f}")
     rows.sort(key=_device_us, reverse=True)
     for e in rows[:25]:
         print(f"[profile] kernel {_device_us(e) / 1e3:10.3f} ms "

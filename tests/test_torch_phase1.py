@@ -4,14 +4,22 @@ One subprocess (8 simulated devices) runs the JAX package's eager
 per-level superstep (``DistributedEngine.make_superstep``) on an
 8-partition solve with ``phase1_local`` wrapped so that every call hands
 its inputs and its ``Phase1Out`` to the host (``jax.debug.callback``).
-The port's ``phase1_local`` then runs on each recorded input, and every
-output field must be byte-identical.
+The port's ``phase1_local`` then runs on each recorded input, one
+partition at a time (``n = 1``) and all 8 partitions of a level in one
+batched call, and every output field of every row must be
+byte-identical.  The batched call runs three ways: the eager splice loop
+(stops when no row changes), ``static_splice`` (every round, flag forced
+true) and the whole round budget, as under a CUDA graph capture.
 """
+import dataclasses
+from unittest import mock
+
 import numpy as np
 import pytest
 import torch
 
 from conftest import run_with_devices
+from repro_torch.core import capture
 from repro_torch.core.phase1 import (NewEdges, OpenTable, Phase1Caps,
                                      TouchTable, phase1_local)
 
@@ -71,8 +79,35 @@ def captured(tmp_path_factory):
 
 
 def _table(rec, key, prefix, cls):
-    return cls(*(torch.from_numpy(rec[f"{key}/{prefix}.{f}"])
+    """One partition's recorded table as ``[1, ·]`` rows."""
+    return cls(*(torch.from_numpy(rec[f"{key}/{prefix}.{f}"])[None]
                  for f in cls._fields))
+
+
+def _batched(rec, level, prefix, cls):
+    """All partitions' recorded tables of ``level`` as ``[PARTS, ·]``."""
+    return cls(*(torch.from_numpy(np.stack(
+        [rec[f"{level}_{p}/{prefix}.{f}"] for p in range(PARTS)]))
+        for f in cls._fields))
+
+
+def _caps(rec) -> Phase1Caps:
+    return Phase1Caps(**{k: int(rec["caps." + k]) for k in
+                         ("open_cap", "touch_cap", "hook_rounds",
+                          "splice_rounds")})
+
+
+def _assert_row(rec, out, row: int, key: str, what: str) -> None:
+    """Row ``row`` of a port ``Phase1Out`` equals the record ``key``."""
+    for prefix, tbl in (("out_open", out.opens), ("out_touch", out.touch)):
+        for f in tbl._fields:
+            np.testing.assert_array_equal(
+                getattr(tbl, f)[row].numpy(), rec[f"{key}/{prefix}.{f}"],
+                err_msg=f"{what} {prefix}.{f}")
+    for f in ("log_s1", "log_s2", "log_mask", "n_components", "flags"):
+        np.testing.assert_array_equal(
+            getattr(out, f)[row].numpy(), rec[f"{key}/out.{f}"],
+            err_msg=f"{what} out.{f}")
 
 
 def test_capture_covers_every_level(captured):
@@ -84,9 +119,8 @@ def test_capture_covers_every_level(captured):
 
 @pytest.mark.parametrize("level", range(N_LEVELS))
 def test_phase1_out_byte_identical(captured, level):
-    caps = Phase1Caps(**{k: int(captured["caps." + k]) for k in
-                         ("open_cap", "touch_cap", "hook_rounds",
-                          "splice_rounds")})
+    """One partition a call (``n = 1``), each against its record."""
+    caps = _caps(captured)
     live = 0
     for p in range(PARTS):
         key = f"{level}_{p}"
@@ -94,18 +128,35 @@ def test_phase1_out_byte_identical(captured, level):
                            _table(captured, key, "open", OpenTable),
                            _table(captured, key, "touch", TouchTable),
                            level, caps)
-        for prefix, tbl in (("out_open", out.opens),
-                            ("out_touch", out.touch)):
-            for f in tbl._fields:
-                np.testing.assert_array_equal(
-                    getattr(tbl, f).numpy(), captured[f"{key}/{prefix}.{f}"],
-                    err_msg=f"level {level} part {p} {prefix}.{f}")
-        for f in ("log_s1", "log_s2", "log_mask", "n_components", "flags"):
-            np.testing.assert_array_equal(
-                getattr(out, f).numpy(), captured[f"{key}/out.{f}"],
-                err_msg=f"level {level} part {p} out.{f}")
+        _assert_row(captured, out, 0, key, f"level {level} part {p}")
         live += int(captured[f"{key}/new.mask"].sum()
                     + captured[f"{key}/open.mask"].sum()
                     + captured[f"{key}/touch.mask"].sum())
     if level < N_LEVELS - 1:
         assert live > 0, "a real level must feed Phase 1 something"
+
+
+@pytest.mark.parametrize("mode", ["eager", "static_splice", "full_budget"])
+@pytest.mark.parametrize("level", range(N_LEVELS))
+def test_phase1_batched_rows_byte_identical(captured, level, mode):
+    """All 8 partitions of a level in one call: row p is partition p's
+    record.  ``static_splice`` runs every splice round and reports the
+    splice converged; ``full_budget`` runs them all too (the capture
+    rule) but keeps the real flag.  Both must leave each row as the
+    reference's early-stopping loop did."""
+    caps = _caps(captured)
+    if mode == "static_splice":
+        caps = dataclasses.replace(caps, static_splice=True)
+    args = (_batched(captured, level, "new", NewEdges),
+            _batched(captured, level, "open", OpenTable),
+            _batched(captured, level, "touch", TouchTable), level, caps)
+    if mode == "full_budget":
+        with mock.patch.object(capture, "capturing", lambda device: True):
+            out = phase1_local(*args)
+    else:
+        out = phase1_local(*args)
+    assert out.flags.shape == (PARTS, 3)
+    for p in range(PARTS):
+        key = f"{level}_{p}"
+        assert captured[f"{key}/out.flags"].all()   # every loop converged
+        _assert_row(captured, out, p, key, f"{mode} level {level} part {p}")

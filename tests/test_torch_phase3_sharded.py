@@ -325,13 +325,17 @@ MODES = {"sharded": {}, "replicated": {"sharded_phase3": False},
 @pytest.mark.parametrize("scale", SOLVE_SCALES)
 @pytest.mark.parametrize("P", SOLVE_PARTS)
 def test_solve_modes_byte_identical_to_jax_default(reference, P, scale, mode):
+    """The port's default (fused) run and its eager oracle, whose Phase 3
+    steps are clocked one by one."""
     g = eulerian_rmat(scale, avg_degree=4, seed=scale)
-    res = solve(g, n_parts=P, device="cpu", **MODES[mode]).validate()
-    np.testing.assert_array_equal(res.circuit,
-                                  reference[f"solve/{P}_{scale}/circuit"])
-    np.testing.assert_array_equal(res.mate,
-                                  reference[f"solve/{P}_{scale}/mate"])
-    assert res.phase3_converged
+    for fused in (True, False):
+        res = solve(g, n_parts=P, device="cpu", fused=fused,
+                    **MODES[mode]).validate()
+        np.testing.assert_array_equal(res.circuit,
+                                      reference[f"solve/{P}_{scale}/circuit"])
+        np.testing.assert_array_equal(res.mate,
+                                      reference[f"solve/{P}_{scale}/mate"])
+        assert res.phase3_converged and res.fused == fused
     t = res.timings
     parts = (("splice_s", "emit_s") if mode == "replicated" else
              ("cc_s", "splice_s", "rank_s", "emit_s"))

@@ -9,19 +9,37 @@ package's own tests/test_sharded_phase3.py holds byte-identical to its
 sharded default, so each P>1 case also crosses the two paths.
 tests/test_torch_phase3_sharded.py holds every Phase 3 mode of the port
 against the reference's default.  The references run in one subprocess
-with 8 simulated devices; the port runs here."""
+with 8 simulated devices; the port runs here.
+
+The port's fused run (``fused=True``, its default, as the reference's)
+and its eager oracle (``fused=False``) are both held to the same bytes
+in every Phase 3 mode, and so is the fused run with every splice loop at
+its full round budget, which is what a CUDA graph capture records.  On a
+card (``gpu`` tests) the fused run records one graph per bucket and
+replays it."""
 import dataclasses
+from unittest import mock
 
 import numpy as np
 import pytest
+import torch
 
 from conftest import run_with_devices
+from repro_torch.core import capture
 from repro_torch.core.graph import Graph
 from repro_torch.euler import EulerSolver, solve
 from repro_torch.graphgen.eulerize import eulerian_rmat
 
 PARTS = [1, 2, 8]
 SCALES = [5, 6, 7]
+#: the three Phase 3 modes, named so that P = 1 runs them all
+MODES = {"sharded": {"sharded_phase3": True},
+         "replicated": {"sharded_phase3": False},
+         "no_gather": {"sharded_phase3": True, "gather_circuit": False}}
+EAGER_KEYS = {"prepare_s", "upload_s", "supersteps_s", "phase3_s",
+              "fetch_s", "total_s"}
+FUSED_KEYS = {"prepare_s", "upload_s", "warmup_s", "capture_s", "run_s",
+              "fetch_s", "total_s"}
 
 _REFERENCE = '''
 import numpy as np
@@ -58,22 +76,74 @@ def test_solve_byte_identical_to_jax(reference, P, scale):
     assert len(res.levels) == res.supersteps
 
 
+@pytest.mark.parametrize("scale", SCALES)
+@pytest.mark.parametrize("P", PARTS)
+def test_fused_and_eager_byte_identical_to_jax(reference, P, scale):
+    """Every Phase 3 mode, fused and eager, and the fused run with every
+    splice loop at its full budget (the capture rule): all the
+    reference's bytes."""
+    g = eulerian_rmat(scale, avg_degree=4, seed=scale)
+    want = (reference[f"{P}_{scale}/circuit"], reference[f"{P}_{scale}/mate"])
+    for mode, opts in MODES.items():
+        solver = EulerSolver(n_parts=P, device="cpu", **opts)
+        runs = {"fused": solver.solve(g), "eager": solver.solve(g, fused=False)}
+        with mock.patch.object(capture, "capturing", lambda device: True):
+            runs["full_budget"] = solver.solve(g)
+        for name, res in runs.items():
+            res.validate()
+            np.testing.assert_array_equal(res.circuit, want[0],
+                                          err_msg=f"{mode} {name}")
+            np.testing.assert_array_equal(res.mate, want[1],
+                                          err_msg=f"{mode} {name}")
+            assert res.fused == (name != "eager")
+            assert res.backend == "device"
+        assert solver.captures == 0               # the CPU records nothing
+
+
 def test_bowtie_and_timings():
     """Two triangles through one pivot vertex on one partition: the
-    Phase 3 splice joins them; every phase reports its wall time."""
+    Phase 3 splice joins them; every phase reports its wall time, eager
+    phase by phase, fused as the run's marks."""
     bowtie = Graph(5, np.array([0, 1, 2, 0, 3, 4]),
                    np.array([1, 2, 0, 3, 4, 0]))
-    res = solve(bowtie, n_parts=1, device="cpu").validate()
+    res = solve(bowtie, n_parts=1, device="cpu", fused=False).validate()
     assert sorted((res.circuit >> 1).tolist()) == list(range(6))
     assert res.padded_edges == 64 - 6
     levels = {f"superstep_{lvl}_s" for lvl in range(res.supersteps)}
-    assert set(res.timings) == {"prepare_s", "upload_s", "supersteps_s",
-                                "phase3_s", "splice_s", "emit_s",
-                                "fetch_s", "total_s"} | levels
+    assert set(res.timings) == EAGER_KEYS | {"splice_s", "emit_s"} | levels
     t = res.timings
     assert min(t.values()) >= 0
     assert sum(t[k] for k in levels) <= t["supersteps_s"]
     assert t["splice_s"] + t["emit_s"] == pytest.approx(t["phase3_s"])
+    fused = solve(bowtie, n_parts=1, device="cpu").validate()
+    assert fused.fused and not res.fused
+    np.testing.assert_array_equal(fused.circuit, res.circuit)
+    t = fused.timings
+    assert set(t) == FUSED_KEYS and min(t.values()) >= 0
+    assert t["capture_s"] == t["warmup_s"] == 0.0
+    assert t["fetch_s"] <= t["run_s"] <= t["total_s"]
+
+
+def test_solver_keeps_one_fused_run_per_bucket():
+    """Same-bucket solves reuse one fused run; another bucket replaces
+    it (the solver keeps one alive), and a run refuses another bucket's
+    tables."""
+    solver = EulerSolver(n_parts=2, device="cpu")
+    a = eulerian_rmat(6, avg_degree=4, seed=1)
+    b = eulerian_rmat(6, avg_degree=4, seed=2)
+    key_a = solver.prepare(a)[2]
+    assert solver.prepare(b)[2] == key_a          # one bucket
+    solver.solve(a)
+    run = solver._fused[1]
+    solver.solve(b).validate()
+    assert solver._fused[1] is run
+    c = eulerian_rmat(8, avg_degree=4, seed=3)
+    solver.solve(c).validate()
+    assert solver._fused[0] != key_a and solver._fused[1] is not run
+    run = solver._fused[1]
+    state, anc, _ = run.inputs
+    with pytest.raises(ValueError, match="not the same bucket"):
+        run.run(state, anc, torch.zeros(8, dtype=torch.int32))
 
 
 class _Undersized(EulerSolver):
@@ -102,8 +172,6 @@ def test_partition_count_checks():
 def test_cuda_solve_matches_cpu(P):
     """On a card: the CUDA path (kernels included) returns the CPU path's
     circuit and mate byte for byte."""
-    import torch
-
     if not torch.cuda.is_available():
         pytest.skip("no CUDA device: the CUDA path runs only on the card")
     g = eulerian_rmat(9, avg_degree=5, seed=P)
@@ -111,3 +179,46 @@ def test_cuda_solve_matches_cpu(P):
     on_cpu = solve(g, n_parts=P, device="cpu")
     np.testing.assert_array_equal(on_card.circuit, on_cpu.circuit)
     np.testing.assert_array_equal(on_card.mate, on_cpu.mate)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("mode", sorted(MODES))
+def test_cuda_fused_captures_once_and_replays(mode):
+    """On a card: the first fused solve of a bucket records one graph, a
+    same-bucket solve replays it (``capture_s`` 0.0, no kernel launched
+    from Python), and both equal the eager solves byte for byte; a
+    solve of another bucket records anew."""
+    from repro_torch.kernels import pointer_double as pd
+
+    if not torch.cuda.is_available():
+        pytest.skip("no CUDA device: CUDA graphs record only on the card")
+    solver = EulerSolver(n_parts=8, **MODES[mode])
+    graphs = [eulerian_rmat(9, avg_degree=5, seed=s) for s in (1, 2)]
+    assert solver.prepare(graphs[0])[2] == solver.prepare(graphs[1])[2]
+    wrappers = (pd.pointer_double, pd.pointer_double_rank,
+                pd.pointer_double_shard, pd.pointer_double_rank_shard)
+    for i, g in enumerate(graphs):
+        before = [w.launches for w in wrappers]
+        fused = solver.solve(g).validate()
+        launched = [w.launches - b for w, b in zip(wrappers, before)]
+        eager = solver.solve(g, fused=False).validate()
+        np.testing.assert_array_equal(fused.circuit, eager.circuit)
+        np.testing.assert_array_equal(fused.mate, eager.mate)
+        assert solver.captures == 1
+        assert (fused.timings["capture_s"] > 0) == (i == 0)
+        assert (sum(launched) > 0) == (i == 0)    # a replay launches nothing
+    solver.solve(eulerian_rmat(10, avg_degree=5, seed=1)).validate()
+    assert solver.captures == 2
+
+
+@pytest.mark.gpu
+def test_cuda_host_read_inside_the_recording_raises():
+    """On a card: a splice loop that reads its flag on the host while the
+    graph records makes the solve raise; nothing carries on eagerly."""
+    if not torch.cuda.is_available():
+        pytest.skip("no CUDA device: CUDA graphs record only on the card")
+    solver = EulerSolver(n_parts=2)
+    with mock.patch.object(capture, "capturing", lambda device: False):
+        with pytest.raises(RuntimeError):
+            solver.solve(eulerian_rmat(8, avg_degree=5, seed=0))
+    assert solver.captures == 0
