@@ -22,7 +22,13 @@ exits non-zero:
                 and the bound (K1 runs on packed (nxt, lab) records and
                 K2 on packed (ptr, dist, reach, 0) records; the packed
                 twins and the two- and three-array oracles are all
-                timed; K2's bound counts the three tables);
+                timed; K2's bound counts the three tables); then the
+                splice loops' test kernel inside CUDA while nodes at the
+                main path's flag shapes ([8] and []) and budgets (16,
+                54), each replay of a seeded countdown held to the rounds
+                and bytes of its twin driving the same loop on the host,
+                timed as one test a round of a node around the test
+                alone;
   4. parity   — a scale-8, 2-partition eager solve (``fused=False``) on
                 ``cuda`` and on ``cpu`` in each Phase 3 mode (sharded, the
                 default; replicated; ``gather_circuit=False``): every
@@ -41,22 +47,28 @@ exits non-zero:
                 once per ring step of each round (rounds × 8) and K1/K2
                 never;
   5b. fused   — the solver's default mode, one recorded CUDA graph per
-                bucket: at scale 8 with 2 partitions, fused on ``cuda``
-                and on ``cpu`` in each Phase 3 mode, byte-identical to
-                each other and to the eager solves; at the main path's
-                scale, a fused sharded solve of seed 0 (cold: warms up
-                and records), byte-identical to the eager ``[slice]``
-                solve, then one of seed 1 (2,739,077 edges, the same
-                bucket, its key printed and checked), which must replay
-                the graph (``capture_s`` 0, one capture in all, no
-                kernel launched from Python), validated and held against
-                the numpy list-rank twin; then a fused replicated solve
-                of seed 0, byte-identical to the eager one.  The launch
-                counters read around each recording must equal the
-                eager counts (K3/K4 rounds × 8 sharded, K1/K2 rounds
-                replicated).  Each solve prints ``warmup_s``,
-                ``capture_s``, ``run_s``, ``fetch_s`` and its peak
-                allocated and reserved memory beside the eager
+                bucket, each splice loop in it one CUDA while node: at
+                scale 8 with 2 partitions, fused on ``cuda`` and on
+                ``cpu`` in each Phase 3 mode, byte-identical to each
+                other and to the eager solves, each loop running the
+                eager rounds; at the main path's scale, a fused sharded
+                solve of seed 0 (cold: warms up and records),
+                byte-identical to the eager ``[slice]`` solve, then an
+                eager solve of seed 1 (2,739,077 edges, the same bucket,
+                its key printed and checked) and a fused one, which must
+                replay the graph (``capture_s`` 0, one capture in all,
+                no kernel launched from Python), validated, equal to the
+                eager bytes and held against the numpy list-rank twin;
+                then a fused replicated solve of seed 0, byte-identical
+                to the eager one.  The launch counters read around each
+                recording must equal the eager counts (K3/K4 rounds × 8
+                sharded, K1/K2 rounds replicated) and two loop tests a
+                splice loop.  Each solve prints the rounds each loop ran
+                in the replay beside its budget and the eager solve's
+                rounds, and fails where they differ (a replay that ran
+                the budget where eager stopped earlier among them), and
+                ``warmup_s``, ``capture_s``, ``run_s``, ``fetch_s``, its
+                peak allocated and reserved memory beside the eager
                 ``supersteps_s + phase3_s``; the solvers and their graphs
                 are freed before the next phase;
   6. k5       — the sorted segment sum against its twin (f32 tolerance
@@ -135,6 +147,7 @@ from repro_torch.euler.bucket import strip_circuit  # noqa: E402
 from repro_torch.graphgen.eulerize import eulerian_rmat  # noqa: E402
 from repro_torch.kernels import build, ref  # noqa: E402
 from repro_torch.kernels import flash_attention as fa  # noqa: E402
+from repro_torch.kernels import graph_loop  # noqa: E402
 from repro_torch.kernels import pointer_double as pd  # noqa: E402
 from repro_torch.kernels import segment_reduce as sr  # noqa: E402
 from repro_torch.launch.serve import serve_lm  # noqa: E402
@@ -181,6 +194,11 @@ KERNELS = {
         "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
         "replaces": "src/repro/kernels/flash_attention.py:69",
     },
+    "loop_condition": {
+        "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/graph_loop.cu",
+        "replaces": "src/repro/core/phase1.py:322",
+    },
 }
 #: each kernel's wrapper, whose ``launches`` counts its launches
 WRAPPERS = {
@@ -189,6 +207,7 @@ WRAPPERS = {
         "pointer_double_rank_shard")},
     "segment_sum_sorted": sr.segment_sum_sorted,
     "flash_attention": fa.flash_attention,
+    "loop_condition": graph_loop.while_loop,
 }
 #: the LM slice: 4 requests of 4,096 prompt tokens, 32 generated each
 LM_BATCH, LM_PROMPT, LM_GEN = 4, 4096, 32
@@ -236,7 +255,7 @@ def entry_name(line: str) -> str:
     """The kernel a ``ptxas`` "Compiling entry function" line names, read
     from its mangled name (a length, the name, then any template
     argument): ``flash_bf16_kernel<64>``, ``pointer_double_kernel``."""
-    m = re.search(r"(\d+)((?:flash|pointer|segment)\w*)", line)
+    m = re.search(r"(\d+)((?:flash|pointer|segment|loop)\w*)", line)
     digits, tail = m.groups() if m else ("", "")
     for i in range(len(digits)):        # the length is a suffix of digits
         n = int(digits[i:])
@@ -433,6 +452,78 @@ def check_shard_kernels(dev, rounds: int, nxt, ptr, halt: int) -> dict:
     return table
 
 
+def _countdown(x, changed):
+    """One round of the loop test's check: x ← max(x − 1, 0), changed ←
+    x > 0, in place."""
+    def body():
+        x.copy_((x - 1).clamp(min=0))
+        changed.copy_(x > 0)
+    return body
+
+
+def _while_graph(dev, body, changed, rounds: int):
+    """A CUDA graph of one while node around ``body``; returns it and its
+    :class:`capture.Loops`."""
+    loops = capture.Loops(dev)
+    graph = torch.cuda.CUDAGraph()
+    with capture.recording(graph, loops):
+        capture.device_while(body, changed, rounds)
+    return graph, loops
+
+
+def check_loop_condition(dev, budgets) -> dict:
+    """Phase 3: the splice loops' test kernel inside while nodes, at the
+    main path's flag shapes ([8] partition rows in Phase 1, [] in Phase
+    3) and budgets, against its twin driving the same loop on the host:
+    each replay of a countdown from seeded values in [0, 2·budget) must
+    run the twin's rounds and leave its bytes.  Timed as one test a
+    round of a node whose body is the test alone (the node's relaunch of
+    the body included), beside the twin's ops on the card."""
+    rng = np.random.default_rng(0)
+    err = 0
+    for shape in ((PARTS,), ()):
+        for rounds in budgets:
+            x = torch.zeros(shape, dtype=torch.int32, device=dev)
+            changed = torch.zeros(shape, dtype=torch.bool, device=dev)
+            _countdown(x, changed)()                  # warm-up
+            graph, loops = _while_graph(dev, _countdown(x, changed),
+                                        changed, rounds)
+            for _ in range(4):
+                x0 = torch.as_tensor(rng.integers(0, 2 * rounds, size=shape),
+                                     dtype=torch.int32)
+                x.copy_(x0)
+                changed.copy_(x0 > 0)
+                graph.replay()
+                want_x, want_changed = x0.clone(), x0 > 0
+                want_ctr = torch.zeros((), dtype=torch.int32)
+                graph_loop.while_loop(_countdown(want_x, want_changed),
+                                      want_changed, want_ctr, rounds)
+                err = max(err, abs(loops.rounds_run()[0] - int(want_ctr)),
+                          max_abs_err((x.cpu(), changed.cpu().int()),
+                                      (want_x, want_changed.int())))
+            del graph, loops
+    rounds = 1000
+    always = torch.ones((PARTS,), dtype=torch.bool, device=dev)
+    graph, loops = _while_graph(dev, lambda: None, always, rounds)
+    graph.replay()
+    ran = loops.rounds_run()[0]
+    ms = cuda_ms(graph.replay, 5) / (rounds + 1)
+    ctr = torch.zeros((), dtype=torch.int32, device=dev)
+    plain_ms = cuda_ms(lambda: ref.loop_condition_ref(always, ctr, rounds),
+                       200)
+    bound_ms = (PARTS + 8) / HBM_BYTES_PER_S * 1e3
+    say("kernels", name="loop_condition", shapes="'[8],[]'",
+        budgets=",".join(map(str, budgets)), max_abs_err=err,
+        rounds_run=f"{ran}/{rounds}", ms_a_round=f"{ms:.5f}",
+        plain_ms=f"{plain_ms:.5f}", bound_ms=f"{bound_ms:.3e}")
+    if err or ran != rounds:
+        raise AssertionError(f"loop_condition differs from its twin: error "
+                             f"{err}, {ran} of {rounds} rounds")
+    del graph, loops
+    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": "bytes", "library_ms": None}
+
+
 def reset_counts() -> None:
     for fn in WRAPPERS.values():
         fn.launches = 0
@@ -507,24 +598,45 @@ def same_bytes(a, b) -> bool:
             and np.array_equal(a.mate, b.mate))
 
 
-def check_fused(scale: int, g, eager: dict) -> None:
-    """Phase 5b: the fused run (module docstring).  ``eager`` holds the
-    ``[slice]`` results of ``g`` by ``sharded_phase3``."""
+def _fmt_rounds(loops, ran) -> str:
+    """``phase1:2/16,…`` from the eager ``(loop, rounds, budget)`` list
+    and a list of rounds run."""
+    return "'" + ",".join(f"{m}:{r}/{b}" for (m, _, b), r
+                          in zip(loops, ran)) + "'"
+
+
+def check_fused(scale: int, g, eager: dict, eager_rounds: dict) -> int:
+    """Phase 5b: the fused run (module docstring).  ``eager`` and
+    ``eager_rounds`` hold the ``[slice]`` results of ``g`` and their
+    splice loops' ``(loop, rounds, budget)``, by ``sharded_phase3``.
+    Returns the test kernels launched while the cold sharded solve
+    recorded."""
     small = eulerian_rmat(8, avg_degree=AVG_DEGREE, seed=SEED)
     for mode, opts in MODES.items():
-        ref = solve(small, n_parts=2, device="cuda", fused=False,
-                    **opts).validate()
+        loops = capture.Loops(torch.device("cpu"))
+        with capture.counting(loops):
+            ref = solve(small, n_parts=2, device="cuda", fused=False,
+                        **opts).validate()
         for device in ("cuda", "cpu"):
-            r = solve(small, n_parts=2, device=device, **opts).validate()
+            solver = EulerSolver(n_parts=2, device=device, **opts)
+            r = solver.solve(small).validate()
+            ran = solver._fused[1].rounds_run()
             same = r.fused and same_bytes(ref, r)
             say("fused", scale=8, parts=2, mode=mode, device=device,
-                byte_identical_to_eager=same)
+                byte_identical_to_eager=same, rounds_run=ran,
+                eager_rounds=loops.rounds_run())
             if not same:
                 raise AssertionError(f"fused {mode} solve on {device} "
                                      f"differs from the eager one")
+            if ran != loops.rounds_run():
+                raise AssertionError(f"fused {mode} solve on {device} ran "
+                                     f"{ran} splice rounds, eager "
+                                     f"{loops.rounds_run()}")
 
-    def report(res, solver, seed, launches, recorded, peak, reserved):
-        base = eager[solver.sharded_phase3].timings
+    def report(res, solver, seed, launches, recorded, peak, reserved,
+               base, want_rounds):
+        ran = solver._fused[1].rounds_run()
+        plain_s = base.timings["supersteps_s"] + base.timings["phase3_s"]
         say("fused", scale=scale,
             phase3="sharded" if solver.sharded_phase3 else "replicated",
             seed=seed, edges=res.graph.num_edges, valid=res.valid,
@@ -533,30 +645,40 @@ def check_fused(scale: int, g, eager: dict) -> None:
             recorded_launches=json.dumps(recorded, separators=(",", ":")),
             peak_gib=f"{peak / 2**30:.3f}",
             reserved_gib=f"{reserved / 2**30:.3f}",
-            eager_supersteps_plus_phase3_s=(
-                f"{base['supersteps_s'] + base['phase3_s']:.4f}"),
+            rounds_run=_fmt_rounds(want_rounds, ran),
+            eager_rounds=_fmt_rounds(want_rounds,
+                                     [r for _, r, _ in want_rounds]),
+            eager_supersteps_plus_phase3_s=f"{plain_s:.4f}",
+            run_over_eager=f"{res.timings['run_s'] / plain_s:.3f}",
             **{k: f"{v:.4f}" for k, v in res.timings.items()})
+        if ran != [r for _, r, _ in want_rounds]:
+            raise AssertionError(f"seed {seed}: the replay's splice loops "
+                                 f"ran {ran}, the eager ones "
+                                 f"{want_rounds}")
+        if not same_bytes(res, base):
+            raise AssertionError(f"fused solve of seed {seed} differs from "
+                                 f"the eager one")
 
     for sharded in (True, False):
         phase3 = "sharded" if sharded else "replicated"
         solver = EulerSolver(n_parts=PARTS, sharded_phase3=sharded)
         res, launches, recorded, peak, reserved = fused_counted(solver, g)
         res.validate()
-        report(res, solver, SEED, launches, recorded, peak, reserved)
+        report(res, solver, SEED, launches, recorded, peak, reserved,
+               eager[sharded], eager_rounds[sharded])
         rounds = p3.sharded_phase3_schedule(
             g.num_edges + res.padded_edges, PARTS)["doubling_rounds"]
         want = {name: 0 for name in KERNELS}
         want.update({name: rounds * (PARTS if sharded else 1)
                      for name in PATH_KERNELS[sharded]})
+        want["loop_condition"] = 2 * len(eager_rounds[sharded])
         if recorded != want:
             raise AssertionError(f"{phase3} recording launched {recorded}, "
-                                 f"the eager solve {want}")
-        if not same_bytes(res, eager[sharded]):
-            raise AssertionError(f"fused {phase3} solve differs from the "
-                                 f"eager one")
+                                 f"the eager solve and the loops {want}")
         if solver.captures != 1 or res.timings["capture_s"] <= 0:
             raise AssertionError("the cold fused solve did not record")
         if sharded:
+            loop_tests = recorded["loop_condition"]
             g1 = eulerian_rmat(scale, avg_degree=AVG_DEGREE, seed=SEED + 1)
             key0, key1 = solver.prepare(g)[2], solver.prepare(g1)[2]
             say("fused", seed=SEED + 1, edges=g1.num_edges,
@@ -564,11 +686,15 @@ def check_fused(scale: int, g, eager: dict) -> None:
             if key0 != key1:
                 raise AssertionError(f"seed {SEED + 1} lands in another "
                                      f"bucket: {key1} against {key0}")
+            # seed 1 eagerly, for its own rounds and bytes; its
+            # allocations come and go between the graph's two runs
+            base1, _, _, rounds1 = solve_counted(g1, sharded_phase3=True)
+            torch.cuda.empty_cache()        # reserved: the graph's alone
             res, launches, recorded, peak, reserved = fused_counted(solver,
                                                                     g1)
             res.validate()
             report(res, solver, SEED + 1, launches, recorded, peak,
-                   reserved)
+                   reserved, base1, rounds1)
             twin = strip_circuit(circuit_from_mate_np(res.mate, 0),
                                  g1.num_edges)
             if recorded is not None or solver.captures != 1 \
@@ -579,9 +705,10 @@ def check_fused(scale: int, g, eager: dict) -> None:
             if not np.array_equal(twin, res.circuit):
                 raise AssertionError("replayed circuit differs from the "
                                      "numpy list-rank twin")
-            del g1
+            del g1, base1
         del solver, res
         torch.cuda.empty_cache()
+    return loop_tests
 
 
 def k5_ids(n: int, s: int, skewed: bool, gen, dev) -> torch.Tensor:
@@ -1111,6 +1238,7 @@ def main(argv=None) -> int:
     # ---- 3. kernels against their twins at the main path's width ----
     rounds = p3.sharded_phase3_schedule(N_MAIN // 2, PARTS)["doubling_rounds"]
     table = check_kernels(dev, rounds)
+    table["loop_condition"] = check_loop_condition(dev, (16, 54))
 
     # ---- 4. small parity: cuda against cpu, every Phase 3 mode ----
     g = eulerian_rmat(8, avg_degree=AVG_DEGREE, seed=SEED)
@@ -1133,7 +1261,7 @@ def main(argv=None) -> int:
     gen_s = time.perf_counter() - t
     say("slice", scale=args.scale, parts=PARTS, vertices=g.num_vertices,
         edges=g.num_edges, graphgen_s=f"{gen_s:.2f}")
-    launches, results = {}, {}
+    launches, results, loop_rounds = {}, {}, {}
     for sharded in (True, False):
         res, counts, peak, rounds_run = solve_counted(
             g, sharded_phase3=sharded)
@@ -1162,6 +1290,7 @@ def main(argv=None) -> int:
         for name in PATH_KERNELS[sharded]:
             launches[name] = counts[name]
         results[sharded] = res
+        loop_rounds[sharded] = rounds_run
     same = (np.array_equal(results[True].circuit, results[False].circuit)
             and np.array_equal(results[True].mate, results[False].mate))
     say("slice", sharded_equals_replicated=same)
@@ -1171,7 +1300,8 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
 
     # ---- 5b. the fused run: one recorded graph per bucket ----
-    check_fused(args.scale, g, results)
+    launches["loop_condition"] = check_fused(args.scale, g, results,
+                                             loop_rounds)
     del results, g
     torch.cuda.empty_cache()
 

@@ -1,4 +1,4 @@
-"""Bounded convergence loops that a CUDA graph can hold.
+"""Bounded convergence loops, eager or inside a CUDA graph.
 
 The reference runs its three splice loops (Phase 1's in
 ``repro/core/phase1.py``, the replicated and sharded Phase 3's in
@@ -10,26 +10,32 @@ fixed budget of rounds.  It has no file for this; here it is
   * eagerly (any CPU run, and a CUDA run outside a capture) it reads the
     flag on the host once per round and stops at convergence, as the
     ``while_loop`` does;
-  * while the current CUDA stream is being captured into a graph no host
-    read is allowed, so it runs the whole budget.  A round after
-    convergence is the identity (nothing is left to rotate, so nothing
-    moves and ``changed`` stays False), which keeps the bits equal.
-
-A conditional graph node could skip the converged rounds on the device
-instead, but torch 2.11 (the H100 machine's) does not expose one (torch
-2.13 has ``CUDAGraph.begin_capture_to_if_node``), so the budget is paid
-in full under capture; PERF.md records what that costs.
+  * while the current CUDA stream is being captured into a graph it
+    records the loop as one CUDA while node (:func:`device_while`,
+    ``kernels/graph_loop.py``): one round's work is recorded once as the
+    node's body, and a kernel on the device tests the flag and the
+    budget before every round, so each replay runs the rounds its data
+    needs, as the eager loop does, and no more.
 
 The carried values live in buffers allocated before the first round, and
-every round writes its results back into them with ``copy_``: a round
-body that a conditional node skips would leave its own outputs undefined,
-so this layout is the one such a node needs.
+every round writes its results back into them with ``copy_``: the node
+repeats one recorded body, so the body has to read and write the same
+memory in every round.
+
+Round counts.  Inside :func:`counting` every loop appends an int32 0-d
+round counter to the active :class:`Loops`: eagerly the rounds it ran,
+in a graph the counter its while node writes at every replay.  The fused
+run (``core/engine.py::FusedRun``) keeps them and reads them back
+(``rounds_run``) after each run.
 """
 from __future__ import annotations
 
-from typing import Callable, Sequence, Tuple
+import contextlib
+from typing import Callable, Iterator, List, Optional, Sequence, Tuple
 
 import torch
+
+from ..kernels import graph_loop
 
 
 def capturing(device: torch.device) -> bool:
@@ -38,22 +44,121 @@ def capturing(device: torch.device) -> bool:
     return device.type == "cuda" and torch.cuda.is_current_stream_capturing()
 
 
+class Loops:
+    """The splice loops run under :func:`counting`, in order: each one's
+    int32 round counter.  On a card it also holds the stream and the
+    memory pool that the while nodes record their bodies on; both are
+    made here, before a capture starts, and must live as long as the
+    graph that holds the nodes."""
+
+    def __init__(self, device: torch.device):
+        self.counters: List[torch.Tensor] = []
+        self.stream: Optional[torch.cuda.Stream] = None
+        self.pool: Optional[torch.cuda.MemPool] = None
+        if device.type == "cuda":
+            graph_loop.load(device)
+            self.stream = torch.cuda.Stream(device)
+            self.pool = torch.cuda.MemPool()
+
+    def rounds_run(self) -> List[int]:
+        """Rounds each loop ran (read on the host: after a graph's
+        replay, the rounds of that replay)."""
+        return [int(c) for c in self.counters]
+
+
+_active: Optional[Loops] = None
+
+
+@contextlib.contextmanager
+def counting(loops: Loops) -> Iterator[Loops]:
+    """Append the round counter of every loop run inside to ``loops``."""
+    global _active
+    outer, _active = _active, loops
+    try:
+        yield loops
+    finally:
+        _active = outer
+
+
+@contextlib.contextmanager
+def recording(graph: "torch.cuda.CUDAGraph", loops: Loops) -> Iterator[None]:
+    """Capture the work of the ``with`` body into ``graph``
+    (``torch.cuda.graph``, in a pool of its own, on a stream apart from
+    ``loops``'), counting its loops into ``loops`` (:func:`counting`).
+
+    A host read inside is an error raised before it reaches the card
+    (torch's sync debug mode ``error``): one that reached it would
+    invalidate the capture, and ending an invalidated capture that holds
+    a half-recorded while node crashes the process.  If the
+    capture fails all the same, this undoes what torch's failed
+    ``capture_end`` leaves behind: the capture's stream as the current
+    one, and this thread's allocations routed to the graph's pool (a
+    routing entry left behind fails the next release of cached memory,
+    such as the destruction of ``loops``' pool)."""
+    pool = torch.cuda.graph_pool_handle()
+    stream = torch.cuda.current_stream()
+    on = torch.cuda.Stream()       # PyTorch's pool hands streams out in turn,
+    if on == loops.stream:         # so the next one differs from the bodies'
+        on = torch.cuda.Stream()
+    try:
+        with counting(loops), torch.cuda.graph(graph, pool=pool, stream=on):
+            mode = torch.cuda.get_sync_debug_mode()
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                yield
+            finally:
+                torch.cuda.set_sync_debug_mode(mode)
+    except BaseException:
+        torch.cuda.set_stream(stream)
+        try:
+            torch._C._cuda_endAllocateToPool(stream.device.index, pool)
+        except RuntimeError:
+            pass                  # torch's capture_end stopped it itself
+        raise
+
+
+def device_while(body: Callable[[], None], changed: torch.Tensor,
+                 rounds: int) -> None:
+    """Record ``body`` (one round, written in place) as one while node of
+    the graph being captured, its round counter appended to the active
+    :class:`Loops` (:func:`counting`), on whose stream and pool the body
+    records.  On CPU tensors (the tests' stand-in for a capture) the
+    rounds run now on the host, under the same trip rule."""
+    loops = _active
+    if loops is None:
+        raise RuntimeError("a splice loop recorded outside "
+                           "capture.counting(): nothing would hold its "
+                           "while node's stream, pool and counter")
+    ctr = torch.empty((), dtype=torch.int32, device=changed.device)
+    graph_loop.while_loop(body, changed, ctr, rounds, loops.stream,
+                          loops.pool)
+    loops.counters.append(ctr)
+
+
 def converge(step: Callable[..., Sequence[torch.Tensor]],
              carry: Sequence[torch.Tensor],
              rounds: int) -> Tuple[torch.Tensor, ...]:
     """Run ``step`` over ``carry`` while the carry's last element (a bool
     ``changed`` flag of any shape) holds anywhere, at most ``rounds``
-    times; under capture, exactly ``rounds`` times.
+    times: eagerly, or as a while node when the device is capturing.
 
     ``step(*carry)`` returns the next carry: fresh tensors of the same
     shapes and types, none of them a view of its inputs.  The carry is
     copied once into new buffers, and each round is written back into
     them, so the returned tensors are those buffers."""
     bufs = tuple(x.clone() for x in carry)
-    full = capturing(bufs[0].device)
-    for _ in range(rounds):
-        if not full and not bool(bufs[-1].any()):    # one host read a round
-            break
+
+    def one_round() -> None:
         for buf, new in zip(bufs, step(*bufs)):
             buf.copy_(new)
+
+    if capturing(bufs[0].device):
+        device_while(one_round, bufs[-1], rounds)
+        return bufs
+    ran = 0
+    while ran < rounds and bool(bufs[-1].any()):    # one host read a round
+        one_round()
+        ran += 1
+    if _active is not None:
+        _active.counters.append(torch.tensor(ran, dtype=torch.int32))
     return bufs

@@ -30,9 +30,11 @@ Two execution modes, as in the reference (DESIGN.md §4):
     returns a :class:`FusedRun`, which records the whole solve — every
     level, the mate accumulation and Phase 3 in the engine's mode — once
     as one CUDA graph, replays it for every solve of the bucket and
-    fetches the outputs with one drain.  Both modes run the same
-    superstep and Phase 3 functions, so their bits are equal; on the CPU
-    the fused body runs uncaptured.
+    fetches the outputs with one drain.  Each splice loop in it is one
+    CUDA while node (``core/capture.py``), so a replay runs the rounds
+    its graph needs.  Both modes run the same superstep and Phase 3
+    functions, so their bits are equal; on the CPU the fused body runs
+    uncaptured.
 
 Host-side planning (:meth:`Engine.plan`, :meth:`Engine.size_caps`,
 :meth:`Engine.load`) is the reference's numpy, unchanged.
@@ -47,11 +49,12 @@ from __future__ import annotations
 
 import dataclasses
 import time
-from typing import NamedTuple, Optional, Tuple
+from typing import List, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
 
+from . import capture
 from .graph import PartitionedGraph
 from .phase1 import (BIG, I32, NewEdges, OpenTable, Phase1Caps, TouchTable,
                      _compact, _seg_starts, _valid_first, pair_table_cap,
@@ -676,6 +679,12 @@ class FusedRun:
     torch's graph rules ask) and records it.  A host read inside the
     recorded region makes the capture raise; nothing catches it.  On the
     CPU the same body runs uncaptured on the inputs.
+
+    Every splice loop of the body (one a level in Phase 1, one in Phase
+    3) is recorded as a CUDA while node with an int32 round counter
+    (:class:`~repro_torch.core.capture.Loops`, kept with the graph, since
+    the nodes' bodies run on its stream's memory pool);
+    :meth:`rounds_run` reads the counters of the last run.
     """
 
     def __init__(self, engine: Engine, num_edges: int):
@@ -684,6 +693,7 @@ class FusedRun:
         self.inputs: Optional[Tuple[EngineState, torch.Tensor,
                                     torch.Tensor]] = None
         self.graph: Optional["torch.cuda.CUDAGraph"] = None
+        self.loops: Optional[capture.Loops] = None
         self.out: Optional[FusedOut] = None
         self.captures = 0
 
@@ -725,12 +735,21 @@ class FusedRun:
         return t1 - t0, drained_clock(dev) - t1
 
     def _record(self) -> None:
-        """Record the body into a new graph (a host read in it raises)."""
+        """Record the body into a new graph (a host read in it raises,
+        and so does a while node that cannot be made or instantiated)."""
         graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(graph):
+        loops = capture.Loops(self.inputs[1].device)
+        with capture.recording(graph, loops):
             self.out = self.engine.whole_run(*self.inputs, self.num_edges)
-        self.graph = graph
+        self.graph, self.loops = graph, loops
         self.captures += 1
+
+    def rounds_run(self) -> List[int]:
+        """Rounds each splice loop ran in the last run, in recording
+        order: Phase 1's, one a level, then Phase 3's."""
+        if self.loops is None:
+            raise RuntimeError("this fused run has not run yet")
+        return self.loops.rounds_run()
 
     def run(self, state: EngineState, anc: torch.Tensor, sv: torch.Tensor):
         """Solve one graph of the bucket: load its tables, replay (the
@@ -751,7 +770,9 @@ class FusedRun:
             self.graph.replay()
             out = self.out
         else:
-            out = self.engine.whole_run(*self.inputs, self.num_edges)
+            self.loops = capture.Loops(dev)
+            with capture.counting(self.loops):
+                out = self.engine.whole_run(*self.inputs, self.num_edges)
         t3 = drained_clock(dev)
         host = FusedOut(*(x.cpu().numpy() for x in out))
         t4 = time.perf_counter()

@@ -26,7 +26,8 @@ wrappers compute the plain twins of :mod:`repro_torch.kernels.ref`.
 The splice ``while_loop``s run through
 :func:`~repro_torch.core.capture.converge`: eagerly they read one flag a
 round on the host, with the reference's stop rule; inside a CUDA graph
-capture they run the whole round budget.  Nothing else here reads the
+capture each becomes one while node that tests the same rule on the
+device before every round.  Nothing else here reads the
 device: round counts are static and the walk's start stays a tensor, so
 the fused run can record every step.
 """

@@ -29,7 +29,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 #: Every CUDA source of the port, by library name.
 SOURCES = {"pointer_double": "pointer_double.cu",
            "segment_reduce": "segment_reduce.cu",
-           "flash_attention": "flash_attention.cu"}
+           "flash_attention": "flash_attention.cu",
+           "graph_loop": "graph_loop.cu"}
 
 _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}

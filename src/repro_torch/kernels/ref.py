@@ -3,8 +3,9 @@
 The twins are what a kernel wrapper runs on CPU tensors, and what the
 CUDA kernels are held against on the card: bit for bit for the integer
 pointer-doubling rounds (``nxt``/``ptr`` entries must lie in ``[0, N)``),
-within a float tolerance for the segment sum and attention.  K1's and
-K2's kernels take packed records; ``pointer_double_ref`` and
+within a float tolerance for the segment sum and attention, and by trip
+count for the splice loops' test (it runs only inside a while node).
+K1's and K2's kernels take packed records; ``pointer_double_ref`` and
 ``pointer_double_rank_ref`` stay the two- and three-array oracles that
 mirror the reference, and ``pointer_double_packed_ref`` and
 ``pointer_double_rank_packed_ref`` are their packed forms.
@@ -94,6 +95,18 @@ def pointer_double_rank_shard_ref(q, a_ptr, a_dist, a_reach, base,
     return (torch.where(own, tbl_ptr.gather(-1, idx), a_ptr),
             torch.where(own, tbl_dist.gather(-1, idx), a_dist),
             torch.where(own, tbl_reach.gather(-1, idx), a_reach))
+
+
+def loop_condition_ref(changed: torch.Tensor, ctr: torch.Tensor,
+                       rounds: int):
+    """One test of a splice loop, the twin of ``loop_condition_kernel``
+    (``csrc/graph_loop.cu``): ``ctr`` (int32, 0-d) holds the rounds run
+    before this test, −1 before the first.  Returns ``(cond, ctr + 1)``,
+    ``cond`` a 0-d bool: ``changed`` (bool, any shape) holds anywhere and
+    fewer than ``rounds`` rounds ran.  The reference's ``cond``:
+    ``changed & (rounds_left > 0)``."""
+    ran = ctr + 1
+    return changed.any() & (ran < rounds), ran
 
 
 def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

@@ -12,7 +12,7 @@ sharded one, K3/K4) or, under ``--replicated``, the replicated one
 device memory are printed and the circuit is validated.  The second runs
 under ``torch.profiler``: its timings, the device's busy and idle share,
 the kernels by total device time, and the rows of the port's own kernels
-K1–K4 by name.
+K1–K4 and the splice loops' test by name.
 
 Without ``--fused`` both solves are eager (``fused=False``): each phase
 and each superstep is read after the device drained, and the idle share
@@ -21,7 +21,12 @@ the host prep).  With ``--fused`` the first solve records the bucket's
 graph and the profiled one replays it: the idle share is of its
 ``run_s`` (replay through fetch), and the K1–K4 rows count the kernels'
 launches inside the graph, which the wrappers' launch counters do not
-see on a replay.
+see on a replay.  The splice loops' rounds in the replay are printed
+(``FusedRun.rounds_run``) beside the calls of their test kernel in the
+trace; a while node runs it once more than its rounds.  Where the trace
+shows fewer (it may show a while node's body once a replay, however
+many rounds ran), its busy time misses those rounds and the idle shares
+are printed as ``not_measured``.
 
 No file of ``repro/launch`` matches this script: the JAX package timed
 its phases with ``repro.obs`` spans, which the port does not have yet.
@@ -42,7 +47,8 @@ OWN_KERNELS = {"pointer_double": "pointer_double_kernel",
                "pointer_double_rank": "pointer_double_rank_kernel",
                "pointer_double_shard": "pointer_double_shard_kernel",
                "pointer_double_rank_shard":
-                   "pointer_double_rank_shard_kernel"}
+                   "pointer_double_rank_shard_kernel",
+               "loop_condition": "loop_condition_kernel"}
 
 
 def _device_us(evt) -> float:
@@ -113,10 +119,20 @@ def main(argv=None) -> int:
         # the replay copies nothing host→device: those rows are the upload
         run_busy_s = busy_s - sum(_device_us(e) for e in rows
                                   if "HtoD" in e.key) / 1e6
+        ran = solver._fused[1].rounds_run()
+        tests = sum(e.count for e in rows
+                    if OWN_KERNELS["loop_condition"] + "(" in e.key)
+        # a trace that shows fewer loop tests than ran misses rounds of
+        # the while nodes' bodies, so its busy time is short of the truth
+        whole = tests == sum(ran) + len(ran)
+        _say("splice loops", rounds_run=",".join(map(str, ran)),
+             loop_tests_run=sum(ran) + len(ran), loop_tests_traced=tests)
         _say("profiled device", busy_s=f"{busy_s:.4f}",
              run_busy_s=f"{run_busy_s:.4f}",
-             idle_share_run=f"{max(0.0, 1 - run_busy_s / tm['run_s']):.3f}",
-             idle_share_solve=f"{max(0.0, 1 - busy_s / tm['total_s']):.3f}")
+             idle_share_run=(f"{max(0.0, 1 - run_busy_s / tm['run_s']):.3f}"
+                             if whole else "not_measured"),
+             idle_share_solve=(f"{max(0.0, 1 - busy_s / tm['total_s']):.3f}"
+                               if whole else "not_measured"))
     else:
         device_s = tm["total_s"] - tm["prepare_s"]
         _say("profiled device", busy_s=f"{busy_s:.4f}",

@@ -9,7 +9,8 @@ partition at a time (``n = 1``) and all 8 partitions of a level in one
 batched call, and every output field of every row must be
 byte-identical.  The batched call runs three ways: the eager splice loop
 (stops when no row changes), ``static_splice`` (every round, flag forced
-true) and the whole round budget, as under a CUDA graph capture.
+true) and the capture rule, under which the loop is a CUDA while node
+(on the CPU its stand-in, which must run the eager loop's rounds).
 """
 import dataclasses
 from unittest import mock
@@ -136,23 +137,32 @@ def test_phase1_out_byte_identical(captured, level):
         assert live > 0, "a real level must feed Phase 1 something"
 
 
-@pytest.mark.parametrize("mode", ["eager", "static_splice", "full_budget"])
+# the capture rule's id names what a capture ran before it held a while
+# node: the whole round budget
+@pytest.mark.parametrize("mode", ["eager", "static_splice",
+                                  pytest.param("while_node", id="full_budget")])
 @pytest.mark.parametrize("level", range(N_LEVELS))
 def test_phase1_batched_rows_byte_identical(captured, level, mode):
     """All 8 partitions of a level in one call: row p is partition p's
     record.  ``static_splice`` runs every splice round and reports the
-    splice converged; ``full_budget`` runs them all too (the capture
-    rule) but keeps the real flag.  Both must leave each row as the
-    reference's early-stopping loop did."""
+    splice converged; ``while_node`` takes the capture rule, the while
+    node's stand-in, which must run the eager loop's rounds.  All must
+    leave each row as the reference's early-stopping loop did."""
     caps = _caps(captured)
     if mode == "static_splice":
         caps = dataclasses.replace(caps, static_splice=True)
     args = (_batched(captured, level, "new", NewEdges),
             _batched(captured, level, "open", OpenTable),
             _batched(captured, level, "touch", TouchTable), level, caps)
-    if mode == "full_budget":
-        with mock.patch.object(capture, "capturing", lambda device: True):
-            out = phase1_local(*args)
+    if mode == "while_node":
+        rounds = []
+        for rule in (False, True):
+            loops = capture.Loops(torch.device("cpu"))
+            with capture.counting(loops), mock.patch.object(
+                    capture, "capturing", lambda device: rule):
+                out = phase1_local(*args)
+            rounds.append(loops.rounds_run())
+        assert rounds[0] == rounds[1] and len(rounds[0]) == 1
     else:
         out = phase1_local(*args)
     assert out.flags.shape == (PARTS, 3)

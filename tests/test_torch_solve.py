@@ -8,16 +8,23 @@ run the replicated one (``sharded_phase3=False``), which the JAX
 package's own tests/test_sharded_phase3.py holds byte-identical to its
 sharded default, so each P>1 case also crosses the two paths.
 tests/test_torch_phase3_sharded.py holds every Phase 3 mode of the port
-against the reference's default.  The references run in one subprocess
-with 8 simulated devices; the port runs here.
+against the reference's default.  The references' outputs are a golden
+file, ``tests/golden/torch_solve_reference.npz``, written by the JAX
+package (frozen, so it cannot drift) with ``PYTHONPATH=src python
+tests/test_torch_solve.py`` (one subprocess with 8 simulated devices);
+``test_golden_is_the_jax_output`` solves one case of it again live.  The
+port runs here.
 
 The port's fused run (``fused=True``, its default, as the reference's)
 and its eager oracle (``fused=False``) are both held to the same bytes
-in every Phase 3 mode, and so is the fused run with every splice loop at
-its full round budget, which is what a CUDA graph capture records.  On a
-card (``gpu`` tests) the fused run records one graph per bucket and
-replays it."""
+in every Phase 3 mode, and so is the fused run under the capture rule,
+where every splice loop is a CUDA while node (on the CPU the node's
+stand-in), which must run the eager loops' rounds.  On a card (``gpu``
+tests) the fused run records one graph per bucket and replays it, its
+while nodes running each graph's own rounds."""
+import contextlib
 import dataclasses
+from pathlib import Path
 from unittest import mock
 
 import numpy as np
@@ -41,6 +48,9 @@ EAGER_KEYS = {"prepare_s", "upload_s", "supersteps_s", "phase3_s",
 FUSED_KEYS = {"prepare_s", "upload_s", "warmup_s", "capture_s", "run_s",
               "fetch_s", "total_s"}
 
+GOLDEN = Path(__file__).resolve().parent / "golden" / \
+    "torch_solve_reference.npz"
+
 _REFERENCE = '''
 import numpy as np
 from repro.euler import solve
@@ -51,17 +61,34 @@ for P in {parts}:
         r = solve(eulerian_rmat(s, avg_degree=4, seed=s), n_parts=P,
                   sharded_phase3=False)
         rec[f"{{P}}_{{s}}/circuit"], rec[f"{{P}}_{{s}}/mate"] = r.circuit, r.mate
-np.savez({out!r}, **rec)
+np.savez_compressed({out!r}, **rec)
 '''
 
 
+def jax_reference(out, parts=PARTS, scales=SCALES, devices=8) -> None:
+    """The JAX package's circuits and mates for every (P, scale), into
+    the ``.npz`` file ``out``."""
+    run_with_devices(_REFERENCE.format(parts=list(parts),
+                                       scales=list(scales), out=str(out)),
+                     n=devices)
+
+
 @pytest.fixture(scope="module")
-def reference(tmp_path_factory):
-    out = str(tmp_path_factory.mktemp("solve") / "ref.npz")
-    run_with_devices(_REFERENCE.format(parts=PARTS, scales=SCALES, out=out),
-                     n=8)
-    with np.load(out) as z:
+def reference():
+    with np.load(GOLDEN) as z:
         return dict(z)
+
+
+def test_golden_is_the_jax_output(reference, tmp_path):
+    """One case of the golden file solved again by the JAX package."""
+    out = tmp_path / "live.npz"
+    jax_reference(out, parts=[2], scales=[5], devices=2)
+    with np.load(out) as z:
+        assert set(z) == {"2_5/circuit", "2_5/mate"}
+        for key in z:
+            np.testing.assert_array_equal(z[key], reference[key])
+    assert set(reference) == {f"{P}_{s}/{k}" for P in PARTS for s in SCALES
+                              for k in ("circuit", "mate")}
 
 
 @pytest.mark.parametrize("scale", SCALES)
@@ -76,19 +103,31 @@ def test_solve_byte_identical_to_jax(reference, P, scale):
     assert len(res.levels) == res.supersteps
 
 
+def eager_rounds(solver, g, **kw):
+    """An eager solve and the rounds each of its splice loops ran."""
+    loops = capture.Loops(solver.device)
+    with capture.counting(loops):
+        res = solver.solve(g, fused=False, **kw)
+    return res, loops.rounds_run()
+
+
 @pytest.mark.parametrize("scale", SCALES)
 @pytest.mark.parametrize("P", PARTS)
 def test_fused_and_eager_byte_identical_to_jax(reference, P, scale):
-    """Every Phase 3 mode, fused and eager, and the fused run with every
-    splice loop at its full budget (the capture rule): all the
-    reference's bytes."""
+    """Every Phase 3 mode, fused and eager, and the fused run under the
+    capture rule (every splice loop a while node's stand-in, which runs
+    the eager loops' rounds): all the reference's bytes."""
     g = eulerian_rmat(scale, avg_degree=4, seed=scale)
     want = (reference[f"{P}_{scale}/circuit"], reference[f"{P}_{scale}/mate"])
     for mode, opts in MODES.items():
         solver = EulerSolver(n_parts=P, device="cpu", **opts)
-        runs = {"fused": solver.solve(g), "eager": solver.solve(g, fused=False)}
+        runs = {"fused": solver.solve(g)}
+        runs["eager"], rounds = eager_rounds(solver, g)
+        assert solver._fused[1].rounds_run() == rounds
         with mock.patch.object(capture, "capturing", lambda device: True):
-            runs["full_budget"] = solver.solve(g)
+            runs["while_node"] = solver.solve(g)
+        assert solver._fused[1].rounds_run() == rounds
+        assert len(rounds) == runs["eager"].supersteps + 1
         for name, res in runs.items():
             res.validate()
             np.testing.assert_array_equal(res.circuit, want[0],
@@ -161,6 +200,38 @@ def test_undersized_caps_raise_instead_of_a_wrong_circuit():
         _Undersized(n_parts=8, device="cpu").solve(g)
 
 
+class _FewRounds(EulerSolver):
+    """Gives every splice loop one round, fewer than the graph needs,
+    and returns the fetched outputs instead of raising on their flags."""
+
+    def prepare(self, graph, part_of_vertex=None):
+        pg, tree, key = super().prepare(graph, part_of_vertex)
+        caps = dataclasses.replace(key[3], splice_rounds=1, phase3_rounds=1)
+        return pg, tree, key[:3] + (caps,)
+
+    def _result(self, graph, tree, key, out, timings, fused, t0):
+        return out
+
+
+def _few_rounds_agree(device: str, rule) -> None:
+    """Fused and eager report the same unconverged splice flags, Phase 3
+    flag and bytes, and every loop ran its one round in both."""
+    g = eulerian_rmat(6, avg_degree=4, seed=6)
+    solver = _FewRounds(n_parts=2, device=device)
+    eager, rounds = eager_rounds(solver, g)
+    with rule:
+        fused = solver.solve(g)
+    assert not eager.flags[:, :, 1].all() and not eager.phase3_ok
+    for name, got, want in zip(eager._fields, fused, eager):
+        np.testing.assert_array_equal(got, want, err_msg=name)
+    assert rounds == solver._fused[1].rounds_run() == [1] * len(rounds)
+
+
+def test_too_few_rounds_report_the_same_flags_fused_and_eager():
+    _few_rounds_agree("cpu", mock.patch.object(capture, "capturing",
+                                               lambda device: True))
+
+
 def test_partition_count_checks():
     tiny = Graph(3, np.array([0, 1, 2]), np.array([1, 2, 0]))
     with pytest.raises(ValueError, match="fewer than"):
@@ -186,8 +257,11 @@ def test_cuda_solve_matches_cpu(P):
 def test_cuda_fused_captures_once_and_replays(mode):
     """On a card: the first fused solve of a bucket records one graph, a
     same-bucket solve replays it (``capture_s`` 0.0, no kernel launched
-    from Python), and both equal the eager solves byte for byte; a
-    solve of another bucket records anew."""
+    from Python), and both equal the eager solves byte for byte, each
+    replay's while nodes running that graph's eager rounds (two loop
+    tests recorded a loop, none on a replay); a solve of another bucket
+    records anew."""
+    from repro_torch.kernels import graph_loop
     from repro_torch.kernels import pointer_double as pd
 
     if not torch.cuda.is_available():
@@ -196,12 +270,17 @@ def test_cuda_fused_captures_once_and_replays(mode):
     graphs = [eulerian_rmat(9, avg_degree=5, seed=s) for s in (1, 2)]
     assert solver.prepare(graphs[0])[2] == solver.prepare(graphs[1])[2]
     wrappers = (pd.pointer_double, pd.pointer_double_rank,
-                pd.pointer_double_shard, pd.pointer_double_rank_shard)
+                pd.pointer_double_shard, pd.pointer_double_rank_shard,
+                graph_loop.while_loop)
     for i, g in enumerate(graphs):
         before = [w.launches for w in wrappers]
         fused = solver.solve(g).validate()
         launched = [w.launches - b for w, b in zip(wrappers, before)]
-        eager = solver.solve(g, fused=False).validate()
+        assert (graph_loop.while_loop.launches - before[-1]
+                == (2 * len(solver._fused[1].rounds_run()) if i == 0 else 0))
+        eager, rounds = eager_rounds(solver, g)
+        eager.validate()
+        assert solver._fused[1].rounds_run() == rounds
         np.testing.assert_array_equal(fused.circuit, eager.circuit)
         np.testing.assert_array_equal(fused.mate, eager.mate)
         assert solver.captures == 1
@@ -218,7 +297,23 @@ def test_cuda_host_read_inside_the_recording_raises():
     if not torch.cuda.is_available():
         pytest.skip("no CUDA device: CUDA graphs record only on the card")
     solver = EulerSolver(n_parts=2)
+    g = eulerian_rmat(8, avg_degree=5, seed=0)
     with mock.patch.object(capture, "capturing", lambda device: False):
         with pytest.raises(RuntimeError):
-            solver.solve(eulerian_rmat(8, avg_degree=5, seed=0))
+            solver.solve(g)
     assert solver.captures == 0
+    torch.cuda.empty_cache()              # the failed capture left nothing
+    assert EulerSolver(n_parts=2).solve(g).validate().fused
+
+
+@pytest.mark.gpu
+def test_cuda_too_few_rounds_report_the_same_flags_fused_and_eager():
+    """On a card: with one splice round a loop, the recorded while nodes
+    leave the eager flags and bytes."""
+    if not torch.cuda.is_available():
+        pytest.skip("no CUDA device: CUDA graphs record only on the card")
+    _few_rounds_agree("cuda", contextlib.nullcontext())
+
+
+if __name__ == "__main__":
+    jax_reference(GOLDEN)
