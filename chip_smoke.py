@@ -100,15 +100,31 @@ exits non-zero:
   9. lm-slice — the LM serving path: ``serve_lm`` on the full SmolLM-360M
                 config (32 layers, d_model 960, bf16, seeded random
                 weights) for 4 requests of 4,096 prompt tokens and 32
-                generated each, every counter set to 0 just before and
-                read just after: K6 once per layer (the prefill), K1–K5
-                never.  The first decode step's logits must match a
-                prefill of the 4,097-token prompt: in bf16 within 0.1
-                when the prefill's attention rounds as the decode's
-                does, and in an f32 copy of the weights, K6 in the
-                prefill, within 1e-4; a widening copy that drops the
-                prompt's last position must fail both.  A profiled prefill and decode step
-                split the device time by kernel; the decode step
+                generated each.  The main path is the default,
+                ``fused=True``: one ``LMPrograms`` for the shape, whose
+                first serve warms up and records the prefill and the
+                decode step as two CUDA graphs (every counter set to 0
+                just before and read just after, and around each
+                recording: K6 once per layer in the prefill graph, none
+                in the decode graph, K1–K5 never; ``warmup_s``,
+                ``capture_s``, ``captures=1``).  Then three fused serves
+                with the same programs (replays: no capture, no wrapper
+                launched) and three eager ones (``fused=False``: K6 once
+                per layer), min, median and max of ``decode_tok_s`` and
+                ``prefill_s`` of each mode beside the ``nvidia-smi``
+                line, the fused serves' peak allocated and reserved
+                memory; the fused ids must equal the eager ids.  The
+                first three decode replays' logits are held against
+                three eager ``decode_step``s from the same state (their
+                largest difference printed, greedy tokens equal).  The
+                first decode step's logits must match a prefill of the
+                4,097-token prompt: in bf16 within 0.1 when the
+                prefill's attention rounds as the decode's does, and in
+                an f32 copy of the weights, K6 in the prefill, within
+                1e-4; a widening copy that drops the prompt's last
+                position must fail both.  A profiled eager prefill and
+                decode step, and a profiled prefill and decode replay,
+                split the device time by kernel; an eager decode step
                 launches no kernel of the port.
 
 The last three lines are the kernel table as JSON, the ``nvidia-smi``
@@ -150,7 +166,7 @@ from repro_torch.kernels import flash_attention as fa  # noqa: E402
 from repro_torch.kernels import graph_loop  # noqa: E402
 from repro_torch.kernels import pointer_double as pd  # noqa: E402
 from repro_torch.kernels import segment_reduce as sr  # noqa: E402
-from repro_torch.launch.serve import serve_lm  # noqa: E402
+from repro_torch.launch.serve import LMPrograms, serve_lm  # noqa: E402
 from repro_torch.models import transformer as tr  # noqa: E402
 from repro_torch.models.layers import gqa_attention  # noqa: E402
 
@@ -1098,11 +1114,97 @@ def decode_against_prefill(params, cfg, tokens, first, dev,
     return step, full.float(), fault
 
 
-def check_lm_slice(dev) -> dict:
-    """Phase 9: full-width SmolLM-360M serving through ``serve_lm``,
-    counters set to 0 just before and read just after; then the
-    decode-against-prefill check and a profiled prefill and decode step.
-    Returns the launch counts."""
+def _spread(values, digits: int) -> str:
+    """``min/median/max`` of three or more numbers."""
+    v = sorted(values)
+    return "/".join(f"{x:.{digits}f}" for x in (v[0], v[len(v) // 2], v[-1]))
+
+
+def record_lm(cfg, params, prompts, dev):
+    """Phase 9's main path: the first fused serve at the measured shape,
+    which warms up and records the programs.  Every counter is set to 0
+    just before it and read just after, and read around each recording.
+    Returns (the programs, the result, launches of the serve, launches
+    recorded in the prefill graph and in the decode graph)."""
+    programs = LMPrograms(cfg, params, LM_BATCH, LM_PROMPT, LM_GEN, dev)
+    recorded = []
+    record = LMPrograms._record
+
+    def counted_record(prog, body):
+        before = read_counts()
+        out = record(prog, body)
+        recorded.append({k: v - before[k] for k, v in read_counts().items()})
+        return out
+
+    torch.cuda.synchronize()
+    reset_counts()
+    with mock.patch.object(LMPrograms, "_record", counted_record):
+        res = serve_lm(cfg, prompts, LM_GEN, dev, programs=programs)
+    return programs, res, read_counts(), *recorded
+
+
+def serve_both_modes(cfg, params, prompts, dev, programs, smi: str):
+    """Three fused serves (replays of ``programs``: each must record
+    nothing and launch no wrapper) and three eager ones (K6 once per
+    layer each); prints each mode's spread and the fused serves' peak
+    memory.  Returns (fused results, eager results)."""
+    want_eager = {name: 0 for name in KERNELS}
+    want_eager["flash_attention"] = cfg.n_layers
+    runs = {"fused": [], "eager": []}
+    memory = {}
+    for mode in runs:
+        torch.cuda.reset_peak_memory_stats()
+        for _ in range(3):
+            reset_counts()
+            res = serve_lm(cfg, prompts, LM_GEN, dev, params=params,
+                           fused=mode == "fused",
+                           programs=programs if mode == "fused" else None)
+            counts = read_counts()
+            if mode == "fused" and (any(counts.values()) or res.captures != 1
+                                    or res.capture_s != 0.0):
+                raise AssertionError(f"a fused serve recorded or launched "
+                                     f"from Python: {counts}, captures "
+                                     f"{res.captures}")
+            if mode == "eager" and counts != want_eager:
+                raise AssertionError(f"an eager serve launched {counts}, "
+                                     f"expected {want_eager}")
+            runs[mode].append(res)
+        memory[mode] = (torch.cuda.max_memory_allocated(),
+                        torch.cuda.max_memory_reserved())
+    for mode, results in runs.items():
+        say("lm-serve", mode=mode, calls=len(results),
+            decode_tok_s=_spread([r.decode_tok_s for r in results], 1),
+            prefill_s=_spread([r.prefill_s for r in results], 4),
+            decode_s=_spread([r.decode_s for r in results], 4),
+            peak_gib=f"{memory[mode][0] / 2**30:.3f}",
+            reserved_gib=f"{memory[mode][1] / 2**30:.3f}", smi=f"'{smi}'")
+    return runs["fused"], runs["eager"]
+
+
+def decode_replays_vs_eager(params, cfg, programs, tokens, steps: int = 3):
+    """The first ``steps`` decode replays after a prefill replay against
+    as many eager ``decode_step``s from a copy of the same state: the
+    largest logit difference of each step, and whether the greedy
+    tokens agree."""
+    programs.load(tokens)
+    programs.prefill()
+    cache = tr.KVCache(*(x.clone() for x in programs.cache))
+    tok = programs.tokens.clone()
+    diffs, same = [], True
+    for _ in range(steps):
+        programs.decode()
+        logits, cache = tr.decode_step(params, cfg, cache, tok)
+        tok = torch.argmax(logits, -1).to(torch.int32)
+        diffs.append(float((programs.logits.float() - logits.float())
+                           .abs().max()))
+        same = same and torch.equal(programs.tokens, tok)
+    del cache
+    return diffs, same
+
+
+def check_lm_slice(dev, smi: str) -> dict:
+    """Phase 9 (module docstring).  Returns the launch counts of the main
+    path: K6's is the prefill graph's recorded count."""
     cfg = get_config("smollm-360m").model
     t = time.perf_counter()
     params = tr.init_lm_params(torch.Generator(device=dev).manual_seed(0), cfg)
@@ -1110,37 +1212,65 @@ def check_lm_slice(dev) -> dict:
     init_s = time.perf_counter() - t
     prompts = np.random.default_rng(0).integers(
         0, cfg.vocab, (LM_BATCH, LM_PROMPT)).astype(np.int32)
-    # warm-up at the served shape: cuBLAS's first choice of kernels and
-    # the allocator's growth are set-up, not serving time
-    serve_lm(cfg, prompts, 2, dev, params=params)
-    torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    reset_counts()
-    res = serve_lm(cfg, prompts, LM_GEN, dev, params=params)
-    counts = read_counts()
+    programs, res, counts, rec_prefill, rec_decode = record_lm(
+        cfg, params, prompts, dev)
     peak = torch.cuda.max_memory_allocated()
     say("lm-slice", config=cfg.name, layers=cfg.n_layers,
         d_model=cfg.d_model, params=cfg.param_count(), dtype="bfloat16",
-        batch=LM_BATCH, prompt=LM_PROMPT, gen=LM_GEN,
-        init_s=f"{init_s:.3f}", prefill_s=f"{res.prefill_s:.4f}",
-        decode_s=f"{res.decode_s:.4f}",
+        batch=LM_BATCH, prompt=LM_PROMPT, gen=LM_GEN, fused=True,
+        init_s=f"{init_s:.3f}", warmup_s=f"{res.warmup_s:.4f}",
+        capture_s=f"{res.capture_s:.4f}", captures=res.captures,
+        prefill_s=f"{res.prefill_s:.4f}", decode_s=f"{res.decode_s:.4f}",
         decode_tok_s=f"{res.decode_tok_s:.1f}",
-        prefill_tok_s=f"{LM_BATCH * LM_PROMPT / res.prefill_s:.1f}",
         peak_gib=f"{peak / 2**30:.3f}",
+        reserved_gib=f"{torch.cuda.max_memory_reserved() / 2**30:.3f}",
         ids_shape="x".join(map(str, res.ids.shape)),
-        launches=json.dumps(counts, separators=(",", ":")))
-    # one K6 launch per layer of the prefill: the decode launches none
-    want = {name: 0 for name in KERNELS}
-    want["flash_attention"] = cfg.n_layers
-    if res.ids.shape != (LM_BATCH, LM_GEN) or counts != want:
-        raise AssertionError(f"serving ran {res.ids.shape}, launches "
-                             f"{counts}, expected {want}")
+        launches=json.dumps(counts, separators=(",", ":")),
+        recorded_prefill=json.dumps(rec_prefill, separators=(",", ":")),
+        recorded_decode=json.dumps(rec_decode, separators=(",", ":")))
+    # one K6 launch per layer in the prefill graph, none in the decode
+    # graph; the serve ran the warm-up's and the recording's
+    want_decode = {name: 0 for name in KERNELS}
+    want_prefill = dict(want_decode, flash_attention=cfg.n_layers)
+    want_serve = dict(want_decode, flash_attention=2 * cfg.n_layers)
+    own = {step: {k: v for k, v in want.items() if k in programs.recorded[step]}
+           for step, want in (("prefill", want_prefill),
+                              ("decode", want_decode))}
+    if (res.ids.shape != (LM_BATCH, LM_GEN) or res.captures != 1
+            or rec_prefill != want_prefill or rec_decode != want_decode
+            or counts != want_serve or programs.recorded != own):
+        raise AssertionError(
+            f"serving ran {res.ids.shape}, {res.captures} captures, "
+            f"recorded {rec_prefill} / {rec_decode} "
+            f"(programs: {programs.recorded}), launches {counts}; expected "
+            f"{want_prefill} / {want_decode}, {want_serve}")
+
+    # warm-up of the eager loop at the served shape: cuBLAS's first
+    # choice of kernels and the allocator's growth are set-up
+    serve_lm(cfg, prompts, 2, dev, params=params, fused=False)
+    fused, eager = serve_both_modes(cfg, params, prompts, dev, programs, smi)
+    same_ids = all(np.array_equal(r.ids, eager[0].ids)
+                   for r in (res, *fused, *eager))
+    last = float((fused[0].logits.float() - eager[0].logits.float())
+                 .abs().max())
+    tokens = torch.from_numpy(prompts).to(dev)
+    diffs, same_tokens = decode_replays_vs_eager(params, cfg, programs,
+                                                 tokens)
+    say("lm-slice", check="fused_vs_eager", ids_equal=same_ids,
+        last_logits_max_abs_diff=f"{last:.3e}",
+        decode_replays_vs_eager_decode_step_max_abs_diff=
+        "/".join(f"{d:.3e}" for d in diffs),
+        decode_replay_tokens_equal=same_tokens)
+    if not (same_ids and same_tokens):
+        raise AssertionError("the fused serve's ids differ from the eager "
+                             "loop's")
+    del fused, eager
 
     # the first decode step against a prefill of prompt + first token:
     # in bf16 with plain attention on both sides (the decode's rounding),
     # in an f32 copy of the weights with K6 in the prefill, and the bf16
     # serving path itself (K6 prefill, plain decode) for the record
-    tokens = torch.from_numpy(prompts).to(dev)
     logits, _ = tr.prefill_step(params, cfg, tokens)
     first = torch.argmax(logits, -1).to(torch.int32)
     del logits
@@ -1198,7 +1328,22 @@ def check_lm_slice(dev) -> dict:
         launches=json.dumps(decode_counts, separators=(",", ":")))
     if any(decode_counts.values()):
         raise AssertionError(f"a decode step launched {decode_counts}")
-    return counts
+    del big
+    programs.load(tokens)
+    reset_counts()
+    split = _profile_split(programs.prefill)
+    say("lm-profile", step="prefill_replay", batch=LM_BATCH,
+        prompt=LM_PROMPT, **_fmt(split))
+    split = _profile_split(programs.decode)
+    replay_counts = read_counts()
+    say("lm-profile", step="decode_replay", batch=LM_BATCH,
+        cache=LM_PROMPT + LM_GEN, **_fmt(split),
+        launches=json.dumps(replay_counts, separators=(",", ":")))
+    if any(replay_counts.values()):
+        raise AssertionError(f"a replay launched {replay_counts}")
+    del programs
+    torch.cuda.empty_cache()
+    return dict(counts, flash_attention=rec_prefill["flash_attention"])
 
 
 def main(argv=None) -> int:
@@ -1313,7 +1458,7 @@ def main(argv=None) -> int:
     check_lm_parity(dev)
 
     # ---- 9. the LM serving path at full width ----
-    counts = check_lm_slice(dev)
+    counts = check_lm_slice(dev, smi)
     launches["segment_sum_sorted"] = counts["segment_sum_sorted"]
     launches["flash_attention"] = counts["flash_attention"]
 

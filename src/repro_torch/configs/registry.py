@@ -11,7 +11,7 @@ _MODULES = {"smollm-360m": "smollm_360m"}
 def get_config(arch_id: str, reduced: bool = False):
     if arch_id not in _MODULES:
         raise KeyError(f"{arch_id!r} is not ported yet (ROADMAP queue 1 "
-                       f"item 13); the port has {ARCH_IDS}")
+                       f"item 8); the port has {ARCH_IDS}")
     mod = import_module(f"{__package__}.{_MODULES[arch_id]}")
     cfg = mod.CONFIG
     return cfg.reduced() if reduced else cfg

@@ -70,8 +70,9 @@ _active: Optional[Loops] = None
 
 
 @contextlib.contextmanager
-def counting(loops: Loops) -> Iterator[Loops]:
-    """Append the round counter of every loop run inside to ``loops``."""
+def counting(loops: Optional[Loops]) -> Iterator[Optional[Loops]]:
+    """Append the round counter of every loop run inside to ``loops``
+    (``None``: to nothing; a loop recorded inside then raises)."""
     global _active
     outer, _active = _active, loops
     try:
@@ -81,10 +82,14 @@ def counting(loops: Loops) -> Iterator[Loops]:
 
 
 @contextlib.contextmanager
-def recording(graph: "torch.cuda.CUDAGraph", loops: Loops) -> Iterator[None]:
+def recording(graph: "torch.cuda.CUDAGraph",
+              loops: Optional[Loops] = None) -> Iterator[None]:
     """Capture the work of the ``with`` body into ``graph``
     (``torch.cuda.graph``, in a pool of its own, on a stream apart from
     ``loops``'), counting its loops into ``loops`` (:func:`counting`).
+    ``loops=None`` is for a body without splice loops (the LM serving
+    steps): one that records a loop all the same raises
+    (:func:`device_while`).
 
     A host read inside is an error raised before it reaches the card
     (torch's sync debug mode ``error``): one that reached it would
@@ -98,8 +103,8 @@ def recording(graph: "torch.cuda.CUDAGraph", loops: Loops) -> Iterator[None]:
     pool = torch.cuda.graph_pool_handle()
     stream = torch.cuda.current_stream()
     on = torch.cuda.Stream()       # PyTorch's pool hands streams out in turn,
-    if on == loops.stream:         # so the next one differs from the bodies'
-        on = torch.cuda.Stream()
+    if loops is not None and on == loops.stream:   # so the next one
+        on = torch.cuda.Stream()                   # differs from the bodies'
     try:
         with counting(loops), torch.cuda.graph(graph, pool=pool, stream=on):
             mode = torch.cuda.get_sync_debug_mode()

@@ -8,6 +8,8 @@ VMEM limit) have no counterpart: no shape sends a CUDA tensor to a twin.
 """
 from __future__ import annotations
 
+from typing import Dict
+
 import torch
 
 from . import flash_attention as _flash
@@ -35,3 +37,12 @@ def flash_attention_gqa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """GQA flash attention: q [B,S,Hq,D], k/v [B,T,Hkv,D] → [B,S,Hq,D]
     (K6; the kernel reads the grouped KV heads without repeating them)."""
     return _flash.flash_attention(q, k, v, causal=causal)
+
+
+def launch_counts() -> Dict[str, int]:
+    """Each kernel wrapper's launches so far (K1–K6), by wrapper name: a
+    recording reads them around itself to count what its graph holds."""
+    return {fn.__name__: fn.launches for fn in (
+        _pdouble.pointer_double, _pdouble.pointer_double_rank,
+        _pdouble.pointer_double_shard, _pdouble.pointer_double_rank_shard,
+        _segsum.segment_sum_sorted, _flash.flash_attention)}

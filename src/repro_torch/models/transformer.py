@@ -14,7 +14,7 @@ Prefill attention runs the K6 kernel through
 row-blocked ``chunked_gqa_attention``; decode attention is plain torch
 (``gqa_attention`` with ``kv_len``), as in the reference.  Training
 (``lm_backbone``, ``lm_loss``), MoE and the sharding constraints are not
-ported yet (ROADMAP queue 1 item 13).
+ported yet (ROADMAP queue 1 item 8).
 """
 from __future__ import annotations
 
@@ -52,7 +52,7 @@ class LMConfig:
         if self.moe is not None:
             raise NotImplementedError(
                 f"{self.name}: MoE layers are not ported yet (ROADMAP "
-                f"queue 1 item 13)")
+                f"queue 1 item 8)")
         if self.n_heads % self.n_kv_heads:
             raise ValueError(f"{self.name}: {self.n_heads} query heads are "
                              f"not a multiple of {self.n_kv_heads} KV heads")

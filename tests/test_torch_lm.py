@@ -250,24 +250,41 @@ def test_first_decode_step_matches_prefill_of_one_more_token():
     assert not wide.k[:, :, 30:].any()
 
 
-def test_serve_lm_matches_jax_main_lm():
-    """``serve_lm`` on the CPU gives JAX ``main_lm``'s generated ids, token
-    for token, from the same weights and prompts (f32)."""
+@functools.lru_cache(maxsize=None)
+def jax_main_lm_ids(B, P, gen):
     from repro.launch.serve import main_lm as j_main_lm
 
+    return np.asarray(j_main_lm(["--batch", str(B), "--prompt-len", str(P),
+                                 "--gen", str(gen)]))
+
+
+def serve_matches_jax_main_lm(fused):
+    """``serve_lm`` on the CPU gives JAX ``main_lm``'s generated ids, token
+    for token, from the same weights and prompts (f32)."""
     B, P, gen = 2, 16, 6
-    want = j_main_lm(["--batch", str(B), "--prompt-len", str(P), "--gen",
-                      str(gen)])
+    want = jax_main_lm_ids(B, P, gen)
     cfg = port_cfg()
     rng = np.random.default_rng(0)          # main_lm's prompts
     toks = rng.integers(0, cfg.vocab, (B, P)).astype(np.int32)
     before = fa.flash_attention.launches
     res = serve.serve_lm(cfg, toks, gen, "cpu",
-                         params=tr.params_from_numpy(jax_params()))
+                         params=tr.params_from_numpy(jax_params()),
+                         fused=fused)
     assert res.ids.shape == (B, gen) and res.ids.dtype == np.int32
-    assert np.array_equal(res.ids, np.asarray(want))
+    assert np.array_equal(res.ids, want)
     assert fa.flash_attention.launches == before    # the twin counts none
     assert res.prefill_s > 0 and res.decode_s > 0 and res.decode_tok_s > 0
+
+
+def test_serve_lm_matches_jax_main_lm():
+    """The default, ``fused=True`` (the reference's jitted steps; on the
+    CPU its programs' bodies run uncaptured)."""
+    serve_matches_jax_main_lm(fused=True)
+
+
+def test_serve_lm_eager_matches_jax_main_lm():
+    """The eager oracle, ``fused=False``."""
+    serve_matches_jax_main_lm(fused=False)
 
 
 def test_main_lm_cli_on_cpu(capsys):
@@ -278,7 +295,7 @@ def test_main_lm_cli_on_cpu(capsys):
 
 
 def test_euler_workload_is_not_ported_yet():
-    with pytest.raises(NotImplementedError, match="item 10"):
+    with pytest.raises(NotImplementedError, match="item 6"):
         serve.main([])
 
 
@@ -295,7 +312,10 @@ def test_serve_without_a_card_raises():
 def test_cuda_serving_matches_cpu():
     """Reduced config in f32, batch 2, prompt 64, gen 8, one set of
     seeded weights on both devices: logits allclose, greedy tokens
-    identical, one K6 launch per layer in prefill and none in decode."""
+    identical, one K6 launch per layer in prefill and none in decode
+    (the eager loop, ``fused=False``: a fused serve counts the warm-up's
+    launches and the recording's; ``tests/test_torch_lm_graph.py`` has
+    its fused twin)."""
     if not torch.cuda.is_available():
         pytest.skip("no CUDA device: the kernel runs only on the card")
     cfg = port_cfg()
@@ -307,9 +327,9 @@ def test_cuda_serving_matches_cpu():
     want, _ = tr.prefill_step(params, cfg, torch.from_numpy(toks))
     got, _ = tr.prefill_step(on_card, cfg, torch.from_numpy(toks).cuda())
     torch.testing.assert_close(got.cpu(), want, rtol=2e-5, atol=2e-5)
-    cpu = serve.serve_lm(cfg, toks, 8, "cpu", params=params)
+    cpu = serve.serve_lm(cfg, toks, 8, "cpu", params=params, fused=False)
     before = fa.flash_attention.launches
-    card = serve.serve_lm(cfg, toks, 8, "cuda", params=on_card)
+    card = serve.serve_lm(cfg, toks, 8, "cuda", params=on_card, fused=False)
     assert np.array_equal(cpu.ids, card.ids)
     # one launch per layer of the prefill, so the decode launched none
     assert fa.flash_attention.launches == before + cfg.n_layers
