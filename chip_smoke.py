@@ -71,6 +71,27 @@ exits non-zero:
                 peak allocated and reserved memory beside the eager
                 ``supersteps_s + phase3_s``; the solvers and their graphs
                 are freed before the next phase;
+  5c. session — the solver as a serving session.  At the main scale, in
+                5b's sharded session after seed 1's replay: seed 0 again
+                with the same ``Graph`` object must be a cache hit with
+                ``prepare_s`` under 0.05 s (the prep memo), no new state
+                upload (the state stayed on the card) and no kernel
+                launched from Python, byte-equal to 5b's cold solve; its
+                ``prepare_s``, ``upload_s``, ``run_s`` and ``total_s``
+                are printed beside the cold ones with ``cache_stats``,
+                the run's ``reserved_bytes``, the bytes of each resident
+                state and the peak allocated and reserved memory.  At
+                scale 8 with 8 partitions, on ``cuda`` and on ``cpu``: 30
+                seeds bucketed, ``solve_many`` of 8 graphs of the modal
+                bucket (one trace, one miss, seven hits, each result
+                valid and byte-equal to a one-shot solve on the card);
+                then A, B, A, B over the two buckets, under the default
+                cap (both programs stay alive, A replays right after B
+                recorded) and under ``program_cache_max=1`` (three
+                evictions, the engines and their resident states kept;
+                on the card the reserved memory falls across each
+                eviction and its ``empty_cache`` by at least 0.9 of the
+                evicted run's ``reserved_bytes``);
   6. k5       — the sorted segment sum against its twin (f32 tolerance
                 1e-5, half types 2e-2, atol ×8) at the GNN aggregation
                 shapes full_graph_sm and ogb_products (seeded sorted ids)
@@ -133,6 +154,7 @@ line, and ``{"ok": true, "device": {...}}``.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import ctypes
 import dataclasses
 import json
@@ -156,7 +178,7 @@ from repro_torch.configs.registry import get_config  # noqa: E402
 from repro_torch.core import capture  # noqa: E402
 from repro_torch.core import phase1 as p1  # noqa: E402
 from repro_torch.core import phase3 as p3  # noqa: E402
-from repro_torch.core.engine import FusedRun  # noqa: E402
+from repro_torch.core.engine import Engine, FusedRun  # noqa: E402
 from repro_torch.core.phase3 import circuit_from_mate_np  # noqa: E402
 from repro_torch.euler import EulerSolver, solve  # noqa: E402
 from repro_torch.euler.bucket import strip_circuit  # noqa: E402
@@ -614,6 +636,12 @@ def same_bytes(a, b) -> bool:
             and np.array_equal(a.mate, b.mate))
 
 
+def fused_run(solver, g) -> FusedRun:
+    """The session's fused run of ``g``'s bucket (its engine's program)."""
+    key = solver.bucket_of(g)
+    return solver._engines[key].fused_program(key[0])
+
+
 def _fmt_rounds(loops, ran) -> str:
     """``phase1:2/16,…`` from the eager ``(loop, rounds, budget)`` list
     and a list of rounds run."""
@@ -636,7 +664,7 @@ def check_fused(scale: int, g, eager: dict, eager_rounds: dict) -> int:
         for device in ("cuda", "cpu"):
             solver = EulerSolver(n_parts=2, device=device, **opts)
             r = solver.solve(small).validate()
-            ran = solver._fused[1].rounds_run()
+            ran = fused_run(solver, small).rounds_run()
             same = r.fused and same_bytes(ref, r)
             say("fused", scale=8, parts=2, mode=mode, device=device,
                 byte_identical_to_eager=same, rounds_run=ran,
@@ -651,7 +679,7 @@ def check_fused(scale: int, g, eager: dict, eager_rounds: dict) -> int:
 
     def report(res, solver, seed, launches, recorded, peak, reserved,
                base, want_rounds):
-        ran = solver._fused[1].rounds_run()
+        ran = fused_run(solver, res.graph).rounds_run()
         plain_s = base.timings["supersteps_s"] + base.timings["phase3_s"]
         say("fused", scale=scale,
             phase3="sharded" if solver.sharded_phase3 else "replicated",
@@ -682,6 +710,7 @@ def check_fused(scale: int, g, eager: dict, eager_rounds: dict) -> int:
         res.validate()
         report(res, solver, SEED, launches, recorded, peak, reserved,
                eager[sharded], eager_rounds[sharded])
+        cold = res
         rounds = p3.sharded_phase3_schedule(
             g.num_edges + res.padded_edges, PARTS)["doubling_rounds"]
         want = {name: 0 for name in KERNELS}
@@ -696,7 +725,7 @@ def check_fused(scale: int, g, eager: dict, eager_rounds: dict) -> int:
         if sharded:
             loop_tests = recorded["loop_condition"]
             g1 = eulerian_rmat(scale, avg_degree=AVG_DEGREE, seed=SEED + 1)
-            key0, key1 = solver.prepare(g)[2], solver.prepare(g1)[2]
+            key0, key1 = solver.bucket_of(g), solver.bucket_of(g1)
             say("fused", seed=SEED + 1, edges=g1.num_edges,
                 bucket=f"'{key1}'", same_bucket=key0 == key1)
             if key0 != key1:
@@ -722,9 +751,149 @@ def check_fused(scale: int, g, eager: dict, eager_rounds: dict) -> int:
                 raise AssertionError("replayed circuit differs from the "
                                      "numpy list-rank twin")
             del g1, base1
-        del solver, res
+            session_repeat(scale, solver, g, cold)
+        del solver, res, cold
         torch.cuda.empty_cache()
     return loop_tests
+
+
+def resident_bytes(eng: Engine) -> list:
+    """Bytes of each graph state the engine keeps on the card."""
+    return [sum(t.numel() * t.element_size()
+                for t in (*ent["dev"][0], *ent["dev"][1:]))
+            for ent in eng._load_cache.values() if ent["dev"] is not None]
+
+
+def session_repeat(scale: int, solver, g, cold) -> None:
+    """Phase 5c at the main scale, in 5b's sharded solver after seed 1's
+    replay: seed 0 again with the same ``Graph`` object must be a cache
+    hit that skips the host prep (memo) and the upload (resident state),
+    byte-equal to 5b's cold solve of it."""
+    up0 = solver.cache_stats.state_uploads
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    res = solver.solve(g).validate()
+    launches = read_counts()
+    peak = torch.cuda.max_memory_allocated()
+    reserved = torch.cuda.max_memory_reserved()
+    key = solver.bucket_of(g)
+    eng = solver._engines[key]
+    run = eng.fused_program(key[0])
+    t, c = res.timings, cold.timings
+    say("session", scale=scale, seed=SEED, repeat=True, hit=res.cache.hit,
+        same_bytes_as_cold=same_bytes(res, cold),
+        **{k: f"{t[k]:.4f}" for k in ("prepare_s", "upload_s", "run_s",
+                                       "total_s")},
+        **{f"cold_{k}": f"{c[k]:.4f}" for k in ("prepare_s", "upload_s",
+                                                 "run_s", "total_s")},
+        cache_stats=json.dumps(dataclasses.asdict(solver.cache_stats),
+                               separators=(",", ":")),
+        reserved_bytes=run.reserved_bytes,
+        resident_state_bytes=",".join(map(str, resident_bytes(eng))),
+        launches=json.dumps(launches, separators=(",", ":")),
+        peak_gib=f"{peak / 2**30:.3f}", reserved_gib=f"{reserved / 2**30:.3f}")
+    if not res.cache.hit or t["capture_s"] != 0.0 or any(launches.values()):
+        raise AssertionError("the repeat solve did not replay the cached "
+                             "graph")
+    if t["prepare_s"] >= 0.05:
+        raise AssertionError(f"the repeat solve took {t['prepare_s']} s of "
+                             f"host prep: the memo missed")
+    if solver.cache_stats.state_uploads != up0:
+        raise AssertionError("the repeat solve uploaded its state again")
+    if not same_bytes(res, cold):
+        raise AssertionError("the repeat solve differs from the cold one")
+
+
+def measured_evictions(drops: list):
+    """A stand-in for ``Engine.evict_program`` that appends, for each
+    program it frees, ``(reserved_bytes of the run, fall of the card's
+    reserved memory across the eviction and its empty_cache)``."""
+    evict = Engine.evict_program
+
+    def measured(eng, num_edges, batch):
+        held = eng._fused[(num_edges, batch)].reserved_bytes
+        before = torch.cuda.memory_reserved()
+        n = evict(eng, num_edges, batch)
+        drops.append((held, before - torch.cuda.memory_reserved()))
+        return n
+    return mock.patch.object(Engine, "evict_program", measured)
+
+
+def check_session(scale: int = 8, seeds: int = 30,
+                  devices=("cuda", "cpu")) -> None:
+    """Phase 5c at scale 8, P = 8, on ``cuda`` and on ``cpu`` (module
+    docstring); the one-shot solves run on the first device."""
+    pool = [eulerian_rmat(scale, avg_degree=AVG_DEGREE, seed=s)
+            for s in range(seeds)]
+    want = {}
+    for device in devices:
+        solver = EulerSolver(n_parts=PARTS, device=device)
+        buckets = {}
+        for g in pool:
+            buckets.setdefault(solver.bucket_of(g), []).append(g)
+        ranked = sorted(buckets.values(), key=len, reverse=True)
+        group, other = ranked[0][:8], ranked[1]
+        results = solver.solve_many(group)
+        cs = solver.cache_stats
+        if not want:    # one-shot solves, each a fresh session
+            want = {id(g): solve(g, n_parts=PARTS, device=device)
+                    for g in group}
+        same = all(same_bytes(r.validate(), want[id(g)])
+                   for g, r in zip(group, results))
+        say("session", scale=scale, parts=PARTS, device=device,
+            buckets=",".join(str(len(v)) for v in ranked),
+            solve_many=len(group), traces=cs.traces, misses=cs.misses,
+            hits=cs.hits, same_bytes_as_one_shot=same)
+        if (cs.traces, cs.misses, cs.hits) != (1, 1, len(group) - 1):
+            raise AssertionError(f"solve_many on {device}: {cs}")
+        if not same:
+            raise AssertionError(f"solve_many on {device} differs from "
+                                 f"one-shot solves")
+        a, b = group[0], other[0]
+        firsts = {id(a): results[0], id(b): None}
+        for cap in (None, 1):
+            s = solver if cap is None else EulerSolver(
+                n_parts=PARTS, device=device, program_cache_max=1)
+            drops = []
+            patch = (measured_evictions(drops) if device == "cuda"
+                     else contextlib.nullcontext())
+            with patch:
+                seq = [s.solve(g).validate() for g in (a, b, a, b)]
+            for g, r in zip((a, b, a, b), seq):
+                firsts[id(g)] = firsts[id(g)] or r
+                if not same_bytes(r, firsts[id(g)]):
+                    raise AssertionError(f"A/B/A/B on {device} "
+                                         f"(program_cache_max={cap}): a "
+                                         f"replay differs")
+            live = [k for k, eng in s._engines.items() if eng._fused]
+            cs = s.cache_stats
+            say("session", device=device,
+                program_cache_max=cap or s.program_cache_max,
+                sequence="ABAB", hits=[int(r.cache.hit) for r in seq],
+                live_programs=len(live), evictions=cs.evictions,
+                traces=cs.traces, state_uploads=cs.state_uploads,
+                reserved_bytes=[eng.reserved_bytes()
+                                for eng in s._engines.values()],
+                eviction_drops=";".join(f"{f}/{h}" for h, f in drops))
+            if cap is None and (len(live) != 2 or cs.evictions):
+                raise AssertionError(f"both programs should stay alive: "
+                                     f"{live}, {cs.evictions} evictions")
+            if cap == 1:
+                if cs.evictions != 3 or len(live) != 1:
+                    raise AssertionError(f"program_cache_max=1: "
+                                         f"{cs.evictions} evictions, "
+                                         f"{len(live)} live")
+                if len(s._engines) != 2 or cs.state_uploads != 2:
+                    raise AssertionError("the engines and their resident "
+                                         "states should outlive evictions")
+                if device == "cuda" and (len(drops) != 3 or any(
+                        f < 0.9 * h or h <= 0 for h, f in drops)):
+                    raise AssertionError(f"an eviction freed too little: "
+                                         f"{drops} (freed, held)")
+            del s, seq
+        del solver, results
+        if device == "cuda":
+            torch.cuda.empty_cache()
 
 
 def k5_ids(n: int, s: int, skewed: bool, gen, dev) -> torch.Tensor:
@@ -1444,11 +1613,15 @@ def main(argv=None) -> int:
     del res
     torch.cuda.empty_cache()
 
-    # ---- 5b. the fused run: one recorded graph per bucket ----
+    # ---- 5b. the fused run: one recorded graph per bucket (5c's repeat
+    # solve at the main scale runs in its sharded session) ----
     launches["loop_condition"] = check_fused(args.scale, g, results,
                                              loop_rounds)
     del results, g
     torch.cuda.empty_cache()
+
+    # ---- 5c. the session: solve_many, two live graphs, evictions ----
+    check_session()
 
     # ---- 6–7. K5 and K6 against their twins, timed ----
     table["segment_sum_sorted"] = check_k5(dev)

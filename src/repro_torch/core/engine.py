@@ -26,13 +26,13 @@ Two execution modes, as in the reference (DESIGN.md §4):
   * **eager** (``fused=False``): :meth:`Engine.run_levels` steps the
     levels in Python and clocks each; the solver then runs and clocks
     Phase 3's steps;
-  * **fused** (``fused=True``, the default): :meth:`Engine.make_fused`
-    returns a :class:`FusedRun`, which records the whole solve — every
-    level, the mate accumulation and Phase 3 in the engine's mode — once
-    as one CUDA graph, replays it for every solve of the bucket and
-    fetches the outputs with one drain.  Each splice loop in it is one
-    CUDA while node (``core/capture.py``), so a replay runs the rounds
-    its graph needs.  Both modes run the same superstep and Phase 3
+  * **fused** (``fused=True``, the default): :meth:`Engine.fused_program`
+    returns the bucket's :class:`FusedRun`, which records the whole solve
+    — every level, the mate accumulation and Phase 3 in the engine's
+    mode — once as one CUDA graph, replays it for every solve of the
+    bucket and fetches the outputs with one drain.  Each splice loop in
+    it is one CUDA while node (``core/capture.py``), so a replay runs the
+    rounds its graph needs.  Both modes run the same superstep and Phase 3
     functions, so their bits are equal; on the CPU the fused body runs
     uncaptured.
 
@@ -47,13 +47,16 @@ reference's ``_pad_sv``).
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import time
-from typing import List, NamedTuple, Optional, Tuple
+import weakref
+from typing import Callable, Dict, List, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
 
+from .. import obs
 from . import capture
 from .graph import PartitionedGraph
 from .phase1 import (BIG, I32, NewEdges, OpenTable, Phase1Caps, TouchTable,
@@ -304,22 +307,68 @@ def _log_mates(mate: torch.Tensor, s1, s2, lm, n_stubs: int) -> None:
         torch.where(wm, wv, -1)
 
 
+def require_deferred_transfer(deferred_transfer: bool) -> None:
+    """``deferred_transfer=False`` (the paper's baseline without the §5
+    heuristic) is not ported: the reference's ``size_caps`` sizes the
+    park table for deferred transfer only, so its own baseline fails its
+    capacity flags (ROADMAP queue 3)."""
+    if not deferred_transfer:
+        raise ValueError(
+            "deferred_transfer=False is not ported: the reference sizes "
+            "the park table for deferred transfer only and its baseline "
+            "fails its own capacity flags (ROADMAP queue 3)")
+
+
 class Engine:
-    """Drives the supersteps and Phase 3 of one partitioned graph on one
+    """Drives the supersteps and Phase 3 of one bucket's graphs on one
     device (counterpart of ``repro.core.engine.DistributedEngine``).
 
     ``sharded_phase3`` and ``gather_circuit`` pick the fused run's Phase 3
     (the solver resolves the reference's defaults); the eager path leaves
     Phase 3 to the solver, which runs :mod:`repro_torch.core.phase3` on
-    :attr:`RunOut.mate` or on its :func:`stub_shards`."""
+    :attr:`RunOut.mate` or on its :func:`stub_shards`.
+
+    As the reference's, an engine holds its programs, one
+    :class:`FusedRun` per ``(num_edges, batch)`` (:meth:`fused_program`,
+    :meth:`evict_program`), and a FIFO of 32 loaded graphs keyed by
+    ``id(pg)`` (:meth:`load_cached`), each with its uploaded state once a
+    solve kept it on the device (:meth:`device_state`).
+    ``remote_dedup`` is stored and never read, as in the reference's
+    device engine: :meth:`_keepers` parks each cut edge on one side
+    either way.  ``on_trace`` is called at each trace (a fused run's
+    recording, on the CPU its first run, and the first eager superstep),
+    ``on_upload`` at each host→device state upload; ``trace`` takes the
+    spans (default: the process-wide ``repro_torch.obs`` log), and
+    ``timed_probe`` adds one ``level`` span a level to eager runs."""
 
     def __init__(self, n_parts: int, caps: EngineCaps, n_levels: int,
-                 sharded_phase3: bool = False, gather_circuit: bool = True):
+                 sharded_phase3: bool = False, gather_circuit: bool = True,
+                 remote_dedup: bool = True, deferred_transfer: bool = True,
+                 on_trace: Optional[Callable[[], None]] = None,
+                 on_upload: Optional[Callable[[], None]] = None,
+                 trace: Optional[obs.TraceLog] = None,
+                 timed_probe: bool = False):
+        require_deferred_transfer(deferred_transfer)
         self.n = int(n_parts)
         self.caps = caps
         self.n_levels = n_levels  # supersteps ≥ tree height + 1 (ladder)
         self.sharded_phase3 = bool(sharded_phase3)
         self.gather_circuit = bool(gather_circuit)
+        self.remote_dedup = bool(remote_dedup)
+        self.on_trace = on_trace
+        self.on_upload = on_upload
+        self.trace = trace if trace is not None else obs.default_tracelog()
+        self.timed_probe = bool(timed_probe)
+        self._stepped = False     # the eager superstep has run (a trace)
+        self._fused: Dict[Tuple[int, Optional[int]], FusedRun] = {}
+        self._load_cache: Dict[int, dict] = {}
+        self._load_cache_max = 32
+
+    def _traced(self, program: str, **attrs) -> None:
+        """The reference's retrace event and ``on_trace`` call."""
+        self.trace.event("retrace", program=program, **attrs)
+        if self.on_trace is not None:
+            self.on_trace()
 
     # ------------------------------------------------------------------
     # loading (host numpy, as in the reference)
@@ -511,6 +560,41 @@ class Engine:
         )
         return state, anc_table
 
+    def load_cached(self, pg: PartitionedGraph) -> dict:
+        """Memoized :meth:`load` and stub-vertex map of ``pg`` (the
+        reference's ``_load_cached``): ``{"pg", "state", "anc", "sv",
+        "dev"}``, where ``dev`` keeps the uploaded ``(state, anc, sv)``
+        once :meth:`device_state` made it resident.  Keyed by ``id(pg)``
+        with ``pg`` kept alive by the entry, so an id is never reused
+        while its entry lives; a FIFO of 32."""
+        ent = self._load_cache.get(id(pg))
+        if ent is not None and ent["pg"] is pg:
+            return ent
+        state, anc = self.load(pg)
+        ent = {"pg": pg, "state": state, "anc": anc, "sv": stub_vertex(pg),
+               "dev": None}
+        if len(self._load_cache) >= self._load_cache_max:
+            self._load_cache.pop(next(iter(self._load_cache)))
+        self._load_cache[id(pg)] = ent
+        return ent
+
+    def device_state(self, ent: dict, device: torch.device,
+                     resident: bool = True):
+        """``(state, anc, sv)`` of a :meth:`load_cached` entry on
+        ``device``: uploaded now (an ``upload`` span and one
+        ``on_upload`` call), and with ``resident`` kept on the entry so
+        that later solves of the graph upload nothing."""
+        if resident and ent["dev"] is not None:
+            return ent["dev"]
+        with self.trace.span("upload", edges=len(ent["sv"]) // 2):
+            dev = state_from_numpy(ent["state"], ent["anc"], ent["sv"],
+                                   device)
+        if self.on_upload is not None:
+            self.on_upload()
+        if resident:
+            ent["dev"] = dev
+        return dev
+
     # ------------------------------------------------------------------
     # the superstep
     # ------------------------------------------------------------------
@@ -609,20 +693,29 @@ class Engine:
         counterpart on one device: flag 3 carries only the table lanes.
         The eager path clocks each level after the device drained (Phase
         1 reads a flag on the host every splice round, so the drain costs
-        little); the fused run passes ``clock=False``, drains nothing and
-        gets no ``level_s``."""
+        little), counts its engine's first run as a trace and, under
+        ``timed_probe``, wraps each level in a ``level`` span; the fused
+        run passes ``clock=False``, drains nothing and gets no
+        ``level_s``."""
         n_stubs = 2 * num_edges
         dev = state.pk_eid.device
         mate = torch.full((n_stubs + 1,), -1, dtype=I32, device=dev)
         flags, metrics = [], []
         marks = [drained_clock(dev)] if clock else []
         for lvl in range(self.n_levels):
-            state, s1, s2, lm, fl, mt = self.superstep(lvl, anc, state)
-            _log_mates(mate, s1, s2, lm, n_stubs)
-            flags.append(fl)
-            metrics.append(mt)
-            if clock:
-                marks.append(drained_clock(dev))
+            probe = (self.trace.span("level", level=lvl, edges=num_edges)
+                     if clock and self.timed_probe
+                     else contextlib.nullcontext())
+            with probe:
+                if clock and not self._stepped:
+                    self._stepped = True
+                    self._traced("superstep")
+                state, s1, s2, lm, fl, mt = self.superstep(lvl, anc, state)
+                _log_mates(mate, s1, s2, lm, n_stubs)
+                flags.append(fl)
+                metrics.append(mt)
+                if clock:
+                    marks.append(drained_clock(dev))
         return RunOut(mate=mate[:n_stubs],
                       flags=torch.stack(flags, dim=1),
                       metrics=torch.stack(metrics, dim=1),
@@ -658,11 +751,39 @@ class Engine:
         return FusedOut(packed, mate_sh.reshape(-1)[:n_stubs], flags,
                         metrics, ok)
 
-    def make_fused(self, num_edges: int) -> "FusedRun":
-        """The whole run of this bucket as one recorded program
-        (counterpart of the reference's ``make_fused``); see
-        :class:`FusedRun`."""
-        return FusedRun(self, num_edges)
+    def fused_program(self, num_edges: int,
+                      batch: Optional[int] = None) -> "FusedRun":
+        """Get or create the bucket's :class:`FusedRun` for ``(num_edges,
+        batch)`` without running it (the reference's ``fused_program``):
+        its first run records.  ``batch`` must be None: batched programs
+        are ROADMAP queue 1 item 3."""
+        if batch is not None:
+            raise NotImplementedError(
+                "batched fused programs are not ported yet (ROADMAP "
+                "queue 1 item 3)")
+        key = (int(num_edges), batch)
+        run = self._fused.get(key)
+        if run is None:
+            run = self._fused[key] = FusedRun(self, num_edges)
+        return run
+
+    def reserved_bytes(self) -> int:
+        """What the card reserved for this engine's live programs."""
+        return sum(run.reserved_bytes for run in self._fused.values())
+
+    def evict_program(self, num_edges: int, batch: Optional[int]) -> int:
+        """Drop the program of ``(num_edges, batch)`` and free what it
+        holds (:meth:`FusedRun.free`); on a card the freed pools then go
+        back to the card (``empty_cache``).  Returns how many programs
+        were dropped."""
+        run = self._fused.pop((int(num_edges), batch), None)
+        if run is None:
+            return 0
+        device = run.device
+        run.free()
+        if device is not None and device.type == "cuda":
+            torch.cuda.empty_cache()
+        return 1
 
 
 class FusedRun:
@@ -673,22 +794,31 @@ class FusedRun:
     It holds static input buffers (the :class:`EngineState` fields, the
     ancestor table and the stub-vertex map, whole or as ``[n, S]``
     shards), one ``torch.cuda.CUDAGraph`` and its static
-    :class:`FusedOut`.  :meth:`run` copies a new graph's uploaded tables
-    into the inputs and replays; the first run builds the kernel
-    libraries, warms the body up once eagerly on a side stream (as
-    torch's graph rules ask) and records it.  A host read inside the
-    recorded region makes the capture raise; nothing catches it.  On the
-    CPU the same body runs uncaptured on the inputs.
+    :class:`FusedOut`.  :meth:`launch` copies a graph's uploaded tables
+    into the inputs (device to device: a graph reads fixed addresses)
+    and replays; :meth:`fetch` drains and brings the outputs back.  The
+    first launch builds the kernel libraries, warms the body up once
+    eagerly on a side stream (as torch's graph rules ask) and records
+    it; ``reserved_bytes`` is what the card reserved for the recording
+    (``memory_reserved()`` after an ``empty_cache()``, read before the
+    warm-up and after the recording; 0 on the CPU).  A host read inside
+    the recorded region makes the capture raise; nothing catches it.  On
+    the CPU the same body runs uncaptured on the inputs at each launch.
 
     Every splice loop of the body (one a level in Phase 1, one in Phase
     3) is recorded as a CUDA while node with an int32 round counter
     (:class:`~repro_torch.core.capture.Loops`, kept with the graph, since
     the nodes' bodies run on its stream's memory pool);
-    :meth:`rounds_run` reads the counters of the last run.
+    :meth:`rounds_run` reads the counters of the last run.  :meth:`free`
+    drops the graph and everything it holds.
+
+    The run refers to its engine weakly: the engine holds its runs, and
+    a cycle would keep a dropped engine's graphs alive until the next
+    garbage collection.
     """
 
     def __init__(self, engine: Engine, num_edges: int):
-        self.engine = engine
+        self.engine = weakref.proxy(engine)
         self.num_edges = int(num_edges)
         self.inputs: Optional[Tuple[EngineState, torch.Tensor,
                                     torch.Tensor]] = None
@@ -696,6 +826,15 @@ class FusedRun:
         self.loops: Optional[capture.Loops] = None
         self.out: Optional[FusedOut] = None
         self.captures = 0
+        self.reserved_bytes = 0
+        self._ran = False         # its first (CPU) run was counted a trace
+        self._t_run = 0.0
+
+    @property
+    def device(self) -> Optional[torch.device]:
+        """Where the static inputs live (None before the first launch
+        and after :meth:`free`)."""
+        return None if self.inputs is None else self.inputs[1].device
 
     def _load(self, state: EngineState, anc: torch.Tensor,
               sv: torch.Tensor) -> None:
@@ -718,12 +857,14 @@ class FusedRun:
 
     def _capture(self) -> Tuple[float, float]:
         """Build the kernel libraries, warm the body up once, then record
-        it.  Returns (warm-up s, capture s), each read after the device
-        drained."""
+        it, and set ``reserved_bytes``.  Returns (warm-up s, capture s),
+        each read after the device drained."""
         from ..kernels import build
 
         dev = self.inputs[1].device
         build.build_all()
+        torch.cuda.empty_cache()
+        before = torch.cuda.memory_reserved(dev)
         t0 = drained_clock(dev)
         side = torch.cuda.Stream(dev)
         side.wait_stream(torch.cuda.current_stream(dev))
@@ -732,17 +873,22 @@ class FusedRun:
         torch.cuda.current_stream(dev).wait_stream(side)
         t1 = drained_clock(dev)
         self._record()
-        return t1 - t0, drained_clock(dev) - t1
+        t2 = drained_clock(dev)
+        torch.cuda.empty_cache()
+        self.reserved_bytes = torch.cuda.memory_reserved(dev) - before
+        return t1 - t0, t2 - t1
 
     def _record(self) -> None:
         """Record the body into a new graph (a host read in it raises,
-        and so does a while node that cannot be made or instantiated)."""
+        and so does a while node that cannot be made or instantiated);
+        a recording is a trace."""
         graph = torch.cuda.CUDAGraph()
         loops = capture.Loops(self.inputs[1].device)
         with capture.recording(graph, loops):
             self.out = self.engine.whole_run(*self.inputs, self.num_edges)
         self.graph, self.loops = graph, loops
         self.captures += 1
+        self.engine._traced("fused", edges=self.num_edges, batch=None)
 
     def rounds_run(self) -> List[int]:
         """Rounds each splice loop ran in the last run, in recording
@@ -751,13 +897,12 @@ class FusedRun:
             raise RuntimeError("this fused run has not run yet")
         return self.loops.rounds_run()
 
-    def run(self, state: EngineState, anc: torch.Tensor, sv: torch.Tensor):
-        """Solve one graph of the bucket: load its tables, replay (the
-        first call records), then the one device→host fetch.  Returns
-        ``(outputs as numpy, timings)``: ``load_s`` (the copies into the
-        static inputs), ``warmup_s`` and ``capture_s`` (0.0 on a replay),
-        ``run_s`` (replay through fetch) and ``fetch_s`` (the copies
-        after the drain, part of ``run_s``)."""
+    def launch(self, state: EngineState, anc: torch.Tensor,
+               sv: torch.Tensor) -> dict:
+        """Start the solve of one graph of the bucket: load its tables,
+        then replay (the first launch on a card records).  Returns
+        ``load_s`` (the copies into the static inputs), ``warmup_s`` and
+        ``capture_s`` (0.0 unless this launch recorded)."""
         dev = anc.device
         t0 = drained_clock(dev)
         self._load(state, anc, sv)
@@ -765,17 +910,33 @@ class FusedRun:
         warm_s = cap_s = 0.0
         if dev.type == "cuda" and self.graph is None:
             warm_s, cap_s = self._capture()
-        t2 = drained_clock(dev)
+        self._t_run = drained_clock(dev)
         if dev.type == "cuda":
             self.graph.replay()
-            out = self.out
         else:
+            if not self._ran:
+                self._ran = True
+                self.engine._traced("fused", edges=self.num_edges,
+                                    batch=None)
             self.loops = capture.Loops(dev)
             with capture.counting(self.loops):
-                out = self.engine.whole_run(*self.inputs, self.num_edges)
-        t3 = drained_clock(dev)
-        host = FusedOut(*(x.cpu().numpy() for x in out))
+                self.out = self.engine.whole_run(*self.inputs,
+                                                 self.num_edges)
+        return {"load_s": t1 - t0, "warmup_s": warm_s, "capture_s": cap_s}
+
+    def fetch(self) -> Tuple[FusedOut, dict]:
+        """The launch's one device→host fetch.  Returns ``(outputs as
+        numpy, timings)``: ``run_s`` (replay through fetch) and
+        ``fetch_s`` (the copies after the drain, part of ``run_s``)."""
+        t3 = drained_clock(self.device)
+        host = FusedOut(*(x.cpu().numpy() for x in self.out))
         t4 = time.perf_counter()
-        return host, {"load_s": t1 - t0, "warmup_s": warm_s,
-                      "capture_s": cap_s, "run_s": t4 - t2,
-                      "fetch_s": t4 - t3}
+        return host, {"run_s": t4 - self._t_run, "fetch_s": t4 - t3}
+
+    def free(self) -> None:
+        """Drop the graph, its loops' pool, the static inputs and
+        outputs, so their memory can go back to the allocator (a replay
+        after this would have nothing to run)."""
+        if self.graph is not None:
+            self.graph.reset()
+        self.graph = self.loops = self.out = self.inputs = None

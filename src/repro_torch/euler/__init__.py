@@ -1,11 +1,15 @@
 """`repro_torch.euler` — the port's public API (mirrors ``repro.euler``).
 
-    from repro_torch.euler import solve, EulerSolver
+    from repro_torch.euler import solve, solve_many, EulerSolver
 
 ``solve(graph, n_parts=P)`` finds and returns an Euler circuit on the
 CUDA device; pass ``device="cpu"`` to run the plain-torch path instead.
+``EulerSolver(...)`` is a serving session: ``solve_many`` and repeat
+solves reuse its prep memo, resident states and recorded graphs, and
+every result carries its :class:`CacheStats`.
 """
-from .result import EulerResult
-from .solver import EulerSolver, resolve_device, solve
+from .result import CacheStats, EulerResult
+from .solver import EulerSolver, resolve_device, solve, solve_many
 
-__all__ = ["solve", "EulerSolver", "EulerResult", "resolve_device"]
+__all__ = ["solve", "solve_many", "EulerSolver", "EulerResult",
+           "CacheStats", "resolve_device"]

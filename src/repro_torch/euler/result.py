@@ -1,16 +1,51 @@
-"""The result type of the port's Euler API (mirrors
-``repro/euler/result.py``; the compile-cache stats of the reference have
-no counterpart here, since the port compiles no programs)."""
+"""The result types of the port's Euler API (mirrors
+``repro/euler/result.py``): :class:`EulerResult`, and the solver
+session's program-cache accounting :class:`CacheStats`, where the
+port's program is a recorded CUDA graph (``core/engine.py::FusedRun``)
+and a trace is its recording."""
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, Iterable, List, Optional
+from typing import Dict, Iterable, List, Optional, Tuple
 
 import numpy as np
 
 from ..core.graph import Graph
 from ..core.memory import LevelStats, PartitionState
 from ..core.phase2 import MergeTree
+
+
+@dataclasses.dataclass
+class CacheStats:
+    """Program-cache accounting of a solver session (the reference's
+    ``CacheStats``).
+
+    ``bucket``/``hit``/``batch`` describe the solve that produced this
+    snapshot; the counters are cumulative over the owning
+    :class:`~repro_torch.euler.solver.EulerSolver`.  Programs are cached
+    per ``(bucket, batch)``; the port runs single-graph programs only
+    (``batch`` None).  ``traces`` counts what the reference's retrace
+    events count: on a card a fused run's recording, on the CPU its
+    first (uncaptured) run, and an engine's first eager superstep.
+
+    >>> CacheStats(hits=3, misses=1, traces=1).compiles
+    1
+    """
+
+    bucket: Optional[Tuple] = None   # shape-bucket key of this solve
+    hit: bool = False                # this solve reused a cached program
+    batch: int = 1                   # batch width B of this solve's program
+    hits: int = 0                    # cumulative (bucket, B) cache hits
+    misses: int = 0                  # cumulative (bucket, B) cache misses
+    traces: int = 0                  # times a whole-run program was traced
+    evictions: int = 0               # (bucket, B) programs dropped by LRU
+    prewarms: int = 0                # programs compiled by prewarm()
+    state_uploads: int = 0           # host→device EngineState transfers
+
+    @property
+    def compiles(self) -> int:
+        """Programs actually built (= traces)."""
+        return self.traces
 
 
 @dataclasses.dataclass
@@ -35,6 +70,7 @@ class EulerResult:
     padded_edges: int = 0            # dummy edges added for shape bucketing
     phase3_converged: bool = True
     timings: Dict[str, float] = dataclasses.field(default_factory=dict)
+    cache: CacheStats = dataclasses.field(default_factory=CacheStats)
     valid: Optional[bool] = None     # set by validate(); None = unchecked
 
     def validate(self) -> "EulerResult":

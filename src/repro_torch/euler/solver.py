@@ -1,4 +1,4 @@
-"""`EulerSolver` — the port's entry point (mirrors
+"""`EulerSolver` — the port's entry point and serving session (mirrors
 ``repro/euler/solver.py``).
 
 One solve runs the reference's device path:
@@ -8,15 +8,30 @@ One solve runs the reference's device path:
   accumulated on the device) → Phase 3 → one fetch → the reference's
   error checks → strip the bucket's dummy edges.
 
+A solver is a persistent session, as the reference's is:
+
+  * a per-``Graph`` prep memo (partition, pad, plan, caps; a FIFO of 64,
+    identity-keyed, built-in partitioner only), so a repeat solve of a
+    pooled graph skips the host prep;
+  * one :class:`~repro_torch.core.engine.Engine` per bucket key (a FIFO
+    of 16), which keeps each loaded graph's initial state on the device
+    (``device_resident=True``), so a repeat solve uploads nothing;
+  * a counted LRU of programs per ``(bucket, batch)``
+    (``program_cache_max``, default 32), where the port's program is the
+    bucket's recorded CUDA graph; an eviction frees the graph and its
+    pools before another records;
+  * the accounting in :class:`~repro_torch.euler.result.CacheStats` on
+    every result and in ``cache_stats``, read through
+    :mod:`repro_torch.obs` counters under the reference's family names
+    and a ``{session="sN"}`` label, and the reference's spans.
+
 Two execution modes, as in the reference.  ``fused=True`` (the default)
 runs everything from the supersteps through Phase 3 as one recorded
 CUDA graph per bucket (:class:`~repro_torch.core.engine.FusedRun`):
 the first solve of a bucket records it, later solves of the bucket copy
 their tables in and replay it, and the outputs come back with one
-drain.  The solver keeps one bucket's graph alive at a time: a solve in
-another bucket frees it before recording its own.  ``fused=False`` is
-the eager oracle: the levels and Phase 3's steps run one by one, each
-clocked.  Both give the same bits.
+drain.  ``fused=False`` is the eager oracle: the levels and Phase 3's
+steps run one by one, each clocked.  Both give the same bits.
 
 Phase 3 is sharded over the partitions by default when ``n_parts > 1``
 (the CC, splice and rank steps over ``[n, S]`` stub shards, K3/K4) and
@@ -25,27 +40,32 @@ replicated for ``n_parts = 1`` (K1/K2), as in the reference;
 only) fetches the rank shards and emits the circuit on the host.
 
 It runs on ``"cuda"`` unless the caller passes ``device="cpu"``; with no
-card it raises instead of falling back.  The paper's two §5 heuristics
-are always on, as in the reference's defaults.  Not ported yet: batching,
-``solve_many``/``solve_async``, the host backend, the byte-aware program
-LRU, the autotuner, the observability hooks and the
-``deferred_transfer=False`` baseline.
+card it raises instead of falling back.  Not ported yet (ROADMAP queue
+1): ``solve_async`` (item 2), ``solve_batch`` and ``solve_many(batch>1)``
+(item 3, raises), the host backend (item 4), the width ladder,
+``prewarm``, the autotuner, the byte budget and pins (item 6), a
+multi-device mesh (item 9) and the ``deferred_transfer=False`` baseline
+(raises; queue 3).
 
     >>> from repro_torch.euler import solve                 # doctest: +SKIP
     >>> res = solve(graph, n_parts=8).validate()            # doctest: +SKIP
 """
 from __future__ import annotations
 
+import dataclasses
+import itertools
+import threading
 import time
-from typing import Optional, Tuple
+from collections import OrderedDict
+from typing import Iterable, List, Optional, Tuple
 
 import numpy as np
 import torch
 
-from ..core.engine import (Engine, EngineCaps, FusedOut, FusedRun,
-                           drained_clock, state_from_numpy, stub_shards,
-                           stub_vertex)
-from ..core.graph import Graph, PartitionedGraph, partition_graph
+from .. import obs
+from ..core.engine import (Engine, EngineCaps, FusedOut, drained_clock,
+                           require_deferred_transfer, stub_shards)
+from ..core.graph import Graph, partition_graph
 from ..core.phase2 import MergeTree, generate_merge_tree
 from ..core.phase3 import (_cc_labels_sharded, _rank_sharded,
                            circuit_from_mate, emit_circuit_np, first_valid,
@@ -54,16 +74,13 @@ from ..core.phase3 import (_cc_labels_sharded, _rank_sharded,
 from ..graphgen.partition import partition_vertices
 from .bucket import (ceil_pow2, ladder_caps, ladder_levels, ladder_rounds,
                      ladder_waste, pad_graph, round_caps, strip_circuit)
-from .result import EulerResult
+from .result import CacheStats, EulerResult
 
 BucketKey = Tuple[int, int, int, EngineCaps]   # (e_cap, n_parts, n_levels, caps)
 
-# the reference solver's defaults (repro/euler/solver.py)
-SLACK = 1.3                 # capacity sizing headroom for size_caps
-PARTITION_SEED = 0          # seed of the built-in BFS partitioner
-MIN_BUCKET_EDGES = 64       # smallest edge bucket
-LADDER_WASTE_CAP = 4.0      # quantized/exact table area beyond which the
-                            # cap ladder falls back to round_caps
+# Sessions label their metric-family children in the (shared) registry,
+# so per-solver counters stay apart while one scrape sees them all.
+_SESSION_SEQ = itertools.count()
 
 
 def resolve_device(device=None) -> torch.device:
@@ -79,32 +96,75 @@ def resolve_device(device=None) -> torch.device:
 
 
 class EulerSolver:
-    """Facade over the partition-centric Euler pipeline on one device.
+    """Facade over the partition-centric Euler pipeline on one device,
+    and a serving session over many graphs.
 
     ``n_parts`` partitions all live on the one device; ``device=None``
     means ``"cuda"``, and ``"cpu"`` runs the plain torch path (the tests'
-    setting).  Sizing and bucketing use the reference's defaults
-    (``slack=1.3``, partition seed 0, 64-edge minimum bucket, the cap,
-    level and round ladders, waste cap 4), so both packages pad, size and
-    solve identically.
+    setting).  The other options are the reference's, with its defaults
+    and meanings:
 
-    ``sharded_phase3=None`` shards Phase 3 over the partitions when
-    ``n_parts > 1``; ``gather_circuit=False`` (sharded only) leaves the
-    rank shards unreduced on the device and emits on the host;
-    ``fused=True`` runs each solve as one recorded graph per bucket,
-    ``fused=False`` eagerly (overridable per :meth:`solve`).  All three
-    are the reference's options with its defaults.  ``captures`` counts
-    the graphs this solver recorded.
+    fused:              one recorded graph a bucket (default) or the
+                        eager oracle; overridable per :meth:`solve`.
+    remote_dedup:       stored, and as in the reference's device engine
+                        it changes nothing (every cut edge is parked on
+                        one side either way).
+    deferred_transfer:  must stay True: the reference mis-sizes its
+                        ``False`` baseline (ROADMAP queue 3).
+    slack:              capacity sizing headroom passed to ``size_caps``.
+    partition_seed:     seed of the built-in BFS partitioner.
+    min_bucket_edges:   smallest edge bucket.
+    cap_ladder:         quantize the table caps onto the shared ladder
+                        (``ladder_caps``) instead of a pow2 per field.
+    level_ladder:       quantize the merge-tree height onto the pow2
+                        ladder (``ladder_levels``).
+    straggler_cap:      derive the Phase 1/Phase 3 splice round budgets
+                        from the bucket (``ladder_rounds``) instead of
+                        the fixed 12/64.
+    ladder_waste_cap:   buckets whose quantized/exact table area exceeds
+                        this keep plain ``round_caps`` keying.
+    program_cache_max:  count cap of the ``(bucket, B)`` program LRU; an
+                        eviction frees the recorded graph and its pools
+                        and counts in ``cache_stats.evictions``.
+    device_resident:    keep each prepared graph's uploaded initial state
+                        on the device, so repeat solves upload nothing;
+                        off = a fresh upload a fused solve.
+    sharded_phase3:     ``None`` = sharded for ``n_parts > 1``.
+    gather_circuit:     ``False`` (sharded only) emits on the host.
+    registry / trace:   the :class:`repro_torch.obs.Registry` and
+                        :class:`repro_torch.obs.TraceLog` this session
+                        reports into (default: the process-wide ones).
+    timed_probe:        one ``level`` span a level on the eager path.
+
+    ``captures`` counts the CUDA graphs this solver recorded.
     """
 
-    def __init__(self, n_parts: int = 1, device=None,
+    def __init__(self, n_parts: int = 1, device=None, fused: bool = True,
+                 remote_dedup: bool = True, deferred_transfer: bool = True,
+                 slack: float = 1.3, partition_seed: int = 0,
+                 min_bucket_edges: int = 64, cap_ladder: bool = True,
+                 level_ladder: bool = True, straggler_cap: bool = True,
+                 ladder_waste_cap: float = 4.0, program_cache_max: int = 32,
+                 device_resident: bool = True,
                  sharded_phase3: Optional[bool] = None,
-                 gather_circuit: bool = True, fused: bool = True):
+                 gather_circuit: bool = True,
+                 registry: Optional[obs.Registry] = None,
+                 trace: Optional[obs.TraceLog] = None,
+                 timed_probe: bool = False):
+        require_deferred_transfer(deferred_transfer)
         self.n_parts = int(n_parts)
         self.device = resolve_device(device)
         self.fused = bool(fused)
-        self.captures = 0
-        self._fused: Optional[Tuple[BucketKey, FusedRun]] = None
+        self.remote_dedup = bool(remote_dedup)
+        self.slack = slack
+        self.partition_seed = partition_seed
+        self.min_bucket_edges = min_bucket_edges
+        self.cap_ladder = cap_ladder
+        self.level_ladder = level_ladder
+        self.straggler_cap = straggler_cap
+        self.ladder_waste_cap = float(ladder_waste_cap)
+        self.program_cache_max = int(program_cache_max)
+        self.device_resident = bool(device_resident)
         if sharded_phase3 is None:
             sharded_phase3 = self.n_parts > 1
         self.sharded_phase3 = bool(sharded_phase3)
@@ -113,6 +173,63 @@ class EulerSolver:
             raise ValueError(
                 "gather_circuit=False requires sharded_phase3 (the "
                 "replicated Phase 3 always materializes the circuit)")
+        self.captures = 0
+        # bucket → engine (its programs and resident states); a FIFO
+        self._engines: dict = {}
+        self._engines_max = 16
+        # (bucket, B-or-None) → True for every live program, an LRU
+        # bounded by program_cache_max; dropping an entry frees the
+        # engine's recorded graph too
+        self._programs: OrderedDict = OrderedDict()
+        # id(graph) → (graph, (pg, tree, key)); a FIFO, the graph kept
+        # alive by its entry so that an id is never reused while it lives
+        self._prep_cache: dict = {}
+        self._prep_cache_max = 64
+        # measured quantized/exact table-area ratio per bucket key
+        self.bucket_waste: dict = {}
+        reg = registry if registry is not None else obs.default_registry()
+        self.registry = reg
+        self.trace = trace if trace is not None else obs.default_tracelog()
+        self.timed_probe = bool(timed_probe)
+        self.session = f"s{next(_SESSION_SEQ)}"
+        lab = {"session": self.session}
+        self._c_hits = reg.counter(
+            "euler_cache_hits", "program-cache hits").labels(**lab)
+        self._c_misses = reg.counter(
+            "euler_cache_misses", "program-cache misses").labels(**lab)
+        self._c_traces = reg.counter(
+            "euler_traces", "whole-run program traces (= compiles)"
+        ).labels(**lab)
+        self._c_evictions = reg.counter(
+            "euler_cache_evictions", "programs dropped by LRU/budget"
+        ).labels(**lab)
+        self._c_prewarms = reg.counter(
+            "euler_cache_prewarms", "widths compiled by prewarm"
+        ).labels(**lab)
+        self._c_uploads = reg.counter(
+            "euler_state_uploads", "host->device initial-state transfers"
+        ).labels(**lab)
+        self._g_bytes = reg.gauge(
+            "euler_cache_bytes", "reserved bytes of live recorded programs"
+        ).labels(**lab)
+        self._h_compile = reg.histogram(
+            "euler_compile_seconds",
+            "cold (bucket, B) program warm-up+recording seconds",
+            lo_exp=-10, hi_exp=10).labels(**lab)
+        # serializes the host-side session state (prep memo, engines,
+        # program accounting); replays and fetches run outside it
+        self._lock = threading.RLock()
+
+    # ------------------------------------------------------------------
+    @property
+    def cache_stats(self) -> CacheStats:
+        """Cumulative cache accounting, read through the metrics
+        registry; a fresh :class:`CacheStats` snapshot each call."""
+        return CacheStats(
+            hits=self._c_hits.value, misses=self._c_misses.value,
+            traces=self._c_traces.value, evictions=self._c_evictions.value,
+            prewarms=self._c_prewarms.value,
+            state_uploads=self._c_uploads.value)
 
     def _partition(self, graph: Graph,
                    part_of_vertex: Optional[np.ndarray]) -> np.ndarray:
@@ -126,42 +243,145 @@ class EulerSolver:
             )
         if self.n_parts == 1:
             return np.zeros(graph.num_vertices, dtype=np.int64)
-        return partition_vertices(graph, self.n_parts, seed=PARTITION_SEED)
+        return partition_vertices(graph, self.n_parts,
+                                  seed=self.partition_seed)
 
-    def prepare(self, graph: Graph,
-                part_of_vertex: Optional[np.ndarray] = None,
-                ) -> Tuple[PartitionedGraph, MergeTree, BucketKey]:
+    def _prepare(self, graph: Graph, part_of_vertex: Optional[np.ndarray]):
         """Partition, pad into the bucket, plan the merge tree, size and
-        quantize the caps.  Returns (padded pg, tree, bucket key)."""
-        part = self._partition(graph, part_of_vertex)
-        e_cap = ceil_pow2(graph.num_edges, MIN_BUCKET_EDGES)
-        g_pad, part_pad = pad_graph(graph, part, e_cap)
-        pg = partition_graph(g_pad, part_pad)
-        if pg.num_parts != self.n_parts:
-            raise ValueError(
-                f"partitioner produced {pg.num_parts} non-empty parts "
-                f"for n_parts={self.n_parts}; the graph is too small or "
-                f"sparse for this partition count"
-            )
-        tree = generate_merge_tree(pg.meta)
-        n_levels = ladder_levels(tree.height + 1)
-        raw = Engine.size_caps(pg, slack=SLACK)
-        caps = round_caps(raw)
-        quant = ladder_caps(raw, e_cap, self.n_parts, slack=SLACK)
-        if ladder_waste(caps, quant) <= LADDER_WASTE_CAP:
-            caps = quant            # outlier shapes keep pow2 keying
-        caps = ladder_rounds(caps, e_cap)
-        return pg, tree, (e_cap, self.n_parts, n_levels, caps)
+        quantize the caps.  Returns (padded pg, tree, bucket key).
+        Memoized per ``Graph`` object (built-in partitioner only), so a
+        repeat solve of a pooled graph skips the host prep and gets the
+        same ``pg`` back."""
+        memo = part_of_vertex is None
+        with self._lock:
+            if memo:
+                hit = self._prep_cache.get(id(graph))
+                if hit is not None and hit[0] is graph:
+                    return hit[1]
+            part = self._partition(graph, part_of_vertex)
+            e_cap = ceil_pow2(graph.num_edges, self.min_bucket_edges)
+            g_pad, part_pad = pad_graph(graph, part, e_cap)
+            pg = partition_graph(g_pad, part_pad)
+            if pg.num_parts != self.n_parts:
+                raise ValueError(
+                    f"partitioner produced {pg.num_parts} non-empty parts "
+                    f"for n_parts={self.n_parts}; the graph is too small or "
+                    f"sparse for this partition count"
+                )
+            tree = generate_merge_tree(pg.meta)
+            n_levels = tree.height + 1
+            if self.level_ladder:
+                n_levels = ladder_levels(n_levels)
+            raw = Engine.size_caps(pg, slack=self.slack)
+            caps = round_caps(raw)
+            waste = 1.0
+            if self.cap_ladder:
+                quant = ladder_caps(raw, e_cap, self.n_parts,
+                                    slack=self.slack)
+                waste = ladder_waste(caps, quant)
+                if waste <= self.ladder_waste_cap:
+                    caps = quant        # outlier shapes keep pow2 keying
+                else:
+                    waste = 1.0
+            if self.straggler_cap:
+                caps = ladder_rounds(caps, e_cap)
+            key: BucketKey = (e_cap, self.n_parts, n_levels, caps)
+            self.bucket_waste[key] = max(self.bucket_waste.get(key, 0.0),
+                                         waste)
+            out = (pg, tree, key)
+            if memo:
+                if len(self._prep_cache) >= self._prep_cache_max:
+                    self._prep_cache.pop(next(iter(self._prep_cache)))
+                self._prep_cache[id(graph)] = (graph, out)
+            return out
 
+    def bucket_of(self, graph: Graph,
+                  part_of_vertex: Optional[np.ndarray] = None) -> BucketKey:
+        """The bucket key ``(e_cap, n_parts, n_levels, caps)`` this graph
+        solves under; graphs sharing a key share one recorded graph."""
+        return self._prepare(graph, part_of_vertex)[2]
+
+    def _engine_for(self, key: BucketKey) -> Engine:
+        """The (cached) engine owning this bucket's programs and resident
+        states.  Evicting a bucket's engine evicts its programs first."""
+        with self._lock:
+            eng = self._engines.get(key)
+            if eng is None:
+                e_cap, n_parts, n_levels, caps = key
+                eng = Engine(n_parts, caps, n_levels,
+                             sharded_phase3=self.sharded_phase3,
+                             gather_circuit=self.gather_circuit,
+                             remote_dedup=self.remote_dedup,
+                             on_trace=self._c_traces.inc,
+                             on_upload=self._c_uploads.inc,
+                             trace=self.trace,
+                             timed_probe=self.timed_probe)
+                if len(self._engines) >= self._engines_max:
+                    evicted = next(iter(self._engines))
+                    for p in [p for p in self._programs if p[0] == evicted]:
+                        self._evict_entry(p)
+                    self._engines.pop(evicted)
+                self._engines[key] = eng
+            return eng
+
+    def _refresh_bytes(self) -> None:
+        """``euler_cache_bytes``: the reserved bytes of the live runs."""
+        with self._lock:
+            self._g_bytes.set(sum(eng.reserved_bytes()
+                                  for eng in self._engines.values()))
+
+    def _evict_entry(self, pkey) -> None:
+        """Drop one ``(bucket, B)`` program: its LRU entry and the
+        engine's recorded graph, whose pools go back to the card."""
+        with self._lock:
+            self._programs.pop(pkey, None)
+            k_old, b_old = pkey
+            old_eng = self._engines.get(k_old)
+            if old_eng is not None:
+                old_eng.evict_program(k_old[0], b_old)
+            self._c_evictions.inc()
+            self._refresh_bytes()
+
+    def _evict_to_budget(self, keep=None) -> None:
+        """Evict least recently used programs until the count cap holds;
+        ``keep`` is exempt."""
+        with self._lock:
+            while len(self._programs) > self.program_cache_max:
+                victims = [p for p in self._programs if p != keep]
+                if not victims:
+                    break
+                self._evict_entry(victims[0])
+
+    def _account(self, key: BucketKey, batch: Optional[int]) -> bool:
+        """Record a solve against the ``(bucket, B)`` program LRU; returns
+        whether the program was live (a hit).  A miss that overflows
+        ``program_cache_max`` evicts first, so the old graph's pools are
+        freed before the new one records."""
+        with self._lock:
+            pkey = (key, batch)
+            hit = pkey in self._programs
+            if hit:
+                self._c_hits.inc()
+                self._programs.move_to_end(pkey)
+            else:
+                self._c_misses.inc()
+                self._programs[pkey] = True
+                self._evict_to_budget(keep=pkey)
+            return hit
+
+    # ------------------------------------------------------------------
     def solve(self, graph: Graph,
               part_of_vertex: Optional[np.ndarray] = None,
               fused: Optional[bool] = None) -> EulerResult:
-        """Find an Euler circuit of ``graph``; returns :class:`EulerResult`.
+        """Find an Euler circuit of ``graph``; returns :class:`EulerResult`
+        with the session's :class:`CacheStats` in ``cache``.
 
         ``fused`` overrides the solver's execution mode for this call.
         ``timings`` holds wall seconds per phase, each read after the
         device drained: ``prepare_s`` (host partition, plan, caps, table
-        build), ``upload_s``, then
+        build; a memo hit on a repeat solve), ``upload_s`` (host→device,
+        none for a resident repeat solve, plus the fused run's
+        device→device copy into its static inputs), then
 
           * fused: ``warmup_s`` and ``capture_s`` (the eager warm-up and
             the recording, both 0.0 on a replay), ``run_s`` (replay
@@ -179,48 +399,60 @@ class EulerSolver:
         that follows the fetch is ``host_emit_s``.
         """
         fused = self.fused if fused is None else bool(fused)
-        dev = self.device
         t0 = time.perf_counter()
-        pg, tree, key = self.prepare(graph, part_of_vertex)
-        e_cap, n_parts, n_levels, caps = key
-        eng = Engine(n_parts, caps, n_levels,
-                     sharded_phase3=self.sharded_phase3,
-                     gather_circuit=self.gather_circuit)
-        state_np, anc = eng.load(pg)
-        t1 = drained_clock(dev)
-        state, anc_t, sv = state_from_numpy(state_np, anc, stub_vertex(pg),
-                                            dev)
-        t2 = drained_clock(dev)
-        timings = {"prepare_s": t1 - t0, "upload_s": t2 - t1}
+        with self._lock:
+            pg, tree, key = self._prepare(graph, part_of_vertex)
+            eng = self._engine_for(key)
+            hit = self._account(key, None)
         if fused:
-            run = self._fused_run(key, eng)
-            before = run.captures
-            out, marks = run.run(state, anc_t, sv)
-            self.captures += run.captures - before
-            timings["upload_s"] += marks.pop("load_s")
-            timings.update(marks)
+            out, timings = self._solve_fused(eng, pg, key, hit, t0)
         else:
-            out = self._eager(eng, state, anc_t, sv, timings)
-        return self._result(graph, tree, key, out, timings, fused, t0)
+            with self.trace.span("solve_eager", bucket=key[0], hit=hit):
+                out, timings = self._solve_eager(eng, pg, t0)
+        return self._result(graph, tree, key, out, timings, fused, t0, hit)
 
-    def _fused_run(self, key: BucketKey, eng: Engine) -> FusedRun:
-        """The bucket's fused run, reused for every solve of the bucket.
-        At most one is alive: another bucket's is dropped, and its graph
-        and memory pool freed, before the new one records."""
-        if self._fused is not None and self._fused[0] == key:
-            return self._fused[1]
-        if self._fused is not None:
-            self._fused = None
-            if self.device.type == "cuda":
-                torch.cuda.empty_cache()
-        run = eng.make_fused(key[0])
-        self._fused = (key, run)
-        return run
+    def _staged(self, eng: Engine, pg, resident: bool, t0: float):
+        """The table build (memoized) and the upload (or the resident
+        state): ``((state, anc, sv) on the device, timings)``."""
+        dev = self.device
+        with self._lock:
+            ent = eng.load_cached(pg)
+            t1 = drained_clock(dev)
+            staged = eng.device_state(ent, dev, resident)
+        t2 = drained_clock(dev)
+        return staged, {"prepare_s": t1 - t0, "upload_s": t2 - t1}
 
-    def _eager(self, eng: Engine, state, anc: torch.Tensor,
-               sv: torch.Tensor, timings: dict) -> FusedOut:
-        """The eager oracle: the levels, then Phase 3's steps, each
-        clocked into ``timings``; returns the fetched outputs."""
+    def _solve_fused(self, eng: Engine, pg, key: BucketKey, hit: bool,
+                     t0: float):
+        """Stage, launch (recording on a miss) and fetch one fused run,
+        in the reference's ``stage``/``launch``/``fetch`` spans."""
+        with self.trace.span("stage", resident=self.device_resident,
+                             edges=key[0]):
+            staged, timings = self._staged(eng, pg, self.device_resident,
+                                           t0)
+            with self._lock:
+                run = eng.fused_program(key[0])
+        before = run.captures
+        with self.trace.span("launch", bucket=key[0], width=1, hit=hit):
+            marks = run.launch(*staged)
+        self.captures += run.captures - before
+        if run.captures > before:
+            self._refresh_bytes()
+        if not hit:
+            self._h_compile.observe(marks["warmup_s"] + marks["capture_s"])
+        with self.trace.span("fetch", bucket=key[0], width=1):
+            with self.trace.span("wait", width=1):
+                out, fetched = run.fetch()
+        timings["upload_s"] += marks.pop("load_s")
+        timings.update(marks)
+        timings.update(fetched)
+        return out, timings
+
+    def _solve_eager(self, eng: Engine, pg, t0: float):
+        """The eager oracle on the graph's resident state (the
+        reference's eager path always keeps it): the levels, then Phase
+        3's steps, each clocked; returns the fetched outputs."""
+        (state, anc, sv), timings = self._staged(eng, pg, True, t0)
         dev, caps = self.device, eng.caps
         t2 = drained_clock(dev)
         run = eng.run_levels(state, anc, sv.shape[0] // 2)
@@ -247,13 +479,28 @@ class EulerSolver:
                         **{k: b - a for k, a, b in
                            zip(names, marks, marks[1:])},
                         "fetch_s": time.perf_counter() - t4})
-        return out
+        return out, timings
 
+    def solve_many(self, graphs: Iterable[Graph],
+                   fused: Optional[bool] = None,
+                   batch: Optional[int] = None) -> List[EulerResult]:
+        """Solve a stream of graphs through the session, one at a time:
+        every same-bucket graph after the first replays the bucket's
+        recorded graph.  ``batch > 1`` (one batched program per chunk in
+        the reference) raises: it is ROADMAP queue 1 item 3."""
+        if batch is not None and batch > 1:
+            raise NotImplementedError(
+                "solve_many(batch>1) runs same-bucket graphs as one "
+                "batched program, which the port does not have yet "
+                "(ROADMAP queue 1 item 3); pass batch=None")
+        return [self.solve(g, fused=fused) for g in graphs]
+
+    # ------------------------------------------------------------------
     def _result(self, graph: Graph, tree: MergeTree, key: BucketKey,
-                out: FusedOut, timings: dict, fused: bool,
-                t0: float) -> EulerResult:
+                out: FusedOut, timings: dict, fused: bool, t0: float,
+                hit: bool) -> EulerResult:
         """The reference's checks on the fetched run (``PendingRun.wait``)
-        and the result."""
+        and the result, with the session's cache stats after it."""
         e_cap, n_levels = key[0], key[2]
         circuit, mate, flags, metrics, ok3 = out
         if not self.gather_circuit:
@@ -288,6 +535,8 @@ class EulerSolver:
             padded_edges=e_cap - graph.num_edges,
             phase3_converged=bool(ok3),
             timings=timings,
+            cache=dataclasses.replace(self.cache_stats, bucket=key,
+                                      hit=hit, batch=1),
         )
 
     def _phase3_sharded(self, mate: torch.Tensor, sv: torch.Tensor,
@@ -324,3 +573,10 @@ def solve(graph: Graph, part_of_vertex: Optional[np.ndarray] = None,
           **opts) -> EulerResult:
     """One-shot ``EulerSolver(**opts).solve(graph)``."""
     return EulerSolver(**opts).solve(graph, part_of_vertex=part_of_vertex)
+
+
+def solve_many(graphs: Iterable[Graph], batch: Optional[int] = None,
+               **opts) -> List[EulerResult]:
+    """One-shot session over a stream of graphs (one program cache); see
+    :meth:`EulerSolver.solve_many`."""
+    return EulerSolver(**opts).solve_many(graphs, batch=batch)

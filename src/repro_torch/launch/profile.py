@@ -9,7 +9,9 @@ an Eulerian RMAT graph (average degree 5, seed 0, 8 partitions:
 ``chip_smoke.py``'s main path), with the solver's default Phase 3 (the
 sharded one, K3/K4) or, under ``--replicated``, the replicated one
 (K1/K2).  The first solve runs plain: its ``timings`` and the peak
-device memory are printed and the circuit is validated.  The second runs
+device memory are printed and the circuit is validated.  The second, a
+repeat solve of the same graph in the same session (its prep memoized,
+its state resident on the card, so no host prep and no upload), runs
 under ``torch.profiler``: its timings, the device's busy and idle share,
 the kernels by total device time, and the rows of the port's own kernels
 K1–K4 and the splice loops' test by name.
@@ -29,7 +31,8 @@ many rounds ran), its busy time misses those rounds and the idle shares
 are printed as ``not_measured``.
 
 No file of ``repro/launch`` matches this script: the JAX package timed
-its phases with ``repro.obs`` spans, which the port does not have yet.
+its phases with ``repro.obs`` spans (the port's solver emits the same
+spans into ``repro_torch.obs``, without device time).
 """
 from __future__ import annotations
 
@@ -119,7 +122,8 @@ def main(argv=None) -> int:
         # the replay copies nothing host→device: those rows are the upload
         run_busy_s = busy_s - sum(_device_us(e) for e in rows
                                   if "HtoD" in e.key) / 1e6
-        ran = solver._fused[1].rounds_run()
+        key = solver.bucket_of(g)
+        ran = solver._engines[key].fused_program(key[0]).rounds_run()
         tests = sum(e.count for e in rows
                     if OWN_KERNELS["loop_condition"] + "(" in e.key)
         # a trace that shows fewer loop tests than ran misses rounds of

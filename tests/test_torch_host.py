@@ -75,7 +75,7 @@ def test_bucket_key_and_load_match(P, scale, seed):
     engine state, field for field, from both packages."""
     jg, tg = prepared(P, scale, seed)
     jpg, _, jkey = JSolver(n_parts=P)._prepare(jg, None)
-    tpg, _, tkey = EulerSolver(n_parts=P, device="cpu").prepare(tg)
+    tpg, _, tkey = EulerSolver(n_parts=P, device="cpu")._prepare(tg, None)
     assert tkey[:3] == jkey[:3]
     assert dataclasses.asdict(tkey[3]) == dataclasses.asdict(jkey[3])
     e_cap, n, n_levels, _ = jkey

@@ -59,6 +59,25 @@ assert not bad, bad
     assert r.returncode == 0, r.stdout + r.stderr
 
 
+@pytest.mark.parametrize("module", ["repro_torch.obs", "repro_torch.euler"])
+def test_session_slice_imports_with_jax_blocked(module):
+    """The solver session and its observability layer (the port's copy of
+    ``repro/obs``, stdlib only) stand alone, each imported first in a
+    fresh process."""
+    code = f"""
+import importlib, sys
+sys.modules["jax"] = None
+sys.path[:0] = [{str(Path(REPO) / "src")!r}]
+importlib.import_module({module!r})
+bad = sorted(m for m in sys.modules if m == "repro" or m.startswith("repro."))
+assert not bad, bad
+"""
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    r = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                       text=True, env=env, timeout=300)
+    assert r.returncode == 0, r.stdout + r.stderr
+
+
 def _imported_roots(path: Path):
     for node in ast.walk(ast.parse(path.read_text(), str(path))):
         if isinstance(node, ast.Import):

@@ -103,6 +103,12 @@ def test_solve_byte_identical_to_jax(reference, P, scale):
     assert len(res.levels) == res.supersteps
 
 
+def fused_run(solver, g):
+    """The session's fused run of ``g``'s bucket (its engine's program)."""
+    key = solver.bucket_of(g)
+    return solver._engines[key].fused_program(key[0])
+
+
 def eager_rounds(solver, g, **kw):
     """An eager solve and the rounds each of its splice loops ran."""
     loops = capture.Loops(solver.device)
@@ -123,10 +129,10 @@ def test_fused_and_eager_byte_identical_to_jax(reference, P, scale):
         solver = EulerSolver(n_parts=P, device="cpu", **opts)
         runs = {"fused": solver.solve(g)}
         runs["eager"], rounds = eager_rounds(solver, g)
-        assert solver._fused[1].rounds_run() == rounds
+        assert fused_run(solver, g).rounds_run() == rounds
         with mock.patch.object(capture, "capturing", lambda device: True):
             runs["while_node"] = solver.solve(g)
-        assert solver._fused[1].rounds_run() == rounds
+        assert fused_run(solver, g).rounds_run() == rounds
         assert len(rounds) == runs["eager"].supersteps + 1
         for name, res in runs.items():
             res.validate()
@@ -164,32 +170,38 @@ def test_bowtie_and_timings():
 
 
 def test_solver_keeps_one_fused_run_per_bucket():
-    """Same-bucket solves reuse one fused run; another bucket replaces
-    it (the solver keeps one alive), and a run refuses another bucket's
-    tables."""
-    solver = EulerSolver(n_parts=2, device="cpu")
+    """Same-bucket solves reuse one fused run; under
+    ``program_cache_max=1`` another bucket replaces it (freed), under the
+    default both stay; a run refuses another bucket's tables."""
     a = eulerian_rmat(6, avg_degree=4, seed=1)
     b = eulerian_rmat(6, avg_degree=4, seed=2)
-    key_a = solver.prepare(a)[2]
-    assert solver.prepare(b)[2] == key_a          # one bucket
-    solver.solve(a)
-    run = solver._fused[1]
-    solver.solve(b).validate()
-    assert solver._fused[1] is run
     c = eulerian_rmat(8, avg_degree=4, seed=3)
-    solver.solve(c).validate()
-    assert solver._fused[0] != key_a and solver._fused[1] is not run
-    run = solver._fused[1]
+    for cap in (1, 32):
+        solver = EulerSolver(n_parts=2, device="cpu", program_cache_max=cap)
+        assert solver.bucket_of(b) == solver.bucket_of(a)   # one bucket
+        solver.solve(a)
+        run = fused_run(solver, a)
+        solver.solve(b).validate()
+        assert fused_run(solver, b) is run
+        solver.solve(c).validate()
+        assert solver.bucket_of(c) != solver.bucket_of(a)
+        live = {k for k, _ in solver._programs}
+        if cap == 1:
+            assert live == {solver.bucket_of(c)} and run.inputs is None
+        else:
+            assert live == {solver.bucket_of(a), solver.bucket_of(c)}
+            assert fused_run(solver, a) is run and run.inputs is not None
+    run = fused_run(solver, c)
     state, anc, _ = run.inputs
     with pytest.raises(ValueError, match="not the same bucket"):
-        run.run(state, anc, torch.zeros(8, dtype=torch.int32))
+        run.launch(state, anc, torch.zeros(8, dtype=torch.int32))
 
 
 class _Undersized(EulerSolver):
     """Shrinks the touch table below what the graph needs."""
 
-    def prepare(self, graph, part_of_vertex=None):
-        pg, tree, key = super().prepare(graph, part_of_vertex)
+    def _prepare(self, graph, part_of_vertex):
+        pg, tree, key = super()._prepare(graph, part_of_vertex)
         caps = dataclasses.replace(key[3], touch_cap=2, touch_ship_cap=2)
         return pg, tree, key[:3] + (caps,)
 
@@ -204,12 +216,12 @@ class _FewRounds(EulerSolver):
     """Gives every splice loop one round, fewer than the graph needs,
     and returns the fetched outputs instead of raising on their flags."""
 
-    def prepare(self, graph, part_of_vertex=None):
-        pg, tree, key = super().prepare(graph, part_of_vertex)
+    def _prepare(self, graph, part_of_vertex):
+        pg, tree, key = super()._prepare(graph, part_of_vertex)
         caps = dataclasses.replace(key[3], splice_rounds=1, phase3_rounds=1)
         return pg, tree, key[:3] + (caps,)
 
-    def _result(self, graph, tree, key, out, timings, fused, t0):
+    def _result(self, graph, tree, key, out, timings, fused, t0, hit):
         return out
 
 
@@ -224,7 +236,7 @@ def _few_rounds_agree(device: str, rule) -> None:
     assert not eager.flags[:, :, 1].all() and not eager.phase3_ok
     for name, got, want in zip(eager._fields, fused, eager):
         np.testing.assert_array_equal(got, want, err_msg=name)
-    assert rounds == solver._fused[1].rounds_run() == [1] * len(rounds)
+    assert rounds == fused_run(solver, g).rounds_run() == [1] * len(rounds)
 
 
 def test_too_few_rounds_report_the_same_flags_fused_and_eager():
@@ -268,7 +280,7 @@ def test_cuda_fused_captures_once_and_replays(mode):
         pytest.skip("no CUDA device: CUDA graphs record only on the card")
     solver = EulerSolver(n_parts=8, **MODES[mode])
     graphs = [eulerian_rmat(9, avg_degree=5, seed=s) for s in (1, 2)]
-    assert solver.prepare(graphs[0])[2] == solver.prepare(graphs[1])[2]
+    assert solver.bucket_of(graphs[0]) == solver.bucket_of(graphs[1])
     wrappers = (pd.pointer_double, pd.pointer_double_rank,
                 pd.pointer_double_shard, pd.pointer_double_rank_shard,
                 graph_loop.while_loop)
@@ -277,10 +289,11 @@ def test_cuda_fused_captures_once_and_replays(mode):
         fused = solver.solve(g).validate()
         launched = [w.launches - b for w, b in zip(wrappers, before)]
         assert (graph_loop.while_loop.launches - before[-1]
-                == (2 * len(solver._fused[1].rounds_run()) if i == 0 else 0))
+                == (2 * len(fused_run(solver, g).rounds_run()) if i == 0
+                    else 0))
         eager, rounds = eager_rounds(solver, g)
         eager.validate()
-        assert solver._fused[1].rounds_run() == rounds
+        assert fused_run(solver, g).rounds_run() == rounds
         np.testing.assert_array_equal(fused.circuit, eager.circuit)
         np.testing.assert_array_equal(fused.mate, eager.mate)
         assert solver.captures == 1
