@@ -23,14 +23,25 @@ repeats one recorded body, so the body has to read and write the same
 memory in every round.
 
 Round counts.  Inside :func:`counting` every loop appends an int32 0-d
-round counter to the active :class:`Loops`: eagerly the rounds it ran,
-in a graph the counter its while node writes at every replay.  The fused
-run (``core/engine.py::FusedRun``) keeps them and reads them back
-(``rounds_run``) after each run.
+round counter to the active :class:`Loops` of the calling thread:
+eagerly the rounds it ran, in a graph the counter its while node writes
+at every replay.  The fused run (``core/engine.py::FusedRun``) copies
+them out with each run's outputs (``PendingRun.rounds_run``).
+
+The card gate.  ``torch.cuda.graph`` records in CUDA's ``"global"``
+capture mode: while one thread records, a call that may synchronize
+(an allocation, a copy, an event or stream synchronization) from any
+other thread fails or invalidates the recording.  The port's CUDA work
+therefore goes through :data:`CARD`, one gate a process (the capture
+mode is process-wide): a recording holds it alone
+(:meth:`CardGate.exclusive`), every other piece of the port's CUDA work
+(uploads, launches, fetches, evictions, eager solves) holds it shared
+(:meth:`CardGate.shared`), and many share it at once.
 """
 from __future__ import annotations
 
 import contextlib
+import threading
 from typing import Callable, Iterator, List, Optional, Sequence, Tuple
 
 import torch
@@ -66,19 +77,103 @@ class Loops:
         return [int(c) for c in self.counters]
 
 
-_active: Optional[Loops] = None
+class CardGate:
+    """Shared/exclusive gate over the port's CUDA work in one process.
+
+    :meth:`shared` may be held by many threads at once, and again by a
+    thread that holds it (shared or exclusive); :meth:`exclusive` waits
+    until no other thread holds it, and a thread asking for it keeps
+    newer shared holders out until it has had its turn.  A thread that
+    holds it shared may not ask for it exclusively (it would wait for
+    itself): that raises.  On a CPU device both are no-ops."""
+
+    def __init__(self):
+        self._cond = threading.Condition()
+        self._readers = 0             # shared holds, all threads
+        self._writer: Optional[int] = None   # ident of the exclusive holder
+        self._writers_waiting = 0
+        self._mine = threading.local()       # this thread's shared holds
+
+    def _held(self) -> int:
+        return getattr(self._mine, "n", 0)
+
+    @contextlib.contextmanager
+    def shared(self, device: torch.device) -> Iterator[None]:
+        if device.type != "cuda" or self._writer == threading.get_ident():
+            yield
+            return
+        with self._cond:
+            if not self._held():
+                while self._writer is not None or self._writers_waiting:
+                    self._cond.wait()
+            self._readers += 1
+            self._mine.n = self._held() + 1
+        try:
+            yield
+        finally:
+            with self._cond:
+                self._readers -= 1
+                self._mine.n -= 1
+                self._cond.notify_all()
+
+    @contextlib.contextmanager
+    def try_shared(self, device: torch.device) -> Iterator[bool]:
+        """:meth:`shared` if it is free now; yields whether it was."""
+        if device.type == "cuda" and not self._held() \
+                and self._writer != threading.get_ident():
+            with self._cond:
+                free = self._writer is None and not self._writers_waiting
+            if not free:
+                yield False
+                return
+        with self.shared(device):
+            yield True
+
+    @contextlib.contextmanager
+    def exclusive(self, device: torch.device) -> Iterator[None]:
+        me = threading.get_ident()
+        if device.type != "cuda" or self._writer == me:
+            yield
+            return
+        if self._held():
+            raise RuntimeError("a thread that holds the card gate shared "
+                               "asked for it exclusively")
+        with self._cond:
+            self._writers_waiting += 1
+            try:
+                while self._writer is not None or self._readers:
+                    self._cond.wait()
+            finally:
+                self._writers_waiting -= 1
+            self._writer = me
+        try:
+            yield
+        finally:
+            with self._cond:
+                self._writer = None
+                self._cond.notify_all()
+
+
+#: the process's gate (module docstring)
+CARD = CardGate()
+
+_local = threading.local()      # .loops: this thread's active Loops
+
+
+def _active() -> Optional[Loops]:
+    return getattr(_local, "loops", None)
 
 
 @contextlib.contextmanager
 def counting(loops: Optional[Loops]) -> Iterator[Optional[Loops]]:
-    """Append the round counter of every loop run inside to ``loops``
-    (``None``: to nothing; a loop recorded inside then raises)."""
-    global _active
-    outer, _active = _active, loops
+    """Append the round counter of every loop this thread runs inside to
+    ``loops`` (``None``: to nothing; a loop recorded inside then
+    raises)."""
+    outer, _local.loops = _active(), loops
     try:
         yield loops
     finally:
-        _active = outer
+        _local.loops = outer
 
 
 @contextlib.contextmanager
@@ -129,7 +224,7 @@ def device_while(body: Callable[[], None], changed: torch.Tensor,
     :class:`Loops` (:func:`counting`), on whose stream and pool the body
     records.  On CPU tensors (the tests' stand-in for a capture) the
     rounds run now on the host, under the same trip rule."""
-    loops = _active
+    loops = _active()
     if loops is None:
         raise RuntimeError("a splice loop recorded outside "
                            "capture.counting(): nothing would hold its "
@@ -164,6 +259,7 @@ def converge(step: Callable[..., Sequence[torch.Tensor]],
     while ran < rounds and bool(bufs[-1].any()):    # one host read a round
         one_round()
         ran += 1
-    if _active is not None:
-        _active.counters.append(torch.tensor(ran, dtype=torch.int32))
+    loops = _active()
+    if loops is not None:
+        loops.counters.append(torch.tensor(ran, dtype=torch.int32))
     return bufs

@@ -29,12 +29,15 @@ Two execution modes, as in the reference (DESIGN.md §4):
   * **fused** (``fused=True``, the default): :meth:`Engine.fused_program`
     returns the bucket's :class:`FusedRun`, which records the whole solve
     — every level, the mate accumulation and Phase 3 in the engine's
-    mode — once as one CUDA graph, replays it for every solve of the
-    bucket and fetches the outputs with one drain.  Each splice loop in
-    it is one CUDA while node (``core/capture.py``), so a replay runs the
-    rounds its graph needs.  Both modes run the same superstep and Phase 3
+    mode — once as one CUDA graph and replays it for every solve of the
+    bucket.  :meth:`FusedRun.launch` only enqueues a replay, on the run's
+    side stream, and returns a :class:`PendingRun` whose ``wait`` is the
+    run's one device→host synchronization, so the host can prepare the
+    next graph meanwhile.  Each splice loop in the graph is one CUDA
+    while node (``core/capture.py``), so a replay runs the rounds its
+    graph needs.  Both modes run the same superstep and Phase 3
     functions, so their bits are equal; on the CPU the fused body runs
-    uncaptured.
+    uncaptured and synchronously.
 
 Host-side planning (:meth:`Engine.plan`, :meth:`Engine.size_caps`,
 :meth:`Engine.load`) is the reference's numpy, unchanged.
@@ -49,8 +52,10 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import threading
 import time
 import weakref
+from concurrent.futures import Future, ThreadPoolExecutor
 from typing import Callable, Dict, List, NamedTuple, Optional, Tuple
 
 import numpy as np
@@ -151,10 +156,10 @@ class RunOut(NamedTuple):
 
 class FusedOut(NamedTuple):
     """Everything the fused run leaves on the device, fetched with one
-    drain (the reference's ``FusedOut``).  Under ``gather_circuit=False``
-    ``circuit`` is the still-sharded rank triple ``(mate, dist, reach)``
-    as ``[n·S, 3]`` and ``mate`` its first column cut to ``2E``; the host
-    emits the circuit from them."""
+    synchronization (the reference's ``FusedOut``).  Under
+    ``gather_circuit=False`` ``circuit`` is the still-sharded rank triple
+    ``(mate, dist, reach)`` as ``[n·S, 3]`` and ``mate`` its first column
+    cut to ``2E``; the host emits the circuit from them."""
 
     circuit: torch.Tensor    # [E] int32 arrival stubs in walk order
     mate: torch.Tensor       # [2E] int32 post-splice mate
@@ -782,35 +787,162 @@ class Engine:
         device = run.device
         run.free()
         if device is not None and device.type == "cuda":
-            torch.cuda.empty_cache()
+            with capture.CARD.shared(device):
+                torch.cuda.empty_cache()
         return 1
+
+
+class PendingRun:
+    """A dispatched fused run (the reference's ``PendingRun``): enqueued,
+    not yet waited for.
+
+    It owns what its run leaves: the :class:`FusedOut` fields and the
+    splice loops' round counters.  On a card they are pinned host
+    buffers, filled by the run's side stream right after its replay
+    (``copy_(non_blocking=True)``), so a later launch of the same
+    :class:`FusedRun` may overwrite the graph's static outputs and
+    counters without touching them; on the CPU they are the tensors the
+    launch's uncaptured run returned.  :meth:`ready` asks the card
+    without blocking (always true on the CPU); :meth:`wait` is the run's
+    one device→host synchronization (a ``wait`` span) and returns the
+    outputs as numpy with the run's timings, the same objects at every
+    call.
+
+    Timings: ``load_s`` (the copies into the graph's static inputs),
+    ``warmup_s`` and ``capture_s`` (0.0 unless this launch recorded),
+    ``run_s`` and ``fetch_s``.  On a card the device intervals come from
+    CUDA events on the side stream: ``run_s`` is the replay's event time
+    plus ``fetch_s``, which is the copy-out's event time plus the host
+    work after the synchronization; on the CPU ``run_s`` is the
+    uncaptured run's wall time plus ``fetch_s``.  ``replay_s`` keeps the
+    replay's (on the CPU the run's) time alone."""
+
+    def __init__(self, run: "FusedRun", marks: dict,
+                 events: Optional[dict], recorded: bool,
+                 device: torch.device, trace):
+        self._run: Optional[FusedRun] = run
+        self._out: Optional[FusedOut] = None
+        self._counters = None
+        self._marks = marks
+        self._events = events
+        self.recorded = recorded      # this launch recorded the graph
+        self.device = device
+        self._trace = trace
+        self._enqueued: Optional[Future] = None   # the launcher's task
+        self._host: Optional[Tuple[FusedOut, dict]] = None
+        self._rounds: Optional[List[int]] = None
+        self.replay_s: Optional[float] = None
+
+    def _own(self, out: FusedOut, counters) -> None:
+        """Take the outputs and counters this run's copy-out fills."""
+        self._out, self._counters = out, counters
+
+    @property
+    def marks(self) -> dict:
+        """What the launch measured on the host: ``warmup_s`` and
+        ``capture_s``."""
+        return {k: self._marks[k] for k in ("warmup_s", "capture_s")}
+
+    def ready(self) -> bool:
+        """Non-blocking: has the run's copy-out finished?  False while
+        another thread records a graph (the card cannot be asked then)."""
+        if self._host is not None or self._events is None:
+            return True
+        if self._enqueued is not None and not self._enqueued.done():
+            return False
+        with capture.CARD.try_shared(self.device) as free:
+            return free and self._events["done"].query()
+
+    def wait(self) -> Tuple[FusedOut, dict]:
+        """Block until the run's outputs are on the host; returns
+        ``(outputs as numpy, timings)``."""
+        if self._host is not None:
+            return self._host
+        with self._trace.span("wait", width=1):
+            if self._enqueued is not None:
+                self._enqueued.result()       # a failed enqueue raises here
+            ev = self._events
+            if ev is not None:
+                with capture.CARD.shared(self.device):
+                    ev["done"].synchronize()
+                    load_ms = ev["load0"].elapsed_time(ev["load1"])
+                    replay_ms = ev["run0"].elapsed_time(ev["run1"])
+                    copy_ms = ev["run1"].elapsed_time(ev["done"])
+                marks = {"load_s": load_ms / 1e3, "replay_s": replay_ms / 1e3,
+                         "copy_s": copy_ms / 1e3}
+            else:
+                marks = {**self._marks, "copy_s": 0.0}
+            t0 = time.perf_counter()
+            host = FusedOut(*(x.numpy() for x in self._out))
+            rounds = [int(c) for c in self._counters]
+            fetch_s = marks["copy_s"] + time.perf_counter() - t0
+        self.replay_s = marks["replay_s"]
+        self._rounds = rounds
+        self._run.fetched(rounds)
+        self._host = (host, {"load_s": marks["load_s"],
+                             **self.marks,
+                             "run_s": marks["replay_s"] + fetch_s,
+                             "fetch_s": fetch_s})
+        self._run = self._out = self._counters = self._events = None
+        self._enqueued = None
+        return self._host
+
+    def rounds_run(self) -> List[int]:
+        """Rounds each splice loop ran in this run, in recording order
+        (waits for the run)."""
+        self.wait()
+        return list(self._rounds)
+
+
+def _pinned_copy(x: torch.Tensor) -> torch.Tensor:
+    """``x`` copied into a new pinned host tensor on the current stream,
+    without waiting."""
+    host = torch.empty(x.shape, dtype=x.dtype, pin_memory=True)
+    host.copy_(x, non_blocking=True)
+    return host
 
 
 class FusedRun:
     """One bucket's whole solve, recorded once as a CUDA graph and
     replayed for every solve of the bucket (the reference's jitted
-    ``make_fused`` program and ``PendingRun.wait``).
+    ``make_fused`` program).
 
     It holds static input buffers (the :class:`EngineState` fields, the
     ancestor table and the stub-vertex map, whole or as ``[n, S]``
-    shards), one ``torch.cuda.CUDAGraph`` and its static
-    :class:`FusedOut`.  :meth:`launch` copies a graph's uploaded tables
-    into the inputs (device to device: a graph reads fixed addresses)
-    and replays; :meth:`fetch` drains and brings the outputs back.  The
-    first launch builds the kernel libraries, warms the body up once
-    eagerly on a side stream (as torch's graph rules ask) and records
-    it; ``reserved_bytes`` is what the card reserved for the recording
-    (``memory_reserved()`` after an ``empty_cache()``, read before the
-    warm-up and after the recording; 0 on the CPU).  A host read inside
-    the recorded region makes the capture raise; nothing catches it.  On
-    the CPU the same body runs uncaptured on the inputs at each launch.
+    shards), one ``torch.cuda.CUDAGraph``, its static :class:`FusedOut`
+    and one side stream.  :meth:`launch` enqueues one solve on that
+    stream and returns its :class:`PendingRun` without waiting: the
+    stream first waits for the caller's stream (where the graph's tables
+    were uploaded), then copies them into the inputs (device to device:
+    a graph reads fixed addresses), replays, and copies the outputs and
+    the round counters out into buffers the pending run owns.  One
+    stream orders the launches of one run, so a launch's copies cannot
+    overwrite inputs that an earlier replay still reads, nor its replay
+    outputs not yet copied out; a lock keeps two threads from
+    interleaving their launches.  A replay's ``cudaGraphLaunch`` holds
+    its calling thread while the driver submits the graph (0.81 s of a
+    3.76 s replay at scale 20 on an H100, PERF.md §6), so a replay's
+    enqueue runs on one launcher thread of the run's own, in launch
+    order, as JAX's runtime dispatches a call; the caller goes on at
+    once.
+
+    The first launch on a card builds the kernel libraries, warms the
+    body up once eagerly on another stream (as torch's graph rules ask)
+    and records it, synchronously and holding the card gate alone
+    (``capture.CARD``); ``reserved_bytes`` is what the card reserved for
+    the recording (``memory_reserved()`` after an ``empty_cache()``,
+    read before the warm-up and after the recording; 0 on the CPU).  A
+    host read inside the recorded region makes the capture raise;
+    nothing catches it.  On the CPU the same body runs uncaptured on the
+    inputs at each launch, synchronously.
 
     Every splice loop of the body (one a level in Phase 1, one in Phase
     3) is recorded as a CUDA while node with an int32 round counter
     (:class:`~repro_torch.core.capture.Loops`, kept with the graph, since
     the nodes' bodies run on its stream's memory pool);
-    :meth:`rounds_run` reads the counters of the last run.  :meth:`free`
-    drops the graph and everything it holds.
+    :meth:`rounds_run` gives the rounds of the last run fetched.
+    :meth:`free` waits for the side stream, then drops the graph and
+    everything it holds.
 
     The run refers to its engine weakly: the engine holds its runs, and
     a cycle would keep a dropped engine's graphs alive until the next
@@ -825,10 +957,13 @@ class FusedRun:
         self.graph: Optional["torch.cuda.CUDAGraph"] = None
         self.loops: Optional[capture.Loops] = None
         self.out: Optional[FusedOut] = None
+        self.stream: Optional["torch.cuda.Stream"] = None
+        self._launcher: Optional[ThreadPoolExecutor] = None
         self.captures = 0
         self.reserved_bytes = 0
         self._ran = False         # its first (CPU) run was counted a trace
-        self._t_run = 0.0
+        self._rounds: Optional[List[int]] = None
+        self._lock = threading.Lock()     # one launch at a time
 
     @property
     def device(self) -> Optional[torch.device]:
@@ -890,53 +1025,124 @@ class FusedRun:
         self.captures += 1
         self.engine._traced("fused", edges=self.num_edges, batch=None)
 
+    def fetched(self, rounds: List[int]) -> None:
+        """Note the rounds of a run just fetched (:meth:`rounds_run`)."""
+        self._rounds = list(rounds)
+
     def rounds_run(self) -> List[int]:
-        """Rounds each splice loop ran in the last run, in recording
-        order: Phase 1's, one a level, then Phase 3's."""
-        if self.loops is None:
-            raise RuntimeError("this fused run has not run yet")
-        return self.loops.rounds_run()
+        """Rounds each splice loop ran in the last run fetched, in
+        recording order: Phase 1's, one a level, then Phase 3's."""
+        if self._rounds is None:
+            raise RuntimeError("no run of this fused program was fetched")
+        return list(self._rounds)
 
     def launch(self, state: EngineState, anc: torch.Tensor,
-               sv: torch.Tensor) -> dict:
-        """Start the solve of one graph of the bucket: load its tables,
-        then replay (the first launch on a card records).  Returns
-        ``load_s`` (the copies into the static inputs), ``warmup_s`` and
-        ``capture_s`` (0.0 unless this launch recorded)."""
+               sv: torch.Tensor) -> PendingRun:
+        """Enqueue the solve of one graph of the bucket (on the CPU: run
+        it) and return its :class:`PendingRun`.  On a card the first
+        launch loads, warms up, records and enqueues the replay in this
+        thread; a later one hands the enqueue to the run's launcher."""
         dev = anc.device
-        t0 = drained_clock(dev)
-        self._load(state, anc, sv)
-        t1 = drained_clock(dev)
-        warm_s = cap_s = 0.0
-        if dev.type == "cuda" and self.graph is None:
-            warm_s, cap_s = self._capture()
-        self._t_run = drained_clock(dev)
-        if dev.type == "cuda":
-            self.graph.replay()
-        else:
-            if not self._ran:
-                self._ran = True
-                self.engine._traced("fused", edges=self.num_edges,
-                                    batch=None)
-            self.loops = capture.Loops(dev)
-            with capture.counting(self.loops):
-                self.out = self.engine.whole_run(*self.inputs,
-                                                 self.num_edges)
-        return {"load_s": t1 - t0, "warmup_s": warm_s, "capture_s": cap_s}
+        with self._lock:
+            if dev.type != "cuda":
+                return self._launch_cpu(state, anc, sv)
+            ev = {k: torch.cuda.Event(enable_timing=True)
+                  for k in ("staged", "load0", "load1", "run0", "run1",
+                            "done")}
+            if self.graph is None:
+                with capture.CARD.exclusive(dev):
+                    if self.stream is None:
+                        self.stream = torch.cuda.Stream(dev)
+                    ev["staged"].record()
+                    return self._enqueue(state, anc, sv, ev)
+            with capture.CARD.shared(dev):
+                ev["staged"].record()       # the upload, on this stream
+            if self._launcher is None:
+                # thread-contract: one worker, joined by free(); otherwise
+                # it exits once this run (its only owner) is collected
+                self._launcher = ThreadPoolExecutor(
+                    max_workers=1, thread_name_prefix="fused-launch")
+            pending = PendingRun(self, {"warmup_s": 0.0, "capture_s": 0.0},
+                                 ev, False, dev, self.engine.trace)
+            pending._enqueued = self._launcher.submit(
+                self._enqueue_shared, state, anc, sv, ev, pending)
+            return pending
 
-    def fetch(self) -> Tuple[FusedOut, dict]:
-        """The launch's one device→host fetch.  Returns ``(outputs as
-        numpy, timings)``: ``run_s`` (replay through fetch) and
-        ``fetch_s`` (the copies after the drain, part of ``run_s``)."""
-        t3 = drained_clock(self.device)
-        host = FusedOut(*(x.cpu().numpy() for x in self.out))
-        t4 = time.perf_counter()
-        return host, {"run_s": t4 - self._t_run, "fetch_s": t4 - t3}
+    def _enqueue_shared(self, state, anc, sv, ev: dict,
+                        pending: PendingRun) -> None:
+        """The launcher's task: :meth:`_enqueue` under the shared gate."""
+        with capture.CARD.shared(anc.device):
+            self._enqueue(state, anc, sv, ev, pending)
+
+    def _enqueue(self, state: EngineState, anc: torch.Tensor,
+                 sv: torch.Tensor, ev: dict,
+                 pending: Optional[PendingRun] = None) -> PendingRun:
+        """On the side stream, after ``ev["staged"]``: load the tables,
+        record the graph first if there is none, replay, copy the
+        outputs and the counters out into pinned buffers, and record
+        ``ev["done"]``.  Fills ``pending`` (or a new one on a
+        recording)."""
+        dev, side = anc.device, self.stream
+        side.wait_event(ev["staged"])
+        with torch.cuda.stream(side):
+            ev["load0"].record()
+            self._load(state, anc, sv)
+            ev["load1"].record()
+        for t in (*state, anc, sv):   # the caller may drop them: the
+            t.record_stream(side)     # allocator waits for this stream
+        warm_s = cap_s = 0.0
+        if self.graph is None:
+            warm_s, cap_s = self._capture()
+            pending = PendingRun(self, {"warmup_s": warm_s,
+                                        "capture_s": cap_s},
+                                 ev, True, dev, self.engine.trace)
+        with torch.cuda.stream(side):
+            ev["run0"].record()
+            self.graph.replay()
+            ev["run1"].record()
+            out = FusedOut(*(_pinned_copy(x) for x in self.out))
+            counters = _pinned_copy(torch.stack(self.loops.counters)) \
+                if self.loops.counters else torch.empty(0, dtype=torch.int32)
+            ev["done"].record()
+        pending._own(out, counters)
+        return pending
+
+    def _launch_cpu(self, state: EngineState, anc: torch.Tensor,
+                    sv: torch.Tensor) -> PendingRun:
+        """Load and run the body uncaptured, now."""
+        dev = anc.device
+        t0 = time.perf_counter()
+        self._load(state, anc, sv)
+        t1 = time.perf_counter()
+        if not self._ran:
+            self._ran = True
+            self.engine._traced("fused", edges=self.num_edges, batch=None)
+        loops = capture.Loops(dev)
+        with capture.counting(loops):
+            out = self.engine.whole_run(*self.inputs, self.num_edges)
+        self.loops, self.out = loops, out
+        pending = PendingRun(self, {"load_s": t1 - t0,
+                                    "replay_s": time.perf_counter() - t1,
+                                    "warmup_s": 0.0, "capture_s": 0.0},
+                             None, False, dev, self.engine.trace)
+        pending._own(out, loops.counters)
+        return pending
 
     def free(self) -> None:
-        """Drop the graph, its loops' pool, the static inputs and
-        outputs, so their memory can go back to the allocator (a replay
-        after this would have nothing to run)."""
-        if self.graph is not None:
-            self.graph.reset()
-        self.graph = self.loops = self.out = self.inputs = None
+        """Wait for the launcher's enqueues and the side stream, then
+        drop the graph, its loops' pool, the static inputs and outputs,
+        so their memory can go back to the allocator (a replay after
+        this would have nothing to run).  Pending runs keep their
+        outputs."""
+        with self._lock:
+            if self._launcher is not None:
+                self._launcher.shutdown(wait=True)
+                self._launcher = None
+            dev = self.stream.device if self.stream is not None \
+                else torch.device("cpu")
+            with capture.CARD.shared(dev):
+                if self.stream is not None:
+                    self.stream.synchronize()
+                if self.graph is not None:
+                    self.graph.reset()
+                self.graph = self.loops = self.out = self.inputs = None

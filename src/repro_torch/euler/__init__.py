@@ -6,10 +6,14 @@
 CUDA device; pass ``device="cpu"`` to run the plain-torch path instead.
 ``EulerSolver(...)`` is a serving session: ``solve_many`` and repeat
 solves reuse its prep memo, resident states and recorded graphs, and
-every result carries its :class:`CacheStats`.
+every result carries its :class:`CacheStats`.  ``solve_async`` returns a
+:class:`PendingSolve` (over the engine's :class:`PendingRun`) without
+waiting for the card, so the host can prepare the next graph meanwhile.
 """
+from ..core.engine import PendingRun
 from .result import CacheStats, EulerResult
-from .solver import EulerSolver, resolve_device, solve, solve_many
+from .solver import (EulerSolver, PendingSolve, resolve_device, solve,
+                     solve_many)
 
 __all__ = ["solve", "solve_many", "EulerSolver", "EulerResult",
-           "CacheStats", "resolve_device"]
+           "CacheStats", "PendingSolve", "PendingRun", "resolve_device"]

@@ -29,9 +29,14 @@ Two execution modes, as in the reference.  ``fused=True`` (the default)
 runs everything from the supersteps through Phase 3 as one recorded
 CUDA graph per bucket (:class:`~repro_torch.core.engine.FusedRun`):
 the first solve of a bucket records it, later solves of the bucket copy
-their tables in and replay it, and the outputs come back with one
-drain.  ``fused=False`` is the eager oracle: the levels and Phase 3's
-steps run one by one, each clocked.  Both give the same bits.
+their tables in and replay it.  A fused solve is
+``solve_async(graph).result()``: :meth:`EulerSolver.solve_async` only
+enqueues the replay on the run's side stream and returns a
+:class:`PendingSolve`, whose ``result()`` is the one synchronization,
+so the host can prepare the next graph while the card runs this one
+(DESIGN.md §9).  ``fused=False`` is the eager oracle: the levels and
+Phase 3's steps run one by one, each clocked after a drain.  Both give
+the same bits.
 
 Phase 3 is sharded over the partitions by default when ``n_parts > 1``
 (the CC, splice and rank steps over ``[n, S]`` stub shards, K3/K4) and
@@ -41,7 +46,7 @@ only) fetches the rank shards and emits the circuit on the host.
 
 It runs on ``"cuda"`` unless the caller passes ``device="cpu"``; with no
 card it raises instead of falling back.  Not ported yet (ROADMAP queue
-1): ``solve_async`` (item 2), ``solve_batch`` and ``solve_many(batch>1)``
+1): ``solve_batch``, ``solve_batch_async`` and ``solve_many(batch>1)``
 (item 3, raises), the host backend (item 4), the width ladder,
 ``prewarm``, the autotuner, the byte budget and pins (item 6), a
 multi-device mesh (item 9) and the ``deferred_transfer=False`` baseline
@@ -63,8 +68,10 @@ import numpy as np
 import torch
 
 from .. import obs
-from ..core.engine import (Engine, EngineCaps, FusedOut, drained_clock,
-                           require_deferred_transfer, stub_shards)
+from ..core import capture
+from ..core.engine import (Engine, EngineCaps, FusedOut, PendingRun,
+                           drained_clock, require_deferred_transfer,
+                           stub_shards)
 from ..core.graph import Graph, partition_graph
 from ..core.phase2 import MergeTree, generate_merge_tree
 from ..core.phase3 import (_cc_labels_sharded, _rank_sharded,
@@ -95,6 +102,69 @@ def resolve_device(device=None) -> torch.device:
     return dev
 
 
+class PendingSolve:
+    """An in-flight fused solve (the reference's ``PendingSolve``):
+    dispatched to the device, its result not fetched yet.
+
+    ``ready()`` polls completion without blocking; ``result()`` (or
+    ``results()``, one result a graph) performs the run's one
+    device→host synchronization in a ``fetch`` span, runs the
+    reference's checks, strips the bucket's padding and stamps the
+    session's cache stats as they are at fetch time, byte-identical to
+    what :meth:`EulerSolver.solve` returns.  A run that failed raises
+    here, and again at every call.  The pending owns its run's outputs,
+    so it can be fetched in any order, and after its program was
+    evicted.  Hold one per in-flight solve, so the host prepares the
+    next graph while the device runs this one (DESIGN.md §9)."""
+
+    def __init__(self, solver: "EulerSolver", run: PendingRun,
+                 graphs: List[Graph], tree: MergeTree, key: BucketKey,
+                 hit: bool, t0: float, timings: dict):
+        self._solver = solver
+        self._run = run
+        self._graphs = graphs
+        self._tree = tree
+        self._key = key
+        self._hit = hit
+        self._t0 = t0
+        self._timings = timings       # prepare_s and upload_s of the stage
+        self._out: Optional[List[EulerResult]] = None
+
+    @property
+    def bucket(self) -> BucketKey:
+        return self._key
+
+    def __len__(self) -> int:
+        return len(self._graphs)
+
+    def ready(self) -> bool:
+        """Non-blocking: has the device run finished?"""
+        return self._out is not None or self._run.ready()
+
+    def results(self) -> List[EulerResult]:
+        """Block for the device run; one result a graph, in input
+        order."""
+        if self._out is not None:
+            return self._out
+        solver = self._solver
+        with solver.trace.span("fetch", bucket=self._key[0], width=1):
+            out, fetched = self._run.wait()
+            timings = dict(self._timings)
+            timings["upload_s"] += fetched["load_s"]
+            timings.update((k, v) for k, v in fetched.items()
+                           if k != "load_s")
+            res = solver._result(self._graphs[0], self._tree, self._key,
+                                 out, timings, True, self._t0, self._hit)
+        self._out = [res]
+        return self._out
+
+    def result(self) -> EulerResult:
+        """The result of a one-graph solve."""
+        if len(self._graphs) != 1:
+            raise ValueError("batched solve: use results()")
+        return self.results()[0]
+
+
 class EulerSolver:
     """Facade over the partition-centric Euler pipeline on one device,
     and a serving session over many graphs.
@@ -105,7 +175,8 @@ class EulerSolver:
     and meanings:
 
     fused:              one recorded graph a bucket (default) or the
-                        eager oracle; overridable per :meth:`solve`.
+                        eager oracle; overridable per :meth:`solve`
+                        (:meth:`solve_async` is always fused).
     remote_dedup:       stored, and as in the reference's device engine
                         it changes nothing (every cut edge is parked on
                         one side either way).
@@ -137,6 +208,10 @@ class EulerSolver:
     timed_probe:        one ``level`` span a level on the eager path.
 
     ``captures`` counts the CUDA graphs this solver recorded.
+
+    Threads may share a solver: the session's state changes under its
+    lock, launches on one program are serialized by the program's own,
+    and a recording holds the card alone (``capture.CARD``).
     """
 
     def __init__(self, n_parts: int = 1, device=None, fused: bool = True,
@@ -376,83 +451,106 @@ class EulerSolver:
         """Find an Euler circuit of ``graph``; returns :class:`EulerResult`
         with the session's :class:`CacheStats` in ``cache``.
 
-        ``fused`` overrides the solver's execution mode for this call.
-        ``timings`` holds wall seconds per phase, each read after the
-        device drained: ``prepare_s`` (host partition, plan, caps, table
-        build; a memo hit on a repeat solve), ``upload_s`` (host→device,
-        none for a resident repeat solve, plus the fused run's
-        device→device copy into its static inputs), then
+        ``fused`` overrides the solver's execution mode for this call; a
+        fused solve is ``solve_async(graph).result()``.  ``timings``
+        holds seconds per phase: ``prepare_s`` (host partition, plan,
+        caps, table build; a memo hit on a repeat solve), ``upload_s``
+        (host→device, none for a resident repeat solve, plus the fused
+        run's device→device copy into its static inputs), then
 
           * fused: ``warmup_s`` and ``capture_s`` (the eager warm-up and
-            the recording, both 0.0 on a replay), ``run_s`` (replay
-            through fetch) and its ``fetch_s``;
-          * eager: ``supersteps_s`` and each level's ``superstep_<L>_s``,
-            ``phase3_s``, ``fetch_s``.  ``phase3_s`` splits into
-            ``splice_s`` (CC labels included) and ``emit_s`` on the
-            replicated path, and into ``cc_s``, ``splice_s``, ``rank_s``
-            and ``emit_s`` on the sharded one, where ``emit_s`` is the
-            gather and emission, or under ``gather_circuit=False`` only
-            the packing of the rank shards.  The Phase 3 functions' steps
-            run one by one to clock each;
+            the recording, both 0.0 on a replay), ``run_s`` (the
+            replay's device time plus ``fetch_s``) and ``fetch_s`` (the
+            copy-out's device time plus the host's work after the
+            synchronization); the device intervals are CUDA events on
+            the run's side stream, the rest the host's clock
+            (:class:`~repro_torch.core.engine.PendingRun`);
+          * eager: each read after the device drained: ``supersteps_s``
+            and each level's ``superstep_<L>_s``, ``phase3_s``,
+            ``fetch_s``.  ``phase3_s`` splits into ``splice_s`` (CC
+            labels included) and ``emit_s`` on the replicated path, and
+            into ``cc_s``, ``splice_s``, ``rank_s`` and ``emit_s`` on the
+            sharded one, where ``emit_s`` is the gather and emission, or
+            under ``gather_circuit=False`` only the packing of the rank
+            shards.  The Phase 3 functions' steps run one by one to
+            clock each;
 
         and ``total_s``.  Under ``gather_circuit=False`` the host emission
         that follows the fetch is ``host_emit_s``.
         """
         fused = self.fused if fused is None else bool(fused)
+        if fused:
+            return self.solve_async(graph, part_of_vertex).result()
         t0 = time.perf_counter()
         with self._lock:
             pg, tree, key = self._prepare(graph, part_of_vertex)
             eng = self._engine_for(key)
             hit = self._account(key, None)
-        if fused:
-            out, timings = self._solve_fused(eng, pg, key, hit, t0)
-        else:
-            with self.trace.span("solve_eager", bucket=key[0], hit=hit):
-                out, timings = self._solve_eager(eng, pg, t0)
-        return self._result(graph, tree, key, out, timings, fused, t0, hit)
+        with self.trace.span("solve_eager", bucket=key[0], hit=hit):
+            out, timings = self._solve_eager(eng, pg, t0)
+        return self._result(graph, tree, key, out, timings, False, t0, hit)
 
-    def _staged(self, eng: Engine, pg, resident: bool, t0: float):
+    def solve_async(self, graph: Graph,
+                    part_of_vertex: Optional[np.ndarray] = None,
+                    ) -> PendingSolve:
+        """Dispatch a fused solve without waiting for it; returns a
+        :class:`PendingSolve` whose ``result()`` performs the run's one
+        host synchronization.  Always fused, whatever ``fused`` is.  The
+        host prep, the program accounting and the upload run under the
+        session lock (a ``stage`` span); the launch runs outside it (a
+        ``launch`` span): a replay is only enqueued, a miss warms up and
+        records first.  So the host can prepare the next graph while the
+        card runs this one."""
+        t0 = time.perf_counter()
+        with self._lock:
+            pg, tree, key = self._prepare(graph, part_of_vertex)
+            eng = self._engine_for(key)
+            hit = self._account(key, None)
+            with self.trace.span("stage", resident=self.device_resident,
+                                 edges=key[0]):
+                staged, timings = self._staged(eng, pg, self.device_resident,
+                                               t0, drain=False)
+                run = eng.fused_program(key[0])
+        with self.trace.span("launch", bucket=key[0], width=1, hit=hit):
+            pending = run.launch(*staged)
+        if pending.recorded:
+            with self._lock:
+                self.captures += 1
+            self._refresh_bytes()
+        if not hit:
+            marks = pending.marks
+            self._h_compile.observe(marks["warmup_s"] + marks["capture_s"])
+        return PendingSolve(self, pending, [graph], tree, key, hit, t0,
+                            timings)
+
+    def _staged(self, eng: Engine, pg, resident: bool, t0: float,
+                drain: bool):
         """The table build (memoized) and the upload (or the resident
-        state): ``((state, anc, sv) on the device, timings)``."""
+        state): ``((state, anc, sv) on the device, timings)``.  With
+        ``drain`` each clock is read after the device drained (the eager
+        path); without, on the host alone (the upload's copies from
+        pageable memory return when they are done)."""
         dev = self.device
         with self._lock:
             ent = eng.load_cached(pg)
-            t1 = drained_clock(dev)
-            staged = eng.device_state(ent, dev, resident)
-        t2 = drained_clock(dev)
+            t1 = time.perf_counter()
+            with capture.CARD.shared(dev):
+                if drain:
+                    t1 = drained_clock(dev)
+                staged = eng.device_state(ent, dev, resident)
+                t2 = drained_clock(dev) if drain else time.perf_counter()
         return staged, {"prepare_s": t1 - t0, "upload_s": t2 - t1}
-
-    def _solve_fused(self, eng: Engine, pg, key: BucketKey, hit: bool,
-                     t0: float):
-        """Stage, launch (recording on a miss) and fetch one fused run,
-        in the reference's ``stage``/``launch``/``fetch`` spans."""
-        with self.trace.span("stage", resident=self.device_resident,
-                             edges=key[0]):
-            staged, timings = self._staged(eng, pg, self.device_resident,
-                                           t0)
-            with self._lock:
-                run = eng.fused_program(key[0])
-        before = run.captures
-        with self.trace.span("launch", bucket=key[0], width=1, hit=hit):
-            marks = run.launch(*staged)
-        self.captures += run.captures - before
-        if run.captures > before:
-            self._refresh_bytes()
-        if not hit:
-            self._h_compile.observe(marks["warmup_s"] + marks["capture_s"])
-        with self.trace.span("fetch", bucket=key[0], width=1):
-            with self.trace.span("wait", width=1):
-                out, fetched = run.fetch()
-        timings["upload_s"] += marks.pop("load_s")
-        timings.update(marks)
-        timings.update(fetched)
-        return out, timings
 
     def _solve_eager(self, eng: Engine, pg, t0: float):
         """The eager oracle on the graph's resident state (the
         reference's eager path always keeps it): the levels, then Phase
         3's steps, each clocked; returns the fetched outputs."""
-        (state, anc, sv), timings = self._staged(eng, pg, True, t0)
+        (state, anc, sv), timings = self._staged(eng, pg, True, t0,
+                                                 drain=True)
+        with capture.CARD.shared(self.device):
+            return self._eager_run(eng, state, anc, sv, timings)
+
+    def _eager_run(self, eng: Engine, state, anc, sv, timings: dict):
         dev, caps = self.device, eng.caps
         t2 = drained_clock(dev)
         run = eng.run_levels(state, anc, sv.shape[0] // 2)

@@ -245,3 +245,46 @@ def test_timed_probe_spans_match_reference():
         trees.append(_tree(log))
     assert trees[0] == trees[1]
     assert [t[0] for t in trees[0]].count("level") == res.supersteps
+
+
+def _async_session(EulerSolver, graphs, log, reg):
+    """Three dispatches (two of bucket ``a``, then ``b``, which evicts
+    ``a``'s program under ``program_cache_max=1`` while both of ``a``'s
+    are pending), fetched out of order; the span tree of the whole
+    sequence and each result's ``CacheStats``."""
+    solver = EulerSolver(n_parts=1, program_cache_max=1, registry=reg,
+                         trace=log)
+    log.clear()
+    pending = {name: solver.solve_async(graphs[name[0]])
+               for name in ("a1", "a2", "b")}
+    stats = {}
+    for name in ("b", "a1", "a2"):
+        res = pending[name].result().validate()
+        stats[name] = (res.cache.hit, res.cache.hits, res.cache.misses,
+                       res.cache.traces, res.cache.evictions,
+                       res.cache.state_uploads)
+    return _tree(log), stats
+
+
+def test_async_spans_and_counts_match_reference():
+    """``solve_async`` dispatches and out-of-order ``result()``s on both
+    packages (one partition; the reference on one device): the same span
+    tree (``stage``/``upload``, ``launch``/``retrace``, ``fetch``/``wait``)
+    and the same ``CacheStats``, stamped at fetch time."""
+    from repro.euler import EulerSolver as JSolver
+    from repro.graphgen.eulerize import eulerian_rmat as j_eulerian_rmat
+
+    seeds = {"a": (5, 1), "b": (6, 2)}
+    ours = _async_session(
+        lambda **kw: EulerSolver(device="cpu", **kw),
+        {k: eulerian_rmat(s, avg_degree=4, seed=d)
+         for k, (s, d) in seeds.items()},
+        t_obs.TraceLog(), t_obs.Registry())
+    theirs = _async_session(
+        JSolver, {k: j_eulerian_rmat(s, avg_degree=4, seed=d)
+                  for k, (s, d) in seeds.items()},
+        j_obs.TraceLog(), j_obs.Registry())
+    assert ours == theirs
+    names = [t[0] for t in ours[0]]
+    assert names.count("fetch") == names.count("wait") == 3
+    assert ours[1]["a1"] == (False, 1, 2, 2, 1, 2)
