@@ -127,6 +127,31 @@ exits non-zero:
                 trace, seven hits); under ``program_cache_max=1`` a
                 dispatch of another bucket evicts the program of a
                 replay still in flight, whose pending returns its bytes;
+  5e. batch   — batched solves (``solve_batch``, one CUDA graph per
+                ``(bucket, B)``, the batch axis after the partition
+                axis).  At scale 8 with 8 partitions, 5c's modal bucket,
+                on ``cuda`` and on ``cpu`` in each Phase 3 mode: the 8
+                graphs one at a time, then ``solve_batch`` at B = 1, 3
+                and 8, twice each: every member validated and byte-equal
+                to its one-graph solve on the card, traces 1, 1, 2, 3 and
+                a hit on each repeat, each splice loop's rounds in a
+                batched run equal to the most its members ran alone, and
+                on the card the launches counted around each batched
+                recording equal to the one-graph recording's (K1–K4 and
+                two loop tests a loop).  K1–K4 against their twins at
+                the B = 8 program's shapes, one round each.  Then, warm,
+                ``solve_many`` of the 8 with ``batch=None`` and
+                ``batch=8`` in turns (three each), graphs a second from
+                the medians, and a B = 8 replay's event time against a
+                one-graph replay's.  At the main scale less one (19)
+                under ``program_cache_max=1``: seed 0 and the first
+                later seed of its bucket (keys printed), one at a time
+                (seed 0 records, the other replays, seed 0 again), then
+                ``solve_batch`` of the two twice (records B = 2 in place
+                of B = 1, then replays): byte-equal to the one-graph
+                solves; ``run_s``, each program's ``reserved_bytes`` and
+                the peak allocated and reserved memory beside the
+                ``nvidia-smi`` line;
   6. k5       — the sorted segment sum against its twin (f32 tolerance
                 1e-5, half types 2e-2, atol ×8) at the GNN aggregation
                 shapes full_graph_sm and ogb_products (seeded sorted ids)
@@ -506,7 +531,7 @@ def check_shard_kernels(dev, rounds: int, nxt, ptr, halt: int) -> dict:
     table = {}
     for name, (kernel, twin, step, round_fn, state0, done) in cases.items():
         q, carries, tables = step
-        base = p3._ring_bases(me, 3, S)        # ring step k = 3: each row
+        base = p3._ring_bases(me, 3, S, n)     # ring step k = 3: each row
         tables = tuple(torch.roll(t, 3, 0) for t in tables)   # holds row r-3
         ins = (q, *carries, base, *tables)
         one = max_abs_err(kernel(*ins, s_real=S), twin(*ins, s_real=S))
@@ -640,24 +665,31 @@ def solve_counted(g, **opts):
     return res, launches, torch.cuda.max_memory_allocated(), rounds
 
 
+def recorded_counts(fn):
+    """``fn()`` with the launch counters set to 0 just before each
+    recording of a fused run and read just after; returns ``(fn's value,
+    [the counts of each recording])``."""
+    recorded = []
+    record = FusedRun._record
+
+    def counted(run):
+        reset_counts()
+        record(run)
+        recorded.append(read_counts())
+    with mock.patch.object(FusedRun, "_record", counted):
+        out = fn()
+    return out, recorded
+
+
 def fused_counted(solver, g):
     """A fused ``solver.solve(g)`` on ``cuda``: the launch counters are
     set to 0 just before the solve and read just after, and separately
     around the graph's recording if the solve records one.  Returns
     ``(result, launches of the solve, launches while recording or None,
     peak allocated, peak reserved)``."""
-    recorded = []
-    record = FusedRun._record
-
-    def counted_record(run):
-        reset_counts()
-        record(run)
-        recorded.append(read_counts())
-
     reset_counts()
     torch.cuda.reset_peak_memory_stats()
-    with mock.patch.object(FusedRun, "_record", counted_record):
-        res = solver.solve(g)
+    res, recorded = recorded_counts(lambda: solver.solve(g))
     if not recorded:
         launches = read_counts()
     else:
@@ -1226,6 +1258,260 @@ def check_session(scale: int = 8, seeds: int = 30,
         del solver, results
         if device == "cuda":
             torch.cuda.empty_cache()
+
+
+def modal_group(solver, scale: int = 8, seeds: int = 30) -> list:
+    """5c's modal bucket: the first 8 of ``seeds`` scale-``scale`` graphs
+    that share the most common bucket."""
+    buckets = {}
+    for s in range(seeds):
+        g = eulerian_rmat(scale, avg_degree=AVG_DEGREE, seed=s)
+        buckets.setdefault(solver.bucket_of(g), []).append(g)
+    return sorted(buckets.values(), key=len, reverse=True)[0][:8]
+
+
+def check_batched_kernels(dev, e_cap: int, batch: int) -> None:
+    """Phase 5e: K1–K4 against their twins at a batched program's shapes,
+    one round (K3/K4: one ring step, k = 3): K1/K2 on the flat table of
+    ``batch`` graphs of ``2·e_cap`` stubs, each a seeded cycle (K1) or
+    chain (K2) of its own offset by b·2E; K3/K4 on ``[n·B, S]`` rows,
+    (partition, graph) pairs, each with its partition's ring base."""
+    rng = np.random.default_rng(1)
+    n2 = 2 * e_cap
+    succ, ptr = [], []
+    for b in range(batch):
+        su, pt, _ = chain(n2, rng)
+        succ.append(su + b * n2)
+        ptr.append(pt + b * n2)
+    succ = torch.as_tensor(np.concatenate(succ), device=dev)
+    ptr = torch.as_tensor(np.concatenate(ptr), device=dev)
+    iota = torch.arange(batch * n2, dtype=torch.int32, device=dev)
+    halt = (ptr == iota).to(torch.int32)
+    rec1 = torch.stack([succ, iota], 1)
+    rec2 = torch.stack([ptr, 1 - halt, halt, torch.zeros_like(ptr)], 1)
+    errs = {
+        "pointer_double": max_abs_err(
+            (pd.pointer_double(rec1),),
+            (ref.pointer_double_packed_ref(rec1),)),
+        "pointer_double_rank": max_abs_err(
+            (pd.pointer_double_rank(rec2),),
+            (ref.pointer_double_rank_packed_ref(rec2),)),
+    }
+    S = p3.shard_width(e_cap, PARTS)
+    rows = PARTS * batch
+    me, _ = p3._shard_ids(rows, S, batch, dev)
+    base = p3._ring_bases(me, 3, S, PARTS)
+
+    def ints(hi):
+        return torch.as_tensor(rng.integers(0, hi, size=(rows, S)),
+                               dtype=torch.int32, device=dev)
+    q = ints(PARTS * S)
+    zero = torch.zeros_like(q)
+    cases = {
+        "pointer_double_shard": (
+            pd.pointer_double_shard, ref.pointer_double_shard_ref,
+            (q, q, torch.full_like(q, p3.BIG), base, ints(PARTS * S),
+             ints(PARTS * S))),
+        "pointer_double_rank_shard": (
+            pd.pointer_double_rank_shard, ref.pointer_double_rank_shard_ref,
+            (q, q, zero, zero, base, ints(PARTS * S), ints(n2), ints(2))),
+    }
+    for name, (kernel, twin, ins) in cases.items():
+        errs[name] = max_abs_err(kernel(*ins, s_real=S), twin(*ins, s_real=S))
+    say("batch", kernels_at_width=batch, e_cap=e_cap, flat_rows=batch * n2,
+        shard_rows=rows, shard_width=S,
+        **{f"{k}_max_abs_err": v for k, v in errs.items()})
+    if any(errs.values()):
+        raise AssertionError(f"a kernel differs from its twin at the "
+                             f"batched shapes: {errs}")
+
+
+BATCH_WIDTHS = (1, 3, 8)
+
+
+def batch_widths(solver, group, device, want, mode) -> None:
+    """Phase 5e at scale 8 in one session: the group's one-graph solves
+    (each loop's rounds read after each), then ``solve_batch`` at each of
+    ``BATCH_WIDTHS`` twice; each member validated and byte-equal to
+    ``want`` (the card's one-graph solves); traces 1 → 1 → 2 → 3 and a
+    hit on each repeat; on the card the launches counted around each
+    batched recording equal the one-graph recording's, two loop tests a
+    loop; a batch's loops run the most any member ran alone."""
+    singles, rounds = [], []
+
+    def one_at_a_time():
+        for g in group:
+            singles.append(solver.solve(g).validate())
+            rounds.append(fused_run(solver, g).rounds_run())
+    _, rec1 = recorded_counts(one_at_a_time)
+    if not want:
+        want.extend(singles)
+    key = solver.bucket_of(group[0])
+    traces = [solver.cache_stats.traces]
+    for B in BATCH_WIDTHS:
+        got, rec = recorded_counts(lambda: solver.solve_batch(group[:B]))
+        again = solver.solve_batch(group[:B])
+        traces.append(solver.cache_stats.traces)
+        same = all(same_bytes(r.validate(), w) and same_bytes(a, w)
+                   and r.cache.batch == a.cache.batch == B
+                   for r, a, w in zip(got, again, want))
+        run = solver._engines[key].fused_program(key[0],
+                                                 None if B == 1 else B)
+        ran = run.rounds_run()
+        most = [max(col) for col in zip(*rounds[:B])]
+        say("batch", scale=8, parts=PARTS, mode=mode, device=device,
+            width=B, same_bytes_as_single=same, traces=traces[-1],
+            hit_on_repeat=again[0].cache.hit,
+            rounds_run=",".join(map(str, ran)),
+            members_most=",".join(map(str, most)),
+            recorded_launches=json.dumps(rec[0] if rec else None,
+                                         separators=(",", ":")),
+            one_graph_recorded=json.dumps(rec1[0] if rec1 else None,
+                                          separators=(",", ":")))
+        if not same:
+            raise AssertionError(f"{mode} batch of {B} on {device} differs "
+                                 f"from the one-graph solves")
+        if not again[0].cache.hit or ran != most:
+            raise AssertionError(f"{mode} batch of {B} on {device}: hit "
+                                 f"{again[0].cache.hit}, rounds {ran}, "
+                                 f"members' most {most}")
+        if device == "cuda" and B > 1:
+            if len(rec) != 1 or rec[0] != rec1[0] \
+                    or rec[0]["loop_condition"] != 2 * len(ran):
+                raise AssertionError(f"{mode} batch of {B}: recorded "
+                                     f"{rec}, one graph {rec1}")
+    if traces != [1, 1, 2, 3]:
+        raise AssertionError(f"{mode} on {device}: traces {traces}")
+
+
+def replay_ms(solver, group, batched: bool, turns: int = 3) -> list:
+    """Replay event times in ms, ``turns`` of them, of warm programs on
+    the card: the batch of the whole group in one replay (``batched``),
+    or each graph's one-graph replay, all in flight (one entry a
+    graph)."""
+    out = []
+    for _ in range(turns):
+        if batched:
+            pending = solver.solve_batch_async(group)
+            pending.results()
+            out.append(1e3 * pending._run.replay_s)
+        else:
+            pending = [solver.solve_async(g) for g in group]
+            for p in pending:
+                p.result()
+            out.extend(1e3 * p._run.replay_s for p in pending)
+    return out
+
+
+def batch_throughput(solver, group, want, turns: int = 3) -> dict:
+    """Phase 5e at scale 8 on the card, warm programs and resident
+    states: ``solve_many`` of the 8 graphs with ``batch=None`` and with
+    ``batch=8`` in turns (None, 8, 8, None, None, 8), graphs a second
+    from each median; then a B = 8 replay's event time against eight
+    one-graph replays' (:func:`replay_ms`), medians of ``turns``."""
+    walls = {None: [], 8: []}
+    for i in range(turns):
+        for b in ((None, 8) if i % 2 == 0 else (8, None)):
+            t = time.perf_counter()
+            res = solver.solve_many(group, batch=b)
+            walls[b].append(time.perf_counter() - t)
+            if not all(same_bytes(r, w) for r, w in zip(res, want)):
+                raise AssertionError(f"solve_many(batch={b}) differs")
+    one = replay_ms(solver, group, False, turns)
+    med = {b: float(np.median(v)) for b, v in walls.items()}
+    out = {"graphs_per_s_b1": len(group) / med[None],
+           "graphs_per_s_b8": len(group) / med[8],
+           "replay_ms_b8": float(np.median(replay_ms(solver, group, True,
+                                                     turns))),
+           "replay_ms_b1": float(np.median(one))}
+    out["replay_ms_8x_b1"] = len(group) * out["replay_ms_b1"]
+    say("batch", scale=8, parts=PARTS, throughput="solve_many",
+        wall_s_b1=",".join(f"{x:.4f}" for x in walls[None]),
+        wall_s_b8=",".join(f"{x:.4f}" for x in walls[8]),
+        gain=f"{out['graphs_per_s_b8'] / out['graphs_per_s_b1']:.3f}",
+        replay_over_b1=f"{out['replay_ms_b8'] / out['replay_ms_b1']:.3f}",
+        **{k: f"{v:.4f}" for k, v in out.items()})
+    return out
+
+
+def check_batch(dev, scale: int = 8, seeds: int = 30,
+                devices=("cuda", "cpu")) -> None:
+    """Phase 5e at scale 8, P = 8 (module docstring)."""
+    for mode, opts in MODES.items():
+        want = []
+        for device in devices:
+            solver = EulerSolver(n_parts=PARTS, device=device, **opts)
+            group = modal_group(solver, scale, seeds)
+            batch_widths(solver, group, device, want, mode)
+            if device == "cuda" and mode == "sharded":
+                key = solver.bucket_of(group[0])
+                check_batched_kernels(dev, key[0], 8)
+                batch_throughput(solver, group, want)
+            del solver
+            if device == "cuda":
+                torch.cuda.empty_cache()
+
+
+def check_batch_large(scale: int, smi: str, seeds: int = 8) -> None:
+    """Phase 5e at ``scale`` (the main scale less one), P = 8, under
+    ``program_cache_max=1``: seed 0 and the first later seed that shares
+    its bucket, one at a time (seed 0 records, the other replays, seed
+    0 again replays), then ``solve_batch`` of the two (records a B = 2
+    program in place of the one-graph program) and again (replays); the
+    batch byte-equal to the one-graph solves.  Prints the warm
+    ``run_s`` of each, each program's ``reserved_bytes`` and the peak
+    allocated and reserved memory of each part beside ``nvidia-smi``."""
+    solver = EulerSolver(n_parts=PARTS, program_cache_max=1)
+    g0 = eulerian_rmat(scale, avg_degree=AVG_DEGREE, seed=SEED)
+    k0 = solver.bucket_of(g0)
+    g1 = None
+    for s in range(SEED + 1, SEED + 1 + seeds):
+        g = eulerian_rmat(scale, avg_degree=AVG_DEGREE, seed=s)
+        k = solver.bucket_of(g)
+        say("batch", scale=scale, seed=s, edges=g.num_edges,
+            same_bucket_as_seed0=k == k0)
+        if k == k0:
+            g1 = g
+            break
+        forget(solver, g)
+    if g1 is None:
+        raise AssertionError(f"no seed up to {SEED + seeds} shares seed "
+                             f"{SEED}'s bucket at scale {scale}")
+    torch.cuda.reset_peak_memory_stats()
+    singles = [solver.solve(g).validate() for g in (g0, g1, g0)]
+    eng = solver._engines[k0]
+    reserved1 = eng.fused_program(k0[0]).reserved_bytes
+    peak1 = (torch.cuda.max_memory_allocated(),
+             torch.cuda.max_memory_reserved())
+    torch.cuda.reset_peak_memory_stats()
+    cold = solver.solve_batch([g0, g1])
+    warm = solver.solve_batch([g0, g1])
+    run = eng.fused_program(k0[0], 2)
+    peak2 = (torch.cuda.max_memory_allocated(),
+             torch.cuda.max_memory_reserved())
+    same = all(same_bytes(r.validate(), w) for r, w in
+               zip(cold + warm, singles[:2] * 2))
+    singles_s = singles[1].timings["run_s"] + singles[2].timings["run_s"]
+    say("batch", scale=scale, parts=PARTS, e_cap=k0[0],
+        seeds=f"{SEED},{s}", same_bytes_as_single=same,
+        run_s_b1=f"{singles[2].timings['run_s']:.4f},"
+                 f"{singles[1].timings['run_s']:.4f}",
+        run_s_b2=f"{warm[0].timings['run_s']:.4f}",
+        b2_over_two_b1=f"{warm[0].timings['run_s'] / singles_s:.3f}",
+        cold_run_s_b2=f"{cold[0].timings['run_s']:.4f}",
+        capture_s_b2=f"{cold[0].timings['capture_s']:.4f}",
+        reserved_bytes_b1=reserved1, reserved_bytes_b2=run.reserved_bytes,
+        b2_over_b1_reserved=f"{run.reserved_bytes / reserved1:.3f}",
+        peak_gib_b1=f"{peak1[0] / 2**30:.3f}/{peak1[1] / 2**30:.3f}",
+        peak_gib_b2=f"{peak2[0] / 2**30:.3f}/{peak2[1] / 2**30:.3f}",
+        evictions=solver.cache_stats.evictions, smi=f"'{smi}'")
+    if not same:
+        raise AssertionError(f"the scale-{scale} batch differs from its "
+                             f"one-graph solves")
+    if not warm[0].cache.hit or warm[0].timings["capture_s"] != 0.0:
+        raise AssertionError("the repeat batch did not replay")
+    del solver, eng, run, singles, cold, warm
+    torch.cuda.empty_cache()
 
 
 def k5_ids(n: int, s: int, skewed: bool, gen, dev) -> torch.Tensor:
@@ -1958,6 +2244,10 @@ def main(argv=None) -> int:
 
     # ---- 5d. asynchronous solves: in flight, out of order, evicted ----
     check_async_small()
+
+    # ---- 5e. batched solves: one program per (bucket, B) ----
+    check_batch(dev)
+    check_batch_large(args.scale - 1, smi)
 
     # ---- 6–7. K5 and K6 against their twins, timed ----
     table["segment_sum_sorted"] = check_k5(dev)

@@ -68,7 +68,7 @@ from .phase1 import (BIG, I32, NewEdges, OpenTable, Phase1Caps, TouchTable,
                      _compact, _seg_starts, _valid_first, pair_table_cap,
                      phase1_local, take)
 from .phase2 import MergeTree, generate_merge_tree
-from .phase3 import phase3_device, phase3_sharded, shard_width
+from .phase3 import phase3_device, phase3_sharded, shard_width, unshard
 
 
 @dataclasses.dataclass(frozen=True)
@@ -216,13 +216,28 @@ def stub_vertex(pg: PartitionedGraph) -> np.ndarray:
 
 def stub_shards(x: torch.Tensor, n: int, fill: int) -> torch.Tensor:
     """A ``[2E]`` stub array padded with ``fill`` to the sharded Phase 3's
-    ``n·S`` stub space and viewed as ``[n, S]``, ``S = shard_width(E, n)``.
-    The mate pads with −1 (unmated); the stub-vertex map with vertex 0,
-    which Phase 3 never reads for an unmated stub."""
-    total = n * shard_width(x.shape[0] // 2, n)
-    pad = torch.full((total - x.shape[0],), fill, dtype=x.dtype,
-                     device=x.device)
-    return torch.cat([x, pad]).view(n, -1)
+    ``n·S`` stub space and viewed as ``[n, S]``, ``S = shard_width(E, n)``;
+    a batch's ``[B, 2E]`` becomes ``[n, B, S]`` (the batch axis after the
+    partition axis).  The mate pads with −1 (unmated); the stub-vertex
+    map with vertex 0, which Phase 3 never reads for an unmated stub."""
+    total = n * shard_width(x.shape[-1] // 2, n)
+    pad = torch.full((*x.shape[:-1], total - x.shape[-1]), fill,
+                     dtype=x.dtype, device=x.device)
+    y = torch.cat([x, pad], -1)
+    if x.dim() == 1:
+        return y.view(n, -1)
+    return y.view(x.shape[0], n, -1).transpose(0, 1).contiguous()
+
+
+def require_batch_fits(num_edges: int, batch: int) -> None:
+    """A batched program numbers its graphs' stubs in one int32 space
+    (``B·(2E + 1)`` mate slots, ``B·2E`` component labels), which must
+    stay below int32 max (the tables' mask value)."""
+    if batch < 1 or batch * (2 * num_edges + 1) > BIG:
+        raise ValueError(
+            f"a batch of {batch} graphs of {num_edges} edges does not fit "
+            f"the batched program's int32 stub ids (B·(2E + 1) ≤ {BIG}); "
+            f"use a smaller batch")
 
 
 def _route(dest: torch.Tensor, mask: torch.Tensor, fields, n: int,
@@ -251,42 +266,54 @@ def _route(dest: torch.Tensor, mask: torch.Tensor, fields, n: int,
     return outs, bm.scatter_(-1, flat, ok), overflow
 
 
-def _received_mask(bm: torch.Tensor, lane: int) -> torch.Tensor:
+def _received_mask(bm: torch.Tensor, lane: int,
+                   batch: int = 1) -> torch.Tensor:
     """Destination side of the tiled ``all_to_all`` of the mask lanes:
     row ``dst`` holds lane ``dst`` of every source, source-major —
-    ``[n_src, n_dst, lane] → [n_dst, n_src·lane]``, a bool copy."""
-    n = bm.shape[0]
-    return bm[:, :n * lane].view(n, n, lane).transpose(0, 1).reshape(n, -1)
+    ``[n_src, n_dst, lane] → [n_dst, n_src·lane]``, a bool copy.  Rows
+    are (partition, graph) pairs of a batch of ``batch`` graphs,
+    partition major, and the exchange stays within each graph: ``[n_src,
+    B, n_dst, lane] → [n_dst, B, n_src·lane]``."""
+    n = bm.shape[0] // batch
+    return bm[:, :n * lane].view(n, batch, n, lane).permute(
+        2, 1, 0, 3).reshape(n * batch, -1)
 
 
-def _gather_received(buf: torch.Tensor, pos: torch.Tensor,
-                     lane: int) -> torch.Tensor:
+def _gather_received(buf: torch.Tensor, pos: torch.Tensor, lane: int,
+                     batch: int = 1) -> torch.Tensor:
     """Destination ``dst``'s received entries at positions ``pos[dst]``
     (received position ``j`` is lane slot ``j % lane`` of source
-    ``j // lane``), read through flat indices from the ``[n_src, n·lane +
-    1]`` send buffer ``buf``, so the receive side is never materialised."""
+    ``j // lane``, of the same graph), read through flat indices from the
+    ``[n_src·B, n·lane + 1]`` send buffer ``buf``, so the receive side is
+    never materialised."""
     width = buf.shape[1]
-    dst = torch.arange(pos.shape[0], device=pos.device)[:, None]
-    flat = (pos // lane) * width + dst * lane + pos % lane
-    return buf.reshape(-1)[flat]
+    row = torch.arange(pos.shape[0], device=pos.device)[:, None]
+    # source partition j // lane of this row's graph b is send row
+    # (j // lane)·B + b.  Keep this order of [n, cap] int64 temporaries:
+    # a recorded graph's pool is sized by it, and the same sum built in
+    # place reserved 0.64 GiB more at scale 20 (H100, one graph)
+    here = (row % batch) * width + (row // batch) * lane
+    return buf.reshape(-1)[(pos // lane) * (batch * width) + here +
+                           pos % lane]
 
 
-def _receive_compact(bufs, rmask: torch.Tensor, lane: int, cap: int):
+def _receive_compact(bufs, rmask: torch.Tensor, lane: int, cap: int,
+                     batch: int = 1):
     """Each destination's received entries where ``rmask`` holds, moved
     to the front and cut to ``cap`` (``_compact`` of the received rows).
     Returns (fields, mask, per-destination overflow)."""
     order = _valid_first(rmask)[:, :cap]
-    return (tuple(_gather_received(b, order, lane) for b in bufs),
+    return (tuple(_gather_received(b, order, lane, batch) for b in bufs),
             take(rmask, order), rmask.sum(-1) > cap)
 
 
-def _ship(dest, mask, fields, n: int, lane: int, cap: int):
+def _ship(dest, mask, fields, n: int, lane: int, cap: int, batch: int = 1):
     """Route, exchange and compact one table group (opens or touch
     pairs): ``(fields, mask, route overflow, compaction overflow)``, the
     first three per destination, the route overflow per source."""
     bufs, bm, of_route = _route(dest, mask, fields, n, lane)
-    out, om, of_cap = _receive_compact(bufs, _received_mask(bm, lane), lane,
-                                       cap)
+    out, om, of_cap = _receive_compact(bufs, _received_mask(bm, lane, batch),
+                                       lane, cap, batch)
     return out, om, of_route, of_cap
 
 
@@ -303,13 +330,18 @@ def _fit(x: torch.Tensor, cap: int, fill=None):
 
 def _log_mates(mate: torch.Tensor, s1, s2, lm, n_stubs: int) -> None:
     """Scatter one level's logged pairs, both directions, into ``mate``
-    ``[2E + 1]`` (masked writes all put −1 into the pad slot ``2E``)."""
-    ws = torch.cat([s1.reshape(-1), s2.reshape(-1)])
-    wv = torch.cat([s2.reshape(-1), s1.reshape(-1)])
-    wm = torch.cat([lm.reshape(-1), lm.reshape(-1)])
+    ``[B, 2E + 1]``, row b taking the pairs of the rows of graph b
+    (masked writes all put −1 into their graph's pad slot ``2E``)."""
+    batch = mate.shape[0]
+    row = torch.arange(s1.shape[0], device=mate.device)[:, None]
+    ws = torch.cat([s1, s2], -1)
+    wv = torch.cat([s2, s1], -1)
+    wm = torch.cat([lm, lm], -1)
+    at = torch.where(wm, ws, n_stubs).to(torch.int64)
+    at += (row % batch) * (n_stubs + 1)   # in place: a level's largest
+    #                                       temporary (1 GiB at scale 20)
     # disjoint within a level; later levels overwrite earlier ones
-    mate[torch.where(wm, ws, n_stubs).to(torch.int64)] = \
-        torch.where(wm, wv, -1)
+    mate.view(-1)[at.reshape(-1)] = torch.where(wm, wv, -1).reshape(-1)
 
 
 def require_deferred_transfer(deferred_transfer: bool) -> None:
@@ -335,9 +367,10 @@ class Engine:
 
     As the reference's, an engine holds its programs, one
     :class:`FusedRun` per ``(num_edges, batch)`` (:meth:`fused_program`,
-    :meth:`evict_program`), and a FIFO of 32 loaded graphs keyed by
+    :meth:`evict_program`), a FIFO of 32 loaded graphs keyed by
     ``id(pg)`` (:meth:`load_cached`), each with its uploaded state once a
-    solve kept it on the device (:meth:`device_state`).
+    solve kept it on the device (:meth:`device_state`), and an LRU of 8
+    batches' stacked device inputs (:meth:`stage_batch`).
     ``remote_dedup`` is stored and never read, as in the reference's
     device engine: :meth:`_keepers` parks each cut edge on one side
     either way.  ``on_trace`` is called at each trace (a fused run's
@@ -368,6 +401,10 @@ class Engine:
         self._fused: Dict[Tuple[int, Optional[int]], FusedRun] = {}
         self._load_cache: Dict[int, dict] = {}
         self._load_cache_max = 32
+        # tuple(id(pg)…) → a batch's stacked device inputs; an LRU, so a
+        # steady micro-batch over one pool uploads nothing
+        self._batch_cache: Dict[tuple, dict] = {}
+        self._batch_cache_max = 8
 
     def _traced(self, program: str, **attrs) -> None:
         """The reference's retrace event and ``on_trace`` call."""
@@ -600,6 +637,50 @@ class Engine:
             ent["dev"] = dev
         return dev
 
+    def stage_batch(self, pgs: List[PartitionedGraph],
+                    device: torch.device):
+        """The stacked device inputs ``(state [n, B, ·], anc [B, H, n],
+        sv [B, 2E])`` of a batch of same-bucket graphs (the reference's
+        ``_stage_batch``): each member's memoized host tables
+        (:meth:`load_cached`) stacked on the host along the batch axis,
+        after the partition axis, and uploaded once a field in one
+        ``upload`` span, with one ``on_upload`` call.  Kept in an LRU of
+        8 keyed by the members' identities, so a repeat batch uploads
+        nothing.  Mixed edge counts raise ``ValueError``; so does a
+        replicated batch whose vertex keys would pass int32 max
+        (:func:`~repro_torch.core.phase3.splice_components`)."""
+        E = pgs[0].graph.num_edges
+        for pg in pgs:
+            if pg.graph.num_edges != E:
+                raise ValueError(f"mixed edge counts in batch: "
+                                 f"{pg.graph.num_edges} != {E}")
+        bkey = tuple(id(pg) for pg in pgs)
+        bent = self._batch_cache.pop(bkey, None)
+        if bent is None or any(a is not b for a, b in zip(bent["pgs"], pgs)):
+            ents = [self.load_cached(pg) for pg in pgs]
+            B = len(pgs)
+            span = max(int(e["sv"].max()) for e in ents) + 1
+            if not self.sharded_phase3 and B * span > BIG:
+                raise ValueError(
+                    f"a replicated batch of {B} graphs with vertex ids "
+                    f"below {span} passes int32 max in its vertex keys; "
+                    f"use a smaller batch")
+            with self.trace.span("upload", edges=E, width=B):
+                stacked = EngineState(*(
+                    np.stack([getattr(e["state"], f) for e in ents], axis=1)
+                    for f in EngineState._fields))
+                dev = state_from_numpy(stacked,
+                                       np.stack([e["anc"] for e in ents]),
+                                       np.stack([e["sv"] for e in ents]),
+                                       device)
+            if self.on_upload is not None:
+                self.on_upload()
+            if len(self._batch_cache) >= self._batch_cache_max:
+                self._batch_cache.pop(next(iter(self._batch_cache)))
+            bent = {"pgs": list(pgs), "dev": dev}
+        self._batch_cache[bkey] = bent          # most recently used last
+        return bent["dev"]
+
     # ------------------------------------------------------------------
     # the superstep
     # ------------------------------------------------------------------
@@ -608,17 +689,32 @@ class Engine:
         opens and touch pairs to their active partition, run Phase 1
         there, refresh the tables.  Returns ``(state', log_s1, log_s2,
         log_mask, flags, metrics)``, every field ``[n, ·]`` (logs
-        ``[n, PC]``, flags ``[n, 4]`` bool, metrics ``[n, 4]``)."""
+        ``[n, PC]``, flags ``[n, 4]`` bool, metrics ``[n, 4]``).
+
+        A batch of B graphs (``anc`` ``[B, H, n]``) runs as ``n·B`` rows,
+        (partition, graph) pairs, partition major: Phase 1 and the table
+        refresh are local to a row, and each exchange stays within its
+        graph (:func:`_received_mask`)."""
         n, c = self.n, self.caps
         osc = c.open_ship_cap or c.open_cap
         tsc = c.touch_ship_cap or c.touch_cap
         dev = state.pk_eid.device
-        me = torch.arange(n, dtype=I32, device=dev)[:, None]
-        dest_row = anc[max(lvl - 1, 0)]              # [n] part0 → active pid
+        anc = anc if anc.dim() == 3 else anc[None]
+        batch = anc.shape[0]
+        row = torch.arange(n * batch, dtype=I32, device=dev)[:, None]
+        me = row // batch                            # each row's partition
+        # [B·n] part0 → active pid, each row reading its own graph's row
+        dest_row = anc[:, max(lvl - 1, 0)].reshape(-1)
+        graph0 = (row % batch) * n
+
+        def dest_of(own0):
+            at = own0.clamp(0, n - 1)
+            at += graph0
+            return dest_row[at]
 
         # ---- 1. ship activated parked edges (deferred transfer, §5) ----
         send = state.pk_mask & (state.pk_act == lvl - 1)
-        e_dest = torch.where(send, dest_row[state.pk_own0.clamp(0, n - 1)], n)
+        e_dest = torch.where(send, dest_of(state.pk_own0), n)
         if lvl == 0:       # level 0 consumes the initial local edges
             _, _, of1 = _route(e_dest, send, (), n, c.ship_cap)
             ne = NewEdges(*(_fit(x, c.new_cap) for x in
@@ -630,28 +726,30 @@ class Engine:
                 e_dest, send, (state.pk_eid, state.pk_u, state.pk_v,
                                state.pk_lau, state.pk_lav, state.pk_act),
                 n, c.ship_cap)
-            arrived = _received_mask(bm & (bufs[5] == lvl - 1), c.ship_cap)
+            arrived = _received_mask(bm & (bufs[5] == lvl - 1), c.ship_cap,
+                                     batch)
             del bm
             fields, am, of_new = _receive_compact(bufs[:5], arrived,
-                                                  c.ship_cap, c.new_cap)
+                                                  c.ship_cap, c.new_cap,
+                                                  batch)
             del bufs, arrived
             ne = NewEdges(*(_fit(x, c.new_cap) for x in (*fields, am)))
 
         # ---- 2. ship opens + touch pairs to their active partition ----
-        o_dest = dest_row[state.op_own0.clamp(0, n - 1)] if lvl > 0 \
+        o_dest = dest_of(state.op_own0) if lvl > 0 \
             else me.expand_as(state.op_own0)
         (os_, ov_, ol_, oc_), om_, of2, of3 = _ship(
             torch.where(state.op_mask, o_dest, n), state.op_mask,
             (state.op_stub, state.op_vert, state.op_la, state.op_comp),
-            n, osc, c.open_cap)
+            n, osc, c.open_cap, batch)
         opens = OpenTable(os_, ov_, ol_, oc_, om_)
-        t_dest = dest_row[state.tc_own0.clamp(0, n - 1)] if lvl > 0 \
+        t_dest = dest_of(state.tc_own0) if lvl > 0 \
             else me.expand_as(state.tc_own0)
         (ts1, ts2, tv_, tl_, tc_), tm_, of4, of5 = _ship(
             torch.where(state.tc_mask, t_dest, n), state.tc_mask,
             (state.tc_s1, state.tc_s2, state.tc_vert, state.tc_la,
              state.tc_comp),
-            n, tsc, c.touch_cap)
+            n, tsc, c.touch_cap, batch)
         touch = TouchTable(ts1, ts2, tv_, tl_, tc_, tm_)
 
         # ---- 3. Phase 1 ----
@@ -696,6 +794,9 @@ class Engine:
         into one ``[2E + 1]`` tensor (pad slot ``2E`` takes the masked
         writes, all −1).  The mesh's mate-lane overflow flag has no
         counterpart on one device: flag 3 carries only the table lanes.
+        A batch (``state`` ``[n·B, ·]`` rows, ``anc`` ``[B, H, n]``)
+        returns the reference's batched layouts: mate ``[B, 2E]``, flags
+        and metrics ``[n, B, L, 4]``.
         The eager path clocks each level after the device drained (Phase
         1 reads a flag on the host every splice round, so the drain costs
         little), counts its engine's first run as a trace and, under
@@ -704,7 +805,9 @@ class Engine:
         ``level_s``."""
         n_stubs = 2 * num_edges
         dev = state.pk_eid.device
-        mate = torch.full((n_stubs + 1,), -1, dtype=I32, device=dev)
+        batch = anc.shape[0] if anc.dim() == 3 else None
+        mate = torch.full((batch or 1, n_stubs + 1), -1, dtype=I32,
+                          device=dev)
         flags, metrics = [], []
         marks = [drained_clock(dev)] if clock else []
         for lvl in range(self.n_levels):
@@ -721,9 +824,12 @@ class Engine:
                 metrics.append(mt)
                 if clock:
                     marks.append(drained_clock(dev))
-        return RunOut(mate=mate[:n_stubs],
-                      flags=torch.stack(flags, dim=1),
-                      metrics=torch.stack(metrics, dim=1),
+        flags, metrics = (torch.stack(x, dim=1) for x in (flags, metrics))
+        if batch is not None:
+            flags, metrics = (x.view(self.n, batch, *x.shape[1:])
+                              for x in (flags, metrics))
+        return RunOut(mate=mate[:, :n_stubs] if batch else mate[0, :n_stubs],
+                      flags=flags, metrics=metrics,
                       level_s=tuple(b - a for a, b in zip(marks, marks[1:])))
 
     # ------------------------------------------------------------------
@@ -735,41 +841,52 @@ class Engine:
         levels unrolled over the static ``n_levels``, each level's logs
         scattered into one mate, then Phase 3 in the engine's mode.
         ``sv`` is the stub-vertex map, ``[2E]`` for the replicated Phase
-        3 or :func:`stub_shards` ``[n, S]`` for the sharded one.  Reads
-        nothing on the host (apart from the eager splice loops' flags
-        when it runs uncaptured), so a CUDA graph can hold it."""
+        3 or :func:`stub_shards` ``[n, S]`` for the sharded one.  A batch
+        of B graphs (the reference's ``vmap(one_graph)``) has the batch
+        axis after the partition axis: ``state`` ``[n, B, ·]``, ``anc``
+        ``[B, H, n]``, ``sv`` ``[B, 2E]`` or ``[n, B, S]``; every kernel
+        launch then covers the whole batch, and the outputs are the
+        reference's batched :class:`FusedOut`.  Reads nothing on the host
+        (apart from the eager splice loops' flags when it runs
+        uncaptured), so a CUDA graph can hold it."""
         c, n_stubs = self.caps, 2 * num_edges
+        batch = anc.shape[0] if anc.dim() == 3 else None
+        if batch is not None:
+            state = EngineState(*(x.flatten(0, 1) for x in state))
         mate, flags, metrics, _ = self.run_levels(state, anc, num_edges,
                                                   clock=False)
         if not self.sharded_phase3:
             circuit, mate2, ok = phase3_device(
                 mate, sv, splice_rounds=c.phase3_rounds)
             return FusedOut(circuit, mate2, flags, metrics, ok)
-        res = phase3_sharded(stub_shards(mate, self.n, -1), sv, n_stubs,
+        S = shard_width(num_edges, self.n)
+        res = phase3_sharded(stub_shards(mate, self.n, -1).view(-1, S),
+                             sv.view(-1, S), n_stubs,
                              c.p3v_cap or num_edges,
                              splice_rounds=c.phase3_rounds,
-                             gather_circuit=self.gather_circuit)
+                             gather_circuit=self.gather_circuit,
+                             batch=batch)
         if self.gather_circuit:
             return FusedOut(*res[:2], flags, metrics, res[2])
         mate_sh, dist_sh, reach_sh, ok = res
-        packed = torch.stack([mate_sh, dist_sh, reach_sh], -1).reshape(-1, 3)
-        return FusedOut(packed, mate_sh.reshape(-1)[:n_stubs], flags,
-                        metrics, ok)
+        packed = unshard(torch.stack([mate_sh, dist_sh, reach_sh], -1),
+                         batch)
+        return FusedOut(packed, unshard(mate_sh, batch)[..., :n_stubs],
+                        flags, metrics, ok)
 
     def fused_program(self, num_edges: int,
                       batch: Optional[int] = None) -> "FusedRun":
         """Get or create the bucket's :class:`FusedRun` for ``(num_edges,
         batch)`` without running it (the reference's ``fused_program``):
-        its first run records.  ``batch`` must be None: batched programs
-        are ROADMAP queue 1 item 3."""
+        its first run records.  ``batch=None`` is the one-graph program;
+        ``batch=B`` runs B graphs of the bucket at once
+        (:meth:`whole_run`), a program of its own."""
         if batch is not None:
-            raise NotImplementedError(
-                "batched fused programs are not ported yet (ROADMAP "
-                "queue 1 item 3)")
+            require_batch_fits(num_edges, batch)
         key = (int(num_edges), batch)
         run = self._fused.get(key)
         if run is None:
-            run = self._fused[key] = FusedRun(self, num_edges)
+            run = self._fused[key] = FusedRun(self, num_edges, batch)
         return run
 
     def reserved_bytes(self) -> int:
@@ -820,6 +937,7 @@ class PendingRun:
     def __init__(self, run: "FusedRun", marks: dict,
                  events: Optional[dict], recorded: bool,
                  device: torch.device, trace):
+        self.batch = run.batch        # None: the one-graph program
         self._run: Optional[FusedRun] = run
         self._out: Optional[FusedOut] = None
         self._counters = None
@@ -855,10 +973,12 @@ class PendingRun:
 
     def wait(self) -> Tuple[FusedOut, dict]:
         """Block until the run's outputs are on the host; returns
-        ``(outputs as numpy, timings)``."""
+        ``(outputs as numpy, timings)``, a batch's in the reference's
+        batched layouts (circuit ``[B, E]`` or ``[B, n·S, 3]``, mate
+        ``[B, 2E]``, flags and metrics ``[n, B, L, 4]``, ok ``[B]``)."""
         if self._host is not None:
             return self._host
-        with self._trace.span("wait", width=1):
+        with self._trace.span("wait", width=self.batch or 1):
             if self._enqueued is not None:
                 self._enqueued.result()       # a failed enqueue raises here
             ev = self._events
@@ -889,7 +1009,8 @@ class PendingRun:
 
     def rounds_run(self) -> List[int]:
         """Rounds each splice loop ran in this run, in recording order
-        (waits for the run)."""
+        (waits for the run); a batch's loops ran until every graph
+        converged, so each is the most any of its graphs needed."""
         self.wait()
         return list(self._rounds)
 
@@ -905,12 +1026,14 @@ def _pinned_copy(x: torch.Tensor) -> torch.Tensor:
 class FusedRun:
     """One bucket's whole solve, recorded once as a CUDA graph and
     replayed for every solve of the bucket (the reference's jitted
-    ``make_fused`` program).
+    ``make_fused`` program); with ``batch=B`` the solve of B graphs of
+    the bucket at once, one program per ``(bucket, B)``.
 
     It holds static input buffers (the :class:`EngineState` fields, the
     ancestor table and the stub-vertex map, whole or as ``[n, S]``
-    shards), one ``torch.cuda.CUDAGraph``, its static :class:`FusedOut`
-    and one side stream.  :meth:`launch` enqueues one solve on that
+    shards; a batch's with the batch axis after the partition axis), one
+    ``torch.cuda.CUDAGraph``, its static :class:`FusedOut` and one side
+    stream.  :meth:`launch` enqueues one solve on that
     stream and returns its :class:`PendingRun` without waiting: the
     stream first waits for the caller's stream (where the graph's tables
     were uploaded), then copies them into the inputs (device to device:
@@ -949,9 +1072,11 @@ class FusedRun:
     garbage collection.
     """
 
-    def __init__(self, engine: Engine, num_edges: int):
+    def __init__(self, engine: Engine, num_edges: int,
+                 batch: Optional[int] = None):
         self.engine = weakref.proxy(engine)
         self.num_edges = int(num_edges)
+        self.batch = batch
         self.inputs: Optional[Tuple[EngineState, torch.Tensor,
                                     torch.Tensor]] = None
         self.graph: Optional["torch.cuda.CUDAGraph"] = None
@@ -973,8 +1098,8 @@ class FusedRun:
 
     def _load(self, state: EngineState, anc: torch.Tensor,
               sv: torch.Tensor) -> None:
-        """Copy one graph's uploaded tables into the static inputs
-        (allocated from the first graph's)."""
+        """Copy one graph's (a batch's stacked) uploaded tables into the
+        static inputs (allocated from the first launch's)."""
         if self.engine.sharded_phase3:
             sv = stub_shards(sv, self.engine.n, 0)
         if self.inputs is None:
@@ -985,9 +1110,10 @@ class FusedRun:
                             (*state, anc, sv)):
             if dst.shape != src.shape or dst.dtype != src.dtype:
                 raise ValueError(
-                    f"this fused run holds {tuple(dst.shape)} "
-                    f"{dst.dtype} tables, got {tuple(src.shape)} "
-                    f"{src.dtype}: not the same bucket")
+                    f"the fused run of {self.num_edges} edges, batch "
+                    f"{self.batch}, holds {tuple(dst.shape)} {dst.dtype} "
+                    f"tables, got {tuple(src.shape)} {src.dtype}: not "
+                    f"the same bucket")
             dst.copy_(src)
 
     def _capture(self) -> Tuple[float, float]:
@@ -1023,7 +1149,7 @@ class FusedRun:
             self.out = self.engine.whole_run(*self.inputs, self.num_edges)
         self.graph, self.loops = graph, loops
         self.captures += 1
-        self.engine._traced("fused", edges=self.num_edges, batch=None)
+        self.engine._traced("fused", edges=self.num_edges, batch=self.batch)
 
     def fetched(self, rounds: List[int]) -> None:
         """Note the rounds of a run just fetched (:meth:`rounds_run`)."""
@@ -1031,14 +1157,16 @@ class FusedRun:
 
     def rounds_run(self) -> List[int]:
         """Rounds each splice loop ran in the last run fetched, in
-        recording order: Phase 1's, one a level, then Phase 3's."""
+        recording order: Phase 1's, one a level, then Phase 3's (a
+        batch's: the most any of its graphs needed)."""
         if self._rounds is None:
             raise RuntimeError("no run of this fused program was fetched")
         return list(self._rounds)
 
     def launch(self, state: EngineState, anc: torch.Tensor,
                sv: torch.Tensor) -> PendingRun:
-        """Enqueue the solve of one graph of the bucket (on the CPU: run
+        """Enqueue the solve of one graph of the bucket (a batched run: of
+        one stacked batch, :meth:`Engine.stage_batch`; on the CPU: run
         it) and return its :class:`PendingRun`.  On a card the first
         launch loads, warms up, records and enqueues the replay in this
         thread; a later one hands the enqueue to the run's launcher."""
@@ -1116,7 +1244,8 @@ class FusedRun:
         t1 = time.perf_counter()
         if not self._ran:
             self._ran = True
-            self.engine._traced("fused", edges=self.num_edges, batch=None)
+            self.engine._traced("fused", edges=self.num_edges,
+                                batch=self.batch)
         loops = capture.Loops(dev)
         with capture.counting(loops):
             out = self.engine.whole_run(*self.inputs, self.num_edges)

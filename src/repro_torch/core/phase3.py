@@ -16,12 +16,19 @@ compute the same circuit, byte for byte:
     by rotating table shards around the partition ring.  The doubling
     loops run K3/K4, one launch per ring step serving all n shards.
 
+Both take a batch of B same-bucket graphs (the reference's ``vmap``
+of its one-graph body): the replicated path as one flat stub space of B
+disjoint graphs, the sharded one as ``[n·B, S]`` rows, (partition,
+graph) pairs.  Either way each doubling round stays one kernel launch
+for the whole batch, at one graph's round count.
+
 Left out against the reference: the TPU VMEM gate
 (``fits_resident_vmem``), the block padding of the tables (only the
-Pallas grid needed it) and the ``interpret``/``block``/``batch``
-parameters.  The kernel/twin seam is the wrappers' own device rule: on
-CUDA tensors the doubling rounds launch the kernels, on CPU tensors the
-wrappers compute the plain twins of :mod:`repro_torch.kernels.ref`.
+Pallas grid needed it) and the ``interpret``/``block`` parameters (its
+``batch`` sized Pallas blocks).  The kernel/twin seam is the wrappers'
+own device rule: on CUDA tensors the doubling rounds launch the kernels,
+on CPU tensors the wrappers compute the plain twins of
+:mod:`repro_torch.kernels.ref`.
 
 The splice ``while_loop``s run through
 :func:`~repro_torch.core.capture.converge`: eagerly they read one flag a
@@ -103,33 +110,63 @@ def emit_circuit(valid: torch.Tensor, dist: torch.Tensor,
                  reach: torch.Tensor) -> torch.Tensor:
     """Rank → walk-order emission: stubs sorted by descending halt
     distance among orbit members (stable, so non-members keep index
-    order), the first E slots kept, off-orbit slots blanked to -1."""
+    order), the first E slots kept, off-orbit slots blanked to -1.  On
+    ``[2E]`` stubs, or on each row of ``[B, 2E]`` (a graph a row)."""
     on_orbit = (reach > 0) & valid
     key = torch.where(on_orbit, -dist, BIG)
-    order = torch.argsort(key, stable=True)
-    E = valid.shape[0] // 2
-    out = order[:E].to(I32)
-    return torch.where(on_orbit[out], out, -1)
+    order = torch.argsort(key, dim=-1, stable=True)
+    E = valid.shape[-1] // 2
+    out = order[..., :E]
+    return torch.where(on_orbit.gather(-1, out), out.to(I32), -1)
+
+
+def _graph_offsets(batch: int, width: int, dev) -> torch.Tensor:
+    """``[B, 1]`` int32 offsets ``b·width``: graph b's first id in a flat
+    id space of B graphs of ``width`` ids each."""
+    return (torch.arange(batch, dtype=I32, device=dev) * width)[:, None]
+
+
+def _to_flat(mate: torch.Tensor) -> torch.Tensor:
+    """``[B, 2E]`` per-graph mates → one ``[B·2E]`` mate over a flat stub
+    space in which graph b's stub s is ``b·2E + s``.  The graphs stay
+    disjoint: every pointer stays in its graph, and so does ``s ^ 1``
+    (2E is even).  Unmated stubs stay −1."""
+    off = _graph_offsets(*mate.shape, mate.device)
+    return torch.where(mate >= 0, mate + off, -1).reshape(-1)
+
+
+def _to_local(mate: torch.Tensor, batch: int) -> torch.Tensor:
+    """Inverse of :func:`_to_flat`: ``[B·2E]`` → ``[B, 2E]``."""
+    m = mate.view(batch, -1)
+    return torch.where(m >= 0, m - _graph_offsets(*m.shape, m.device), -1)
 
 
 def circuit_from_mate(mate: torch.Tensor,
                       start_stub: torch.Tensor) -> torch.Tensor:
     """Torch list-ranking twin of :func:`circuit_from_mate_np`.
 
-    ``mate`` int32 [2E], ``start_stub`` a 0-d int tensor.  Returns arrival
-    stubs in walk order, ``[E]`` int32, padded with -1 where ``mate`` is
-    invalid.  The doubling rounds run the K2 kernel
+    ``mate`` int32 [2E] and ``start_stub`` a 0-d int tensor, or a batch:
+    ``mate`` [B, 2E] and ``start_stub`` [B].  Returns arrival stubs in
+    walk order, ``[E]`` (``[B, E]``) int32, padded with -1 where ``mate``
+    is invalid.  The doubling rounds run the K2 kernel
     (:func:`pointer_double_rank`) on packed records ``(ptr, dist, reach,
-    0)``, built once and ping-ponged between two buffers; the ``dist``
-    and ``reach`` columns of the last round go to :func:`emit_circuit`.
+    0)``, built once and ping-ponged between two buffers.  A batch's
+    graphs share one record table (:func:`_to_flat`), so a round is one
+    launch for all of them, and they run one graph's round count.  The
+    ``dist`` and ``reach`` columns of the last round go to
+    :func:`emit_circuit`.
     """
-    n_stubs = mate.shape[0]
-    iota = torch.arange(n_stubs, dtype=I32, device=mate.device)
-    valid = mate >= 0
-    t = mate[(start_stub ^ 1).reshape(1)]                # [1], no host sync
+    if mate.dim() == 1:
+        return circuit_from_mate(mate[None], start_stub.reshape(1))[0]
+    B, n_stubs = mate.shape
+    dev = mate.device
+    flat = _to_flat(mate)
+    iota = torch.arange(B * n_stubs, dtype=I32, device=dev)
+    start = start_stub.reshape(B, 1) + _graph_offsets(B, n_stubs, dev)
+    t = flat[(start ^ 1).reshape(-1)]                    # [B], no host sync
     # halt node t: self-loop, dist 0, reach 1; the rest (nxt, 1, 0, 0)
-    cur = torch.zeros(n_stubs, 4, dtype=I32, device=mate.device)
-    cur[:, 0] = torch.where(valid, mate ^ 1, iota)
+    cur = torch.zeros(B * n_stubs, 4, dtype=I32, device=dev)
+    cur[:, 0] = torch.where(flat >= 0, flat ^ 1, iota)
     cur[:, 1] = 1
     halt = torch.stack([t, torch.zeros_like(t), torch.ones_like(t),
                         torch.zeros_like(t)], 1)
@@ -137,11 +174,12 @@ def circuit_from_mate(mate: torch.Tensor,
     spare = torch.empty_like(cur)
     for _ in range(_doubling_rounds(n_stubs)):
         cur, spare = pointer_double_rank(cur, out=spare), cur
-    return emit_circuit(valid, cur[:, 1], cur[:, 2])
+    return emit_circuit(mate >= 0, cur[:, 1].view(B, n_stubs),
+                        cur[:, 2].view(B, n_stubs))
 
 
-def _cc_cycle_labels(mate: torch.Tensor,
-                     valid: torch.Tensor) -> torch.Tensor:
+def _cc_cycle_labels(mate: torch.Tensor, valid: torch.Tensor,
+                     rounds: Optional[int] = None) -> torch.Tensor:
     """Component labels (min member stub id) of the sibling∘mate cycle
     structure, by pointer-doubling min-label propagation (K1).
 
@@ -150,12 +188,14 @@ def _cc_cycle_labels(mate: torch.Tensor,
     with the sibling's label merges the two into the cycle id.  The
     rounds run on packed records ``(nxt, lab)``, built once and
     ping-ponged between two buffers, as in :func:`circuit_from_mate`.
+    ``rounds`` defaults to the doubling rounds of the whole table; a
+    batch's flat table (:func:`_to_flat`) passes one graph's.
     """
     n = mate.shape[0]
     iota = torch.arange(n, dtype=I32, device=mate.device)
     cur = torch.stack([torch.where(valid, mate ^ 1, iota), iota], 1)
     spare = torch.empty_like(cur)
-    for _ in range(_doubling_rounds(n)):
+    for _ in range(_doubling_rounds(n) if rounds is None else rounds):
         cur, spare = pointer_double(cur, out=spare), cur
     lab = cur[:, 1]
     return torch.minimum(lab, lab[iota ^ 1])
@@ -174,13 +214,28 @@ def splice_components(
     component rotates at most once per round.  Requires every valid stub
     to be mated.  Returns ``(mate', converged)`` with ``converged`` a 0-d
     bool tensor.
+
+    On a batch (``[B, 2E]`` inputs) the graphs run as one flat stub space
+    (:func:`_to_flat`), with graph b's vertex keys moved past graph
+    b−1's (``b·(max vertex + 1)``; the caller keeps ``B·(max vertex + 1)``
+    below int32 max), so each (vertex, component) group, vote, rotation
+    and relabel stays in its graph and in its order alone.  The loop
+    runs while any graph changes; a converged graph's extra rounds
+    rotate nothing.  ``converged`` is then ``[B]``, each graph's own.
     """
-    n = mate.shape[0]
+    if mate.dim() == 1:
+        m, ok = splice_components(mate[None], stub_vertex[None],
+                                  valid[None], rounds)
+        return m[0], ok[0]
+    B, n_stubs = mate.shape
+    n = B * n_stubs
     dev = mate.device
     iota = torch.arange(n, dtype=I32, device=dev)
-    mate = mate.to(I32)
+    mate = _to_flat(mate.to(I32))
+    valid = valid.reshape(-1)
     sv = stub_vertex.to(I32)
-    lab = _cc_cycle_labels(mate, valid)
+    sv = (sv + _graph_offsets(B, 1, dev) * (sv.amax() + 1)).reshape(-1)
+    lab = _cc_cycle_labels(mate, valid, _doubling_rounds(n_stubs))
     pad_m1 = torch.full((1,), -1, dtype=I32, device=dev)
     pad_0 = torch.zeros((1,), dtype=I32, device=dev)
 
@@ -223,18 +278,22 @@ def splice_components(
         minc = segment_min(hc, hstart, n, live=hm)
         lmap = torch.cat([iota, pad_0])
         lmap[torch.where(hm, hc, n)] = torch.where(hm, minc[hstart], 0)
-        return mpad[:n], lmap[lab.clamp(0, n - 1)], hm.any()
+        # each graph's own flag: did any of its pivots rotate?
+        changed = torch.zeros(B + 1, dtype=torch.bool, device=dev)
+        changed[torch.where(hm, hs // n_stubs, B)] = hm
+        return mpad[:n], lmap[lab.clamp(0, n - 1)], changed[:B]
 
     mate, _, changed = converge(
-        round_fn, (mate, lab, torch.ones((), dtype=torch.bool, device=dev)),
+        round_fn, (mate, lab, torch.ones(B, dtype=torch.bool, device=dev)),
         rounds)
-    return mate, ~changed
+    return _to_local(mate, B), ~changed
 
 
 def first_valid(valid: torch.Tensor) -> torch.Tensor:
-    """0-d int32 index of the first valid stub (the walk's start); torch's
-    ``argmax`` takes no bool, so the mask goes through int32."""
-    return valid.to(I32).argmax().to(I32)
+    """Int32 index of the first valid stub (the walk's start): 0-d for
+    ``[2E]``, ``[B]`` for ``[B, 2E]``; torch's ``argmax`` takes no bool,
+    so the mask goes through int32."""
+    return valid.to(I32).argmax(-1).to(I32)
 
 
 def phase3_device(mate: torch.Tensor, stub_vertex: torch.Tensor,
@@ -242,7 +301,9 @@ def phase3_device(mate: torch.Tensor, stub_vertex: torch.Tensor,
     """Full Phase 3: pivot splice, then list-rank emission.
 
     ``mate`` int32 [2E] (−1 = unmated padding), ``stub_vertex`` [2E].
-    Returns ``(circuit [E], mate', splice_converged)``.
+    Returns ``(circuit [E], mate', splice_converged)``; on a batch
+    (``[B, 2E]`` inputs) ``([B, E], [B, 2E], [B])``, each K1/K2 round one
+    launch for the whole batch.
     """
     valid = mate >= 0
     mate2, ok = splice_components(mate, stub_vertex, valid,
@@ -266,7 +327,15 @@ def phase3_device(mate: torch.Tensor, stub_vertex: torch.Tensor,
 #   * ``psum`` → a sum over the rows; the tiled ``all_gather`` → a reshape;
 #   * per-device scalars (``cnt``, ``of_t``, ``start``) → [n] tensors.
 #
-# Each ring loop processes all n rows at once per step.  Masked rows of a
+# A batch of B graphs (the reference's ``vmap`` over a batch axis after
+# the partition axis) makes the rows (partition, graph) pairs, partition
+# major: row p·B + b holds graph b's shard p, ``[n·B, S]``.  Every step is
+# per row as before; a ring step rolls the partition axis (B rows), so a
+# shard only ever meets its own graph's shards; the per-device scalars
+# become [n·B], and the ``psum``s and the convergence flags sum over the
+# partitions of each graph alone ([B]).  Ids stay each graph's own.
+#
+# Each ring loop processes all rows at once per step.  Masked rows of a
 # scatter go to a pad slot of their row (``set``, one value) or to
 # distinct spill slots (``min``), as in Phase 1, so nothing queues atomics
 # on one address.  Byte-identity with the replicated path holds as in the
@@ -294,7 +363,8 @@ def sharded_phase3_schedule(num_edges: int, n_parts: int,
     emission's ``all_gather`` unless ``gather_circuit=False``.  On one
     device each ring step is a roll, each ``psum`` a row sum and the
     ``all_gather`` a reshape; the doubling rings are also the K3/K4
-    launches, ``doubling_rounds × n_parts`` per loop."""
+    launches, ``doubling_rounds × n_parts`` per loop (for a batch too:
+    one launch serves every graph's rows)."""
     S = shard_width(num_edges, n_parts)
     total = n_parts * S
     rounds = _doubling_rounds(total)
@@ -309,52 +379,63 @@ def sharded_phase3_schedule(num_edges: int, n_parts: int,
     }
 
 
-def _ring(x: torch.Tensor, dim: int = 0) -> torch.Tensor:
-    """One ``ppermute`` step along the ring i → i+1: row i receives row
-    i−1's value."""
-    return torch.roll(x, shifts=1, dims=dim)
+def _ring(x: torch.Tensor, dim: int = 0, batch: int = 1) -> torch.Tensor:
+    """One ``ppermute`` step along the ring i → i+1: partition i receives
+    partition i−1's value.  Rows are (partition, graph) pairs, partition
+    major, so the step rolls ``dim`` by ``batch`` rows."""
+    return torch.roll(x, shifts=batch, dims=dim)
 
 
-def _shard_ids(n: int, S: int, dev):
-    """``(me [n], gid [n, S])``: each row's shard index and global ids."""
-    me = torch.arange(n, dtype=I32, device=dev)
-    return me, torch.arange(n * S, dtype=I32, device=dev).view(n, S)
+def _shard_ids(rows: int, S: int, batch: int, dev):
+    """``(me [rows], gid [rows, S])``: each row's partition (its shard
+    index within its graph) and the global ids of its stubs."""
+    me = torch.arange(rows, dtype=I32, device=dev) // batch
+    return me, me[:, None] * S + torch.arange(S, dtype=I32, device=dev)
 
 
-def _ring_bases(me: torch.Tensor, k: int, S: int) -> torch.Tensor:
-    """[n] global offset of the table slice row r holds at ring step k."""
-    n = me.shape[0]
+def _ring_bases(me: torch.Tensor, k: int, S: int, n: int) -> torch.Tensor:
+    """[rows] global offset of the table slice a row holds at ring step
+    k, over a ring of ``n`` partitions."""
     return ((me - k) % n) * S
 
 
-def _doubling_sharded(kernel, q, carries, tables, me, S: int):
+def _per_graph(x: torch.Tensor, batch: int) -> torch.Tensor:
+    """``[rows]`` → ``[n, B]``: a per-row value by partition and graph."""
+    return x.view(-1, batch)
+
+
+def _doubling_sharded(kernel, q, carries, tables, me, S: int,
+                      batch: int = 1):
     """One doubling round's table rotation: ``n`` ring steps of the shard
     kernel, each answering the queries the visiting slices own.  The
     answers ping-pong two buffer sets (a step reads step k−1 only); the
     starting ``carries`` are read, never written."""
+    n = me.shape[0] // batch
     bufs = [tuple(torch.empty_like(a) for a in carries) for _ in range(2)]
     cur = carries
-    for k in range(me.shape[0]):
+    for k in range(n):
         if k:
-            tables = _ring(tables, 1)
-        cur = kernel(q, *cur, _ring_bases(me, k, S), *tables, s_real=S,
+            tables = _ring(tables, 1, batch)
+        cur = kernel(q, *cur, _ring_bases(me, k, S, n), *tables, s_real=S,
                      out=bufs[k % 2])
     return cur
 
 
-def _cc_labels_sharded(mate_sh: torch.Tensor) -> torch.Tensor:
-    """Sharded twin of :func:`_cc_cycle_labels` over ``mate_sh`` [n, S]:
-    min-label propagation by pointer doubling where each round resolves
-    remote pointers with one full ring rotation of the (nxt, lab) table
-    shards (K3, one launch per ring step)."""
-    n, S = mate_sh.shape
-    me, gid = _shard_ids(n, S, mate_sh.device)
+def _cc_labels_sharded(mate_sh: torch.Tensor, batch: int = 1
+                       ) -> torch.Tensor:
+    """Sharded twin of :func:`_cc_cycle_labels` over ``mate_sh`` [n, S]
+    (a batch: [n·B, S]): min-label propagation by pointer doubling where
+    each round resolves remote pointers with one full ring rotation of
+    the (nxt, lab) table shards (K3, one launch per ring step)."""
+    rows, S = mate_sh.shape
+    me, gid = _shard_ids(rows, S, batch, mate_sh.device)
     nxt = torch.where(mate_sh >= 0, mate_sh ^ 1, gid)
     lab = gid
-    for _ in range(_doubling_rounds(n * S)):
+    for _ in range(_doubling_rounds(rows // batch * S)):
         a_nxt, a_lab = _doubling_sharded(
             pointer_double_shard, nxt,
-            (nxt, torch.full_like(nxt, BIG)), torch.stack([nxt, lab]), me, S)
+            (nxt, torch.full_like(nxt, BIG)), torch.stack([nxt, lab]), me, S,
+            batch)
         nxt = a_nxt
         lab = torch.minimum(lab, a_lab)
     sib = torch.arange(S, dtype=I32, device=mate_sh.device) ^ 1
@@ -374,10 +455,12 @@ def _lexsort3_rows(k1, k2, k3) -> torch.Tensor:
 
 def splice_components_sharded(mate_sh: torch.Tensor, sv_sh: torch.Tensor,
                               p3v_cap: int, rounds: int = 64,
-                              lab: Optional[torch.Tensor] = None
+                              lab: Optional[torch.Tensor] = None,
+                              batch: Optional[int] = None
                               ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Sharded twin of :func:`splice_components` over ``mate_sh`` and
-    ``sv_sh`` [n, S].
+    ``sv_sh`` [n, S] (a batch of B graphs: [n·B, S], rows partition
+    major).
 
     Per round: canonical (stub, vertex, comp, mate) records ring-ship to
     their vertex owner (owner(v) = v mod n) into a [p3v_cap] table per
@@ -386,23 +469,29 @@ def splice_components_sharded(mate_sh: torch.Tensor, sv_sh: torch.Tensor,
     relabels ring back to the stub and label owners.  ``lab`` is
     :func:`_cc_labels_sharded` of ``mate_sh``, computed here when not
     given (the solver clocks the two steps apart).  Returns
-    ``(mate_sh', ok)``, ``ok`` a 0-d bool: convergence and no vertex-table
-    overflow (an undersized ``p3v_cap`` fails the solve, never corrupts
-    it)."""
-    n, S = mate_sh.shape
+    ``(mate_sh', ok)``, ``ok`` a 0-d bool (``[B]`` for a batch, each
+    graph's own): convergence and no vertex-table overflow (an undersized
+    ``p3v_cap`` fails the solve, never corrupts it).  A batch runs while
+    any graph changes; a converged graph's extra rounds rotate nothing."""
+    B = batch or 1
+    rows, S = mate_sh.shape
+    n = rows // B
     P = int(p3v_cap)
     dev = mate_sh.device
-    me, gid = _shard_ids(n, S, dev)
+    me, gid = _shard_ids(rows, S, B, dev)
     mate_sh = mate_sh.to(I32)
     sv_sh = sv_sh.to(I32)
     if lab is None:
-        lab = _cc_labels_sharded(mate_sh)
+        lab = _cc_labels_sharded(mate_sh, B)
     lo = (me * S)[:, None]
     hi = lo + S
-    me64 = me.to(torch.int64)[:, None]
+    row64 = torch.arange(rows, dtype=torch.int64, device=dev)[:, None]
     col = torch.arange(P, dtype=I32, device=dev)
-    spill_v = n * S + torch.arange(n * P, dtype=torch.int64,
-                                   device=dev).view(n, P)
+    spill_v = rows * S + torch.arange(rows * P, dtype=torch.int64,
+                                      device=dev).view(rows, P)
+
+    def ring(x):
+        return _ring(x, 1, B)
 
     def round_fn(mate, lab, of, _changed):
         cm = (mate >= 0) & (mate > gid)           # canonical stub per pair
@@ -412,22 +501,22 @@ def splice_components_sharded(mate_sh: torch.Tensor, sv_sh: torch.Tensor,
                            torch.where(cm, sv_sh, BIG),
                            torch.where(cm, lab, BIG),
                            torch.where(cm, mate, BIG), cm.to(I32)])
-        tbl = torch.full((4, n * (P + 1)), BIG, dtype=I32, device=dev)
-        cnt = torch.zeros(n, dtype=I32, device=dev)
-        of_t = torch.zeros(n, dtype=torch.bool, device=dev)
+        tbl = torch.full((4, rows * (P + 1)), BIG, dtype=I32, device=dev)
+        cnt = torch.zeros(rows, dtype=I32, device=dev)
+        of_t = torch.zeros(rows, dtype=torch.bool, device=dev)
         for k in range(n):
             if k:
-                buf = _ring(buf, 1)
+                buf = ring(buf)
             bs, bv, bc, bm, bmk = buf
             mine = (bmk > 0) & (bv % n == me[:, None])
             pos = cnt[:, None] + torch.cumsum(mine, dim=1, dtype=I32) - 1
             okw = mine & (pos < P)
-            slot = me64 * (P + 1) + torch.where(okw, pos, P)
+            slot = row64 * (P + 1) + torch.where(okw, pos, P)
             tbl[:, slot.reshape(-1)] = torch.where(
                 okw, torch.stack([bv, bc, bs, bm]), BIG).reshape(4, -1)
             cnt = cnt + mine.sum(1, dtype=I32)
             of_t = of_t | (cnt > P)
-        tv, tc, ts, tm = tbl.view(4, n, P + 1)[:, :, :P]
+        tv, tc, ts, tm = tbl.view(4, rows, P + 1)[:, :, :P]
 
         # ---- local per-vertex logic (the replicated path's) ----
         order = _lexsort3_rows(tv, tc, ts)
@@ -444,15 +533,15 @@ def splice_components_sharded(mate_sh: torch.Tensor, sv_sh: torch.Tensor,
         # ---- ring 2: scatter-min votes onto the comp-label owners ----
         vbuf = torch.stack([torch.where(cand, gc, BIG),
                             torch.where(cand, gv, BIG), cand.to(I32)])
-        vote = torch.full((n * S + n * P,), BIG, dtype=I32, device=dev)
+        vote = torch.full((rows * S + rows * P,), BIG, dtype=I32, device=dev)
         for k in range(n):
             if k:
-                vbuf = _ring(vbuf, 1)
+                vbuf = ring(vbuf)
             qc, qv, qm = vbuf
             own = (qm > 0) & (qc >= lo) & (qc < hi)
-            ids = torch.where(own, me64 * S + (qc - lo), spill_v)
+            ids = torch.where(own, row64 * S + (qc - lo), spill_v)
             vote.scatter_reduce_(0, ids.reshape(-1), qv.reshape(-1), "amin")
-        vote = vote[:n * S].view(n, S)
+        vote = vote[:rows * S].view(rows, S)
 
         # ---- ring 3: read each record's comp vote back ----
         qc = torch.where(gmk, gc, BIG)
@@ -461,7 +550,7 @@ def splice_components_sharded(mate_sh: torch.Tensor, sv_sh: torch.Tensor,
             own = (qc >= lo) & (qc < hi)
             va = torch.where(own, take(vote, torch.where(own, qc - lo, 0)),
                              va)
-            qc, va = _ring(torch.stack([qc, va]), 1)
+            qc, va = ring(torch.stack([qc, va]))
 
         voted = cand & (va == gv)
         n_take = segment_sum(voted.to(I32), vseg, P, live=voted)
@@ -483,33 +572,33 @@ def splice_components_sharded(mate_sh: torch.Tensor, sv_sh: torch.Tensor,
         # ---- ring 4: deliver mate[a_i] ← b_{i+1}, mate[b_{i+1}] ← a_i ----
         wbuf = torch.stack([torch.where(hm, hs, BIG), torch.where(hm, b, BIG),
                             hm.to(I32)])
-        mpad = torch.cat([mate, torch.full((n, 1), -1, dtype=I32,
+        mpad = torch.cat([mate, torch.full((rows, 1), -1, dtype=I32,
                                            device=dev)], dim=1).reshape(-1)
         for k in range(n):
             if k:
-                wbuf = _ring(wbuf, 1)
+                wbuf = ring(wbuf)
             wa, wb, wm = wbuf
             own_a = (wm > 0) & (wa >= lo) & (wa < hi)
-            mpad[me64 * (S + 1) + torch.where(own_a, wa - lo, S)] = \
+            mpad[row64 * (S + 1) + torch.where(own_a, wa - lo, S)] = \
                 torch.where(own_a, wb, -1)
             own_b = (wm > 0) & (wb >= lo) & (wb < hi)
-            mpad[me64 * (S + 1) + torch.where(own_b, wb - lo, S)] = \
+            mpad[row64 * (S + 1) + torch.where(own_b, wb - lo, S)] = \
                 torch.where(own_b, wa, -1)
-        mate_new = mpad.view(n, S + 1)[:, :S]
+        mate_new = mpad.view(rows, S + 1)[:, :S]
 
         # ---- ring 5: deliver comp relabels to the label owners ----
         mbuf = torch.stack([torch.where(hm, hc, BIG),
                             torch.where(hm, rot_c, BIG), hm.to(I32)])
-        lmap = torch.cat([gid, torch.zeros((n, 1), dtype=I32, device=dev)],
+        lmap = torch.cat([gid, torch.zeros((rows, 1), dtype=I32, device=dev)],
                          dim=1).reshape(-1)
         for k in range(n):
             if k:
-                mbuf = _ring(mbuf, 1)
+                mbuf = ring(mbuf)
             mo, mn, mm = mbuf
             own = (mm > 0) & (mo >= lo) & (mo < hi)
-            lmap[me64 * (S + 1) + torch.where(own, mo - lo, S)] = \
+            lmap[row64 * (S + 1) + torch.where(own, mo - lo, S)] = \
                 torch.where(own, mn, 0)
-        lmap = lmap.view(n, S + 1)[:, :S]
+        lmap = lmap.view(rows, S + 1)[:, :S]
 
         # ---- ring 6: every stub reads lmap[lab] from the label owner ----
         ql, lab_new = lab, lab
@@ -517,36 +606,43 @@ def splice_components_sharded(mate_sh: torch.Tensor, sv_sh: torch.Tensor,
             own = (ql >= lo) & (ql < hi)
             lab_new = torch.where(
                 own, take(lmap, torch.where(own, ql - lo, 0)), lab_new)
-            ql, lab_new = _ring(torch.stack([ql, lab_new]), 1)
+            ql, lab_new = ring(torch.stack([ql, lab_new]))
 
-        return mate_new, lab_new, of | of_t.any(), hm.any()
+        # the psum of the flags: over each graph's partitions
+        return (mate_new, lab_new, of | _per_graph(of_t, B).any(0),
+                _per_graph(hm.any(1), B).any(0))
 
     mate_sh, _, of, changed = converge(
-        round_fn, (mate_sh, lab, torch.zeros((), dtype=torch.bool, device=dev),
-                   torch.ones((), dtype=torch.bool, device=dev)), rounds)
-    return mate_sh, ~changed & ~of
+        round_fn, (mate_sh, lab, torch.zeros(B, dtype=torch.bool, device=dev),
+                   torch.ones(B, dtype=torch.bool, device=dev)), rounds)
+    ok = ~changed & ~of
+    return mate_sh, (ok if batch else ok[0])
 
 
-def _rank_sharded(mate_sh: torch.Tensor
+def _rank_sharded(mate_sh: torch.Tensor, batch: int = 1
                   ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Sharded list ranking: the doubling loop of :func:`circuit_from_mate`
     over rotating (ptr, dist, reach) table shards (K4, one launch per ring
-    step).  Returns the [n, S] (dist, reach) shards."""
-    n, S = mate_sh.shape
-    me, gid = _shard_ids(n, S, mate_sh.device)
+    step).  Returns the [n, S] (a batch: [n·B, S]) (dist, reach)
+    shards."""
+    rows, S = mate_sh.shape
+    n = rows // batch
+    me, gid = _shard_ids(rows, S, batch, mate_sh.device)
     valid = mate_sh >= 0
     nxt = torch.where(valid, mate_sh ^ 1, gid)
 
     # global start stub = min valid gid, by a ring-min of the row minima
     acc = rot = torch.where(valid, gid, BIG).amin(dim=1)
     for _ in range(n):
-        rot = _ring(rot)
+        rot = _ring(rot, 0, batch)
         acc = torch.minimum(acc, rot)
     # halt stub t = mate[start ^ 1], fetched from its owner by one psum
+    # over each graph's partitions, then broadcast to its rows
     q = (acc ^ 1)[:, None]
-    t = torch.where(gid == q, mate_sh, 0).sum(dim=1).sum().to(I32)
+    t = _per_graph(torch.where(gid == q, mate_sh, 0).sum(dim=1),
+                   batch).sum(0).to(I32).repeat(n)
 
-    halt = gid == t
+    halt = gid == t[:, None]
     ptr = torch.where(halt, gid, nxt)
     dist = (~halt).to(I32)
     reach = halt.to(I32)
@@ -554,40 +650,56 @@ def _rank_sharded(mate_sh: torch.Tensor
     for _ in range(_doubling_rounds(n * S)):
         a_ptr, a_dist, a_reach = _doubling_sharded(
             pointer_double_rank_shard, ptr, (ptr, zero, zero),
-            torch.stack([ptr, dist, reach]), me, S)
+            torch.stack([ptr, dist, reach]), me, S, batch)
         ptr = a_ptr
         dist = dist + a_dist
         reach = torch.maximum(reach, a_reach)
     return dist, reach
 
 
+def unshard(x: torch.Tensor, batch: Optional[int]) -> torch.Tensor:
+    """The tiled ``all_gather``: ``[n, S, ·]`` shards read as one ``[n·S,
+    ·]`` stub space (a reshape); a batch's ``[n·B, S, ·]`` rows as ``[B,
+    n·S, ·]``, one stub space a graph."""
+    if batch is None:
+        return x.reshape(-1, *x.shape[2:])
+    n = x.shape[0] // batch
+    return x.view(n, batch, *x.shape[1:]).transpose(0, 1).reshape(
+        batch, -1, *x.shape[2:])
+
+
 def gather_circuit_sharded(mate_sh: torch.Tensor, dist_sh: torch.Tensor,
-                           reach_sh: torch.Tensor, n_stubs: int):
+                           reach_sh: torch.Tensor, n_stubs: int,
+                           batch: Optional[int] = None):
     """The reference's emission ``all_gather``: the [n, S] shards read as
-    one [n·S] stub space (a reshape on one device), cut to ``n_stubs``
-    and emitted by :func:`emit_circuit`.  Returns ``(circuit [E],
-    mate [n_stubs])``."""
-    mate = mate_sh.reshape(-1)[:n_stubs]
-    return (emit_circuit(mate >= 0, dist_sh.reshape(-1)[:n_stubs],
-                         reach_sh.reshape(-1)[:n_stubs]), mate)
+    one [n·S] stub space (:func:`unshard`), cut to ``n_stubs`` and
+    emitted by :func:`emit_circuit`.  Returns ``(circuit [E], mate
+    [n_stubs])``, for a batch ``([B, E], [B, n_stubs])``."""
+    mate, dist, reach = (unshard(x, batch)[..., :n_stubs]
+                         for x in (mate_sh, dist_sh, reach_sh))
+    return emit_circuit(mate >= 0, dist, reach), mate
 
 
 def phase3_sharded(mate_sh: torch.Tensor, sv_sh: torch.Tensor,
                    n_stubs: int, p3v_cap: int, splice_rounds: int = 64,
-                   gather_circuit: bool = True):
+                   gather_circuit: bool = True,
+                   batch: Optional[int] = None):
     """Full sharded Phase 3 over the [n, S] stub shards (``mate_sh``
-    padded with −1 past ``n_stubs``, ``sv_sh`` with vertex 0).
+    padded with −1 past ``n_stubs``, ``sv_sh`` with vertex 0), or over a
+    batch's [n·B, S] rows.
 
     With ``gather_circuit=True`` returns ``(circuit [E], mate [n_stubs],
-    ok)`` exactly like :func:`phase3_device`.  With
-    ``gather_circuit=False`` nothing is gathered: returns the still
-    sharded ``(mate_sh, dist_sh, reach_sh, ok)``, from which the caller
-    emits host-side with :func:`emit_circuit_np`."""
+    ok)`` exactly like :func:`phase3_device` (a batch: ``[B, E]``, ``[B,
+    n_stubs]``, ``[B]``).  With ``gather_circuit=False`` nothing is
+    gathered: returns the still sharded ``(mate_sh, dist_sh, reach_sh,
+    ok)``, from which the caller emits host-side with
+    :func:`emit_circuit_np`."""
     mate2_sh, ok = splice_components_sharded(mate_sh, sv_sh, p3v_cap,
-                                             rounds=splice_rounds)
-    dist_sh, reach_sh = _rank_sharded(mate2_sh)
+                                             rounds=splice_rounds,
+                                             batch=batch)
+    dist_sh, reach_sh = _rank_sharded(mate2_sh, batch or 1)
     if not gather_circuit:
         return mate2_sh, dist_sh, reach_sh, ok
     circuit, mate2 = gather_circuit_sharded(mate2_sh, dist_sh, reach_sh,
-                                            n_stubs)
+                                            n_stubs, batch)
     return circuit, mate2, ok

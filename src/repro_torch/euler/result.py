@@ -23,10 +23,11 @@ class CacheStats:
     ``bucket``/``hit``/``batch`` describe the solve that produced this
     snapshot; the counters are cumulative over the owning
     :class:`~repro_torch.euler.solver.EulerSolver`.  Programs are cached
-    per ``(bucket, batch)``; the port runs single-graph programs only
-    (``batch`` None).  ``traces`` counts what the reference's retrace
-    events count: on a card a fused run's recording, on the CPU its
-    first (uncaptured) run, and an engine's first eager superstep.
+    per ``(bucket, batch)``: ``batch`` None for the one-graph program, B
+    for a batched one (``solve_batch``).  ``traces`` counts what the
+    reference's retrace events count: on a card a fused run's recording,
+    on the CPU its first (uncaptured) run, and an engine's first eager
+    superstep.
 
     >>> CacheStats(hits=3, misses=1, traces=1).compiles
     1

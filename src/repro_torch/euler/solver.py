@@ -38,6 +38,13 @@ so the host can prepare the next graph while the card runs this one
 Phase 3's steps run one by one, each clocked after a drain.  Both give
 the same bits.
 
+Same-bucket graphs can also run together: :meth:`EulerSolver.solve_batch`
+(and ``solve_batch_async``, ``solve_many(batch=B)``) runs B graphs of one
+bucket as one batched program, recorded once per ``(bucket, B)``, the
+batch axis after the partition axis (DESIGN.md §8); each result is
+byte-identical to the graph's own solve.  A batch's program holds B
+times the bucket's tables.
+
 Phase 3 is sharded over the partitions by default when ``n_parts > 1``
 (the CC, splice and rank steps over ``[n, S]`` stub shards, K3/K4) and
 replicated for ``n_parts = 1`` (K1/K2), as in the reference;
@@ -46,11 +53,9 @@ only) fetches the rank shards and emits the circuit on the host.
 
 It runs on ``"cuda"`` unless the caller passes ``device="cpu"``; with no
 card it raises instead of falling back.  Not ported yet (ROADMAP queue
-1): ``solve_batch``, ``solve_batch_async`` and ``solve_many(batch>1)``
-(item 3, raises), the host backend (item 4), the width ladder,
-``prewarm``, the autotuner, the byte budget and pins (item 6), a
-multi-device mesh (item 9) and the ``deferred_transfer=False`` baseline
-(raises; queue 3).
+1): the host backend (item 4), the width ladder, ``prewarm``, the
+autotuner, the byte budget and pins (item 6), a multi-device mesh (item
+9) and the ``deferred_transfer=False`` baseline (raises; queue 3).
 
     >>> from repro_torch.euler import solve                 # doctest: +SKIP
     >>> res = solve(graph, n_parts=8).validate()            # doctest: +SKIP
@@ -69,9 +74,9 @@ import torch
 
 from .. import obs
 from ..core import capture
-from ..core.engine import (Engine, EngineCaps, FusedOut, PendingRun,
-                           drained_clock, require_deferred_transfer,
-                           stub_shards)
+from ..core.engine import (Engine, EngineCaps, FusedOut, FusedRun,
+                           PendingRun, drained_clock, require_batch_fits,
+                           require_deferred_transfer, stub_shards)
 from ..core.graph import Graph, partition_graph
 from ..core.phase2 import MergeTree, generate_merge_tree
 from ..core.phase3 import (_cc_labels_sharded, _rank_sharded,
@@ -106,24 +111,25 @@ class PendingSolve:
     """An in-flight fused solve (the reference's ``PendingSolve``):
     dispatched to the device, its result not fetched yet.
 
-    ``ready()`` polls completion without blocking; ``result()`` (or
-    ``results()``, one result a graph) performs the run's one
-    device→host synchronization in a ``fetch`` span, runs the
-    reference's checks, strips the bucket's padding and stamps the
-    session's cache stats as they are at fetch time, byte-identical to
-    what :meth:`EulerSolver.solve` returns.  A run that failed raises
-    here, and again at every call.  The pending owns its run's outputs,
-    so it can be fetched in any order, and after its program was
-    evicted.  Hold one per in-flight solve, so the host prepares the
-    next graph while the device runs this one (DESIGN.md §9)."""
+    ``ready()`` polls completion without blocking; ``results()`` (one
+    result a graph, in input order; ``result()`` for a one-graph solve)
+    performs the run's one device→host synchronization in a ``fetch``
+    span, runs the reference's checks on each graph, strips the bucket's
+    padding and stamps the session's cache stats as they are at fetch
+    time, byte-identical to what :meth:`EulerSolver.solve` returns.  A
+    run that failed raises here, and again at every call.  The pending
+    owns its run's outputs, so it can be fetched in any order, and after
+    its program was evicted.  Hold one per in-flight solve, so the host
+    prepares the next graph while the device runs this one (DESIGN.md
+    §9)."""
 
     def __init__(self, solver: "EulerSolver", run: PendingRun,
-                 graphs: List[Graph], tree: MergeTree, key: BucketKey,
-                 hit: bool, t0: float, timings: dict):
+                 graphs: List[Graph], trees: List[MergeTree],
+                 key: BucketKey, hit: bool, t0: float, timings: dict):
         self._solver = solver
         self._run = run
         self._graphs = graphs
-        self._tree = tree
+        self._trees = trees
         self._key = key
         self._hit = hit
         self._t0 = t0
@@ -142,20 +148,30 @@ class PendingSolve:
         return self._out is not None or self._run.ready()
 
     def results(self) -> List[EulerResult]:
-        """Block for the device run; one result a graph, in input
-        order."""
+        """Block for the device run; one result a graph, in input order.
+        A batch's results each carry ``timings["batch"]`` and
+        ``cache.batch``, its width."""
         if self._out is not None:
             return self._out
         solver = self._solver
-        with solver.trace.span("fetch", bucket=self._key[0], width=1):
+        B = len(self._graphs)
+        with solver.trace.span("fetch", bucket=self._key[0], width=B):
             out, fetched = self._run.wait()
             timings = dict(self._timings)
             timings["upload_s"] += fetched["load_s"]
             timings.update((k, v) for k, v in fetched.items()
                            if k != "load_s")
-            res = solver._result(self._graphs[0], self._tree, self._key,
-                                 out, timings, True, self._t0, self._hit)
-        self._out = [res]
+            if self._run.batch is None:
+                members = [out]
+            else:
+                timings["batch"] = float(B)
+                members = [FusedOut(out.circuit[b], out.mate[b],
+                                    out.flags[:, b], out.metrics[:, b],
+                                    out.phase3_ok[b]) for b in range(B)]
+            self._out = [
+                solver._result(g, tree, self._key, m, dict(timings), True,
+                               self._t0, self._hit)
+                for g, tree, m in zip(self._graphs, self._trees, members)]
         return self._out
 
     def result(self) -> EulerResult:
@@ -511,7 +527,17 @@ class EulerSolver:
                 staged, timings = self._staged(eng, pg, self.device_resident,
                                                t0, drain=False)
                 run = eng.fused_program(key[0])
-        with self.trace.span("launch", bucket=key[0], width=1, hit=hit):
+        pending = self._launch(run, staged, key, hit)
+        return PendingSolve(self, pending, [graph], [tree], key, hit, t0,
+                            timings)
+
+    def _launch(self, run: FusedRun, staged, key: BucketKey,
+                hit: bool) -> PendingRun:
+        """Launch a staged run outside the session lock (a ``launch``
+        span): a replay is only enqueued, a miss warms up and records
+        first, and is counted."""
+        with self.trace.span("launch", bucket=key[0], width=run.batch or 1,
+                             hit=hit):
             pending = run.launch(*staged)
         if pending.recorded:
             with self._lock:
@@ -520,8 +546,69 @@ class EulerSolver:
         if not hit:
             marks = pending.marks
             self._h_compile.observe(marks["warmup_s"] + marks["capture_s"])
-        return PendingSolve(self, pending, [graph], tree, key, hit, t0,
-                            timings)
+        return pending
+
+    def solve_batch(self, graphs: Iterable[Graph],
+                    fused: Optional[bool] = None) -> List[EulerResult]:
+        """Solve B same-bucket graphs as one batched fused program
+        (DESIGN.md §8); results in input order, each byte-identical to
+        the graph's own :meth:`solve`.
+
+        The graphs must share a bucket (:meth:`bucket_of`): mixed buckets
+        raise ``ValueError`` rather than padding to the largest member.
+        The program is recorded once per ``(bucket, B)`` and replayed
+        after; it holds B times the bucket's tables.  An empty list
+        returns ``[]``; one graph goes through :meth:`solve` (no program
+        of its own).  Fused mode only: the eager oracle solves one graph
+        at a time."""
+        graphs = list(graphs)
+        if not graphs:
+            return []
+        fused = self.fused if fused is None else bool(fused)
+        if not fused:
+            raise ValueError(
+                "solve_batch requires the fused execution mode; the eager "
+                "per-level oracle is single-graph by design")
+        if len(graphs) == 1:
+            return [self.solve(graphs[0], fused=True)]
+        return self.solve_batch_async(graphs).results()
+
+    def solve_batch_async(self, graphs: Iterable[Graph]) -> PendingSolve:
+        """Dispatch B same-bucket graphs as one batched fused program
+        without waiting (the async form of :meth:`solve_batch`, with its
+        rules; ``results()`` gives its results).  The prep, the program
+        accounting and the staging of the stacked inputs
+        (:meth:`~repro_torch.core.engine.Engine.stage_batch`, which
+        uploads a batch once) run under the session lock; the launch runs
+        outside it, in a ``launch`` span of width B."""
+        graphs = list(graphs)
+        if not graphs:
+            raise ValueError("empty batch")
+        if len(graphs) == 1:
+            return self.solve_async(graphs[0])
+        t0 = time.perf_counter()
+        B = len(graphs)
+        with self._lock:
+            preps = [self._prepare(g, None) for g in graphs]
+            keys = {p[2] for p in preps}
+            if len(keys) > 1:
+                raise ValueError(
+                    f"solve_batch needs same-bucket graphs, got {len(keys)} "
+                    f"distinct buckets; group with bucket_of() or use "
+                    f"solve_many(batch=...)")
+            key = preps[0][2]
+            require_batch_fits(key[0], B)
+            eng = self._engine_for(key)
+            hit = self._account(key, B)
+            t1 = time.perf_counter()
+            with capture.CARD.shared(self.device):
+                staged = eng.stage_batch([p[0] for p in preps], self.device)
+            timings = {"prepare_s": t1 - t0,
+                       "upload_s": time.perf_counter() - t1}
+            run = eng.fused_program(key[0], B)
+        pending = self._launch(run, staged, key, hit)
+        return PendingSolve(self, pending, graphs, [p[1] for p in preps],
+                            key, hit, t0, timings)
 
     def _staged(self, eng: Engine, pg, resident: bool, t0: float,
                 drain: bool):
@@ -582,23 +669,42 @@ class EulerSolver:
     def solve_many(self, graphs: Iterable[Graph],
                    fused: Optional[bool] = None,
                    batch: Optional[int] = None) -> List[EulerResult]:
-        """Solve a stream of graphs through the session, one at a time:
-        every same-bucket graph after the first replays the bucket's
-        recorded graph.  ``batch > 1`` (one batched program per chunk in
-        the reference) raises: it is ROADMAP queue 1 item 3."""
-        if batch is not None and batch > 1:
-            raise NotImplementedError(
-                "solve_many(batch>1) runs same-bucket graphs as one "
-                "batched program, which the port does not have yet "
-                "(ROADMAP queue 1 item 3); pass batch=None")
-        return [self.solve(g, fused=fused) for g in graphs]
+        """Solve a stream of graphs through the session: every
+        same-bucket graph after the first replays the bucket's recorded
+        graph.  With ``batch=B > 1`` the graphs are grouped by bucket and
+        each group runs through :meth:`solve_batch` in full chunks of B,
+        one program launch a chunk; a group's leftover graphs run one at
+        a time on the bucket's one-graph program rather than recording a
+        one-off width (DESIGN.md §8).  Results come back in input order,
+        byte-identical to the sequential path."""
+        graphs = list(graphs)
+        if batch is None or batch <= 1:
+            return [self.solve(g, fused=fused) for g in graphs]
+        by_bucket: dict = {}
+        for i, g in enumerate(graphs):
+            by_bucket.setdefault(self.bucket_of(g), []).append(i)
+        out: List[Optional[EulerResult]] = [None] * len(graphs)
+        for idxs in by_bucket.values():
+            for j in range(0, len(idxs), batch):
+                chunk = idxs[j:j + batch]
+                if len(chunk) == batch:
+                    solved = self.solve_batch([graphs[i] for i in chunk],
+                                              fused=fused)
+                else:
+                    solved = [self.solve(graphs[i], fused=fused)
+                              for i in chunk]
+                for i, res in zip(chunk, solved):
+                    out[i] = res
+        return out
 
     # ------------------------------------------------------------------
     def _result(self, graph: Graph, tree: MergeTree, key: BucketKey,
                 out: FusedOut, timings: dict, fused: bool, t0: float,
                 hit: bool) -> EulerResult:
-        """The reference's checks on the fetched run (``PendingRun.wait``)
-        and the result, with the session's cache stats after it."""
+        """The reference's checks on one graph's fetched outputs
+        (``PendingRun.wait``) and its result, with the session's cache
+        stats after it; a batched program's width is
+        ``timings["batch"]``."""
         e_cap, n_levels = key[0], key[2]
         circuit, mate, flags, metrics, ok3 = out
         if not self.gather_circuit:
@@ -633,8 +739,8 @@ class EulerSolver:
             padded_edges=e_cap - graph.num_edges,
             phase3_converged=bool(ok3),
             timings=timings,
-            cache=dataclasses.replace(self.cache_stats, bucket=key,
-                                      hit=hit, batch=1),
+            cache=dataclasses.replace(self.cache_stats, bucket=key, hit=hit,
+                                      batch=int(timings.get("batch", 1))),
         )
 
     def _phase3_sharded(self, mate: torch.Tensor, sv: torch.Tensor,
@@ -675,6 +781,13 @@ def solve(graph: Graph, part_of_vertex: Optional[np.ndarray] = None,
 
 def solve_many(graphs: Iterable[Graph], batch: Optional[int] = None,
                **opts) -> List[EulerResult]:
-    """One-shot session over a stream of graphs (one program cache); see
-    :meth:`EulerSolver.solve_many`."""
+    """One-shot session over a stream of graphs (one program cache);
+    ``batch=B`` runs same-bucket graphs B at a time as one batched
+    program (see :meth:`EulerSolver.solve_many`)."""
     return EulerSolver(**opts).solve_many(graphs, batch=batch)
+
+
+def solve_batch(graphs: Iterable[Graph], **opts) -> List[EulerResult]:
+    """One-shot ``EulerSolver(**opts).solve_batch(graphs)``: B same-bucket
+    graphs as one batched program (DESIGN.md §8)."""
+    return EulerSolver(**opts).solve_batch(graphs)

@@ -288,3 +288,60 @@ def test_async_spans_and_counts_match_reference():
     names = [t[0] for t in ours[0]]
     assert names.count("fetch") == names.count("wait") == 3
     assert ours[1]["a1"] == (False, 1, 2, 2, 1, 2)
+
+
+def _batch_session(EulerSolver, graphs, log, reg):
+    """A one-graph solve of ``a``, then ``solve_batch([a, a2])`` twice (a
+    miss that uploads the stacked batch and records, then a hit), then a
+    batched dispatch and a one-graph dispatch fetched in reverse order:
+    the span tree of each step and each result's ``CacheStats``."""
+    solver = EulerSolver(n_parts=1, registry=reg, trace=log)
+    a, a2 = graphs["a"], graphs["a2"]
+    trees, stats = [], []
+
+    def step(results):
+        trees.append(_tree(log))
+        stats.append([(r.cache.hit, r.cache.batch, r.cache.hits,
+                       r.cache.misses, r.cache.traces, r.cache.evictions,
+                       r.cache.state_uploads) for r in results])
+        log.clear()
+
+    log.clear()
+    step([solver.solve(a).validate()])
+    step([r.validate() for r in solver.solve_batch([a, a2])])
+    step([r.validate() for r in solver.solve_batch([a, a2])])
+    batched = solver.solve_batch_async([a2, a])
+    single = solver.solve_async(a2)
+    got = [single.result()] + batched.results()
+    step([r.validate() for r in got])
+    return trees, stats, got
+
+
+def test_batch_spans_and_counts_match_reference():
+    """Batched solves on both packages (one partition; the reference on
+    one device): the same span trees (``upload`` of width B, ``launch``/
+    ``retrace`` with the batch, ``fetch``/``wait``) and ``CacheStats``
+    (``batch`` included), and the same bytes."""
+    from repro.euler import EulerSolver as JSolver
+    from repro.graphgen.eulerize import eulerian_rmat as j_eulerian_rmat
+
+    seeds = {"a": 1, "a2": 1}
+    ours = _batch_session(
+        lambda **kw: EulerSolver(device="cpu", **kw),
+        {k: eulerian_rmat(5, avg_degree=4, seed=d) for k, d in seeds.items()},
+        t_obs.TraceLog(), t_obs.Registry())
+    theirs = _batch_session(
+        JSolver, {k: j_eulerian_rmat(5, avg_degree=4, seed=d)
+                  for k, d in seeds.items()},
+        j_obs.TraceLog(), j_obs.Registry())
+    assert ours[0] == theirs[0]
+    assert ours[1] == theirs[1]
+    assert ours[1][1] == [(False, 2, 0, 2, 2, 0, 2)] * 2
+    # the new composition [a2, a] uploads its stack, and a2 alone its
+    # own state
+    assert ours[1][-1] == [(True, 1, 3, 2, 2, 0, 4)] + \
+        [(True, 2, 3, 2, 2, 0, 4)] * 2
+    for mine, ref in zip(ours[2], theirs[2]):
+        assert mine.circuit.tolist() == ref.circuit.tolist()
+    names = [t[0] for t in ours[0][1]]
+    assert names.count("upload") == 1 and names.count("retrace") == 1

@@ -27,7 +27,7 @@ import torch
 from conftest import run_with_devices
 from repro_torch.core.engine import Engine
 from repro_torch.core.graph import Graph
-from repro_torch.euler import CacheStats, EulerSolver, solve, solve_many
+from repro_torch.euler import CacheStats, EulerSolver, solve
 from repro_torch.euler import solver as solver_mod
 from repro_torch.graphgen.eulerize import eulerian_rmat
 
@@ -230,10 +230,6 @@ def test_unported_options_raise():
     with pytest.raises(ValueError, match="queue 3"):
         Engine(2, caps, 2, deferred_transfer=False)
     solver = EulerSolver(n_parts=2, device="cpu")
-    with pytest.raises(NotImplementedError, match="item 3"):
-        solver.solve_many([g, g], batch=2)
-    with pytest.raises(NotImplementedError, match="item 3"):
-        solve_many([g], batch=4, n_parts=2, device="cpu")
     assert solver.cache_stats == CacheStats()      # nothing ran
 
 
