@@ -152,6 +152,21 @@ exits non-zero:
                 solves; ``run_s``, each program's ``reserved_bytes`` and
                 the peak allocated and reserved memory beside the
                 ``nvidia-smi`` line;
+  5f. host    — the reference's exact host BSP engine (``backend="host"``:
+                numpy and scipy on the machine's CPU, the paper's Int64
+                memory-state accounting) on an Eulerian RMAT graph at the
+                main scale less four (16), average degree 5, seed 0, P =
+                8: once with both §5 heuristics on and once with both off
+                (the launch counters set to 0 before and read after: no
+                kernel may launch), then the fused device solve of the same
+                graph on ``cuda`` in a new session (it warms up and
+                records).  All three validated, each covering every edge
+                once; the heuristics' level-0 ``cumulative`` Int64 state
+                at most the baseline's.  Prints each host solve's
+                ``run_s`` and ``total_s``, the device solve's
+                ``warmup_s``, ``capture_s`` and ``run_s``, and each
+                engine's per-level ``cumulative`` beside the
+                ``nvidia-smi`` line;
   6. k5       — the sorted segment sum against its twin (f32 tolerance
                 1e-5, half types 2e-2, atol ×8) at the GNN aggregation
                 shapes full_graph_sm and ogb_products (seeded sorted ids)
@@ -1514,6 +1529,59 @@ def check_batch_large(scale: int, smi: str, seeds: int = 8) -> None:
     torch.cuda.empty_cache()
 
 
+def _per_level(res) -> str:
+    return "'" + ",".join(str(ls.cumulative) for ls in res.levels) + "'"
+
+
+def check_host(scale: int, smi: str) -> None:
+    """Phase 5f at ``scale`` (the main scale less four), P = 8 (module
+    docstring)."""
+    g = eulerian_rmat(scale, avg_degree=AVG_DEGREE, seed=SEED)
+    edges = list(range(g.num_edges))
+    hosts = {}
+    for name, on in (("heuristics", True), ("baseline", False)):
+        reset_counts()
+        r = solve(g, backend="host", n_parts=PARTS, remote_dedup=on,
+                  deferred_transfer=on).validate()
+        counts = read_counts()
+        covers = sorted((r.circuit >> 1).tolist()) == edges
+        say("host", scale=scale, parts=PARTS, edges=g.num_edges,
+            engine=f"host_{name}", remote_dedup=on, deferred_transfer=on,
+            supersteps=r.supersteps, valid=r.valid, covers_every_edge=covers,
+            launches=sum(counts.values()),
+            run_s=f"{r.timings['run_s']:.4f}",
+            total_s=f"{r.timings['total_s']:.4f}",
+            cumulative=_per_level(r), smi=f"'{smi}'")
+        if not covers:
+            raise AssertionError(f"host_{name} circuit misses edges")
+        if any(counts.values()):
+            raise AssertionError(f"a host solve launched kernels: {counts}")
+        hosts[name] = r
+    solver = EulerSolver(n_parts=PARTS, device="cuda")
+    d = solver.solve(g).validate()
+    covers = sorted((d.circuit >> 1).tolist()) == edges
+    level0 = (hosts["heuristics"].levels[0].cumulative,
+              hosts["baseline"].levels[0].cumulative)
+    say("host", scale=scale, parts=PARTS, edges=g.num_edges,
+        engine="device_fused", e_cap=d.cache.bucket[0],
+        supersteps=d.supersteps, valid=d.valid, covers_every_edge=covers,
+        captures=solver.captures,
+        warmup_s=f"{d.timings['warmup_s']:.4f}",
+        capture_s=f"{d.timings['capture_s']:.4f}",
+        run_s=f"{d.timings['run_s']:.4f}",
+        total_s=f"{d.timings['total_s']:.4f}",
+        cumulative=_per_level(d), smi=f"'{smi}'")
+    say("host", level0_heuristics=level0[0], level0_baseline=level0[1],
+        heuristics_at_most_baseline=level0[0] <= level0[1])
+    if not covers:
+        raise AssertionError("the device circuit misses edges")
+    if level0[0] > level0[1]:
+        raise AssertionError(f"heuristics raised the level-0 state: "
+                             f"{level0[0]} > {level0[1]}")
+    del solver, d
+    torch.cuda.empty_cache()
+
+
 def k5_ids(n: int, s: int, skewed: bool, gen, dev) -> torch.Tensor:
     """Sorted int32 segment ids of ``n`` rows over ``s`` segments: uniform
     draws, or ``floor(s · u²)`` for uniform ``u`` (skewed: segment j gets
@@ -2248,6 +2316,9 @@ def main(argv=None) -> int:
     # ---- 5e. batched solves: one program per (bucket, B) ----
     check_batch(dev)
     check_batch_large(args.scale - 1, smi)
+
+    # ---- 5f. the reference's host engine beside the device solve ----
+    check_host(args.scale - 4, smi)
 
     # ---- 6–7. K5 and K6 against their twins, timed ----
     table["segment_sum_sorted"] = check_k5(dev)

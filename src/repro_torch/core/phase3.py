@@ -16,7 +16,11 @@ compute the same circuit, byte for byte:
     by rotating table shards around the partition ring.  The doubling
     loops run K3/K4, one launch per ring step serving all n shards.
 
-Both take a batch of B same-bucket graphs (the reference's ``vmap``
+The host engine (``backend="host"``) runs the reference's host Phase 3
+instead: :func:`splice_components_np` (scipy connected components, then
+mate rotations at each pivot vertex) and :func:`circuit_from_mate_np`.
+
+Both device paths take a batch of B same-bucket graphs (the reference's ``vmap``
 of its one-graph body): the replicated path as one flat stub space of B
 disjoint graphs, the sharded one as ``[n·B, S]`` rows, (partition,
 graph) pairs.  Either way each doubling round stays one kernel launch
@@ -100,6 +104,75 @@ def emit_circuit_np(valid: np.ndarray, dist: np.ndarray,
     out = order[:E].astype(np.int32)
     member = on_orbit[out]
     return np.where(member, out, np.int32(-1))
+
+
+def splice_components_np(
+    mate: np.ndarray,
+    stub_vertex: np.ndarray,
+    valid: np.ndarray,
+) -> np.ndarray:
+    """Final pivot splice (host, the reference's): merge remaining
+    edge-disjoint cycles that cross only at already-consumed vertices, by
+    mate rotations — the same operation the paper's Phase 3 performs when
+    it "switches to a different cycle at the pivot vertex".  Returns the
+    updated mate array.  The host engine's Phase 3
+    (:mod:`repro_torch.core.host_engine`); byte-identical to the
+    reference's on the same inputs."""
+    from scipy.sparse import coo_matrix
+    from scipy.sparse.csgraph import connected_components
+
+    mate = mate.copy()
+    n_stubs = mate.shape[0]
+    idx = np.nonzero(valid)[0]
+    for _ in range(64):
+        # components over sibling + mate links
+        sib_u = idx
+        sib_v = idx ^ 1
+        mat_u = idx
+        mat_v = mate[idx]
+        rows = np.concatenate([sib_u, mat_u])
+        cols = np.concatenate([sib_v, mat_v])
+        g = coo_matrix(
+            (np.ones(len(rows), np.int8), (rows, cols)), shape=(n_stubs, n_stubs)
+        )
+        ncomp, labels = connected_components(g, directed=False)
+        live = np.unique(labels[idx])
+        if len(live) <= 1:
+            break
+        # one representative pair per (component, vertex); rotate per vertex
+        s = idx[mate[idx] > idx]  # one canonical stub per mate-pair
+        v = stub_vertex[s]
+        comp = labels[s]
+        order = np.lexsort((comp, v))
+        s, v, comp = s[order], v[order], comp[order]
+        first = np.ones(len(s), dtype=bool)
+        first[1:] = (v[1:] != v[:-1]) | (comp[1:] != comp[:-1])
+        s, v, comp = s[first], v[first], comp[first]
+        # vertices hosting >= 2 distinct comps
+        vstart = np.ones(len(v), dtype=bool)
+        vstart[1:] = v[1:] != v[:-1]
+        vseg = np.cumsum(vstart) - 1
+        seg_sizes = np.bincount(vseg)
+        merged_any = False
+        done = set()
+        for seg in np.nonzero(seg_sizes >= 2)[0]:
+            members = np.nonzero(vseg == seg)[0]
+            comps = comp[members]
+            if any(c in done for c in comps):
+                continue  # one rotation per comp per round
+            done.update(int(c) for c in comps)
+            reps = s[members]
+            mates = mate[reps]
+            # rotate: mate[a_i] <- b_{i+1}
+            for i in range(len(reps)):
+                a = reps[i]
+                b = mates[(i + 1) % len(reps)]
+                mate[a] = b
+                mate[b] = a
+            merged_any = True
+        if not merged_any:
+            break
+    return mate
 
 
 def _doubling_rounds(n: int) -> int:

@@ -51,12 +51,15 @@ class CacheStats:
 
 @dataclasses.dataclass
 class EulerResult:
-    """Everything a solve produces.
+    """Everything a solve produces, shared by both backends.
 
     ``circuit`` is the Euler circuit of ``graph`` as arrival stubs in walk
     order (stub ``2e`` = edge ``e`` traversed u→v, ``2e+1`` = v→u),
     already stripped of the bucket's dummy edges; ``mate`` still covers
-    the padded stub space.
+    the padded stub space.  A host result (``backend="host"``) has no
+    padding and no cache accounting, and its ``levels`` are the host
+    engine's own ``LevelStats`` (boundary counts, Phase 1 costs and
+    shipped Int64s included).
     """
 
     circuit: np.ndarray              # [E] arrival stubs in walk order
@@ -64,9 +67,9 @@ class EulerResult:
     tree: MergeTree
     levels: List[LevelStats]         # per-level Int64 state
     supersteps: int
-    backend: str = "device"          # the port has the device backend only
+    backend: str = "device"          # "device" | "host"
     fused: bool = False              # one recorded graph vs eager steps
-    device: str = "cuda"             # where the engine ran
+    device: str = "cuda"             # where the engine ran ("cpu": host)
     graph: Optional[Graph] = None    # the (unpadded) input graph
     padded_edges: int = 0            # dummy edges added for shape bucketing
     phase3_converged: bool = True

@@ -52,13 +52,18 @@ replicated for ``n_parts = 1`` (K1/K2), as in the reference;
 only) fetches the rank shards and emits the circuit on the host.
 
 It runs on ``"cuda"`` unless the caller passes ``device="cpu"``; with no
-card it raises instead of falling back.  Not ported yet (ROADMAP queue
-1): the host backend (item 4), the width ladder, ``prewarm``, the
-autotuner, the byte budget and pins (item 6), a multi-device mesh (item
-9) and the ``deferred_transfer=False`` baseline (raises; queue 3).
+card it raises instead of falling back.  ``backend="host"`` runs the
+reference's exact host BSP engine instead
+(:class:`~repro_torch.core.host_engine.HostEngine`: numpy and scipy, the
+paper's Int64 memory-state accounting and both §5 heuristics, one graph
+at a time, no device).  Not ported yet (ROADMAP queue 1): the width
+ladder, ``prewarm``, the autotuner, the byte budget and pins (item 6), a
+multi-device mesh (item 9) and, on the device backend, the
+``deferred_transfer=False`` baseline (raises; queue 3).
 
     >>> from repro_torch.euler import solve                 # doctest: +SKIP
     >>> res = solve(graph, n_parts=8).validate()            # doctest: +SKIP
+    >>> res = solve(graph, backend="host", n_parts=8).validate()  # doctest: +SKIP
 """
 from __future__ import annotations
 
@@ -185,19 +190,30 @@ class EulerSolver:
     """Facade over the partition-centric Euler pipeline on one device,
     and a serving session over many graphs.
 
-    ``n_parts`` partitions all live on the one device; ``device=None``
+    ``backend="device"`` (the default) runs the engine on one device:
+    ``n_parts`` partitions (default 1) all live on it; ``device=None``
     means ``"cuda"``, and ``"cpu"`` runs the plain torch path (the tests'
-    setting).  The other options are the reference's, with its defaults
-    and meanings:
+    setting).  ``backend="host"`` runs the reference's exact host BSP
+    engine on numpy and scipy, ``n_parts`` defaulting to 4 as in the
+    reference; it touches no device, so passing ``device=`` raises, and
+    ``solve_async``/``solve_batch``/``solve_batch_async`` raise too (one
+    graph at a time, synchronously; ``solve_many`` ignores ``batch``).
+    Any other backend raises ``ValueError``.  The other options are the
+    reference's, with its defaults and meanings:
 
     fused:              one recorded graph a bucket (default) or the
                         eager oracle; overridable per :meth:`solve`
-                        (:meth:`solve_async` is always fused).
-    remote_dedup:       stored, and as in the reference's device engine
-                        it changes nothing (every cut edge is parked on
-                        one side either way).
-    deferred_transfer:  must stay True: the reference mis-sizes its
-                        ``False`` baseline (ROADMAP queue 3).
+                        (:meth:`solve_async` is always fused).  The host
+                        backend has no such mode: ``solve(fused=...)``
+                        raises there.
+    remote_dedup:       §5a on the host backend: one side of a cut edge
+                        holds it in the state accounting.  On the device
+                        backend stored, and as in the reference's device
+                        engine it changes nothing (every cut edge is
+                        parked on one side either way).
+    deferred_transfer:  §5b on the host backend, either value.  On the
+                        device backend it must stay True: the reference
+                        mis-sizes its ``False`` baseline (ROADMAP queue 3).
     slack:              capacity sizing headroom passed to ``size_caps``.
     partition_seed:     seed of the built-in BFS partitioner.
     min_bucket_edges:   smallest edge bucket.
@@ -230,7 +246,8 @@ class EulerSolver:
     and a recording holds the card alone (``capture.CARD``).
     """
 
-    def __init__(self, n_parts: int = 1, device=None, fused: bool = True,
+    def __init__(self, n_parts: Optional[int] = None,
+                 backend: str = "device", device=None, fused: bool = True,
                  remote_dedup: bool = True, deferred_transfer: bool = True,
                  slack: float = 1.3, partition_seed: int = 0,
                  min_bucket_edges: int = 64, cap_ladder: bool = True,
@@ -242,11 +259,23 @@ class EulerSolver:
                  registry: Optional[obs.Registry] = None,
                  trace: Optional[obs.TraceLog] = None,
                  timed_probe: bool = False):
-        require_deferred_transfer(deferred_transfer)
+        if backend not in ("device", "host"):
+            raise ValueError(f"backend must be 'device' or 'host': {backend}")
+        self.backend = backend
+        if backend == "host":
+            if device is not None:
+                raise ValueError(
+                    f"backend='host' runs on no device; got device={device!r}")
+            self.device = None
+        else:
+            require_deferred_transfer(deferred_transfer)
+            self.device = resolve_device(device)
+        if n_parts is None:
+            n_parts = 4 if backend == "host" else 1
         self.n_parts = int(n_parts)
-        self.device = resolve_device(device)
         self.fused = bool(fused)
         self.remote_dedup = bool(remote_dedup)
+        self.deferred_transfer = bool(deferred_transfer)
         self.slack = slack
         self.partition_seed = partition_seed
         self.min_bucket_edges = min_bucket_edges
@@ -493,7 +522,19 @@ class EulerSolver:
 
         and ``total_s``.  Under ``gather_circuit=False`` the host emission
         that follows the fetch is ``host_emit_s``.
+
+        On the host backend (``fused`` must be None) the result has
+        ``backend="host"``, the engine's ``LevelStats`` (boundary counts,
+        ``phase1_cost``, ``comm_longs`` and all), no bucket padding, and
+        ``timings`` ``run_s`` and ``total_s``.
         """
+        if self.backend == "host":
+            if fused is not None:
+                raise ValueError(
+                    "fused= is a device-backend execution mode; the host "
+                    "backend has no fused/eager distinction")
+            return self._solve_host(graph, part_of_vertex,
+                                    time.perf_counter())
         fused = self.fused if fused is None else bool(fused)
         if fused:
             return self.solve_async(graph, part_of_vertex).result()
@@ -516,7 +557,10 @@ class EulerSolver:
         session lock (a ``stage`` span); the launch runs outside it (a
         ``launch`` span): a replay is only enqueued, a miss warms up and
         records first.  So the host can prepare the next graph while the
-        card runs this one."""
+        card runs this one.  Device backend only."""
+        if self.backend != "device":
+            raise ValueError("solve_async is a device-backend path; the "
+                             "host engine runs synchronously via solve()")
         t0 = time.perf_counter()
         with self._lock:
             pg, tree, key = self._prepare(graph, part_of_vertex)
@@ -560,10 +604,14 @@ class EulerSolver:
         after; it holds B times the bucket's tables.  An empty list
         returns ``[]``; one graph goes through :meth:`solve` (no program
         of its own).  Fused mode only: the eager oracle solves one graph
-        at a time."""
+        at a time.  Device backend only."""
         graphs = list(graphs)
         if not graphs:
             return []
+        if self.backend != "device":
+            raise ValueError(
+                "solve_batch is a device-backend path (the host reference "
+                "engine solves one graph at a time); use solve_many")
         fused = self.fused if fused is None else bool(fused)
         if not fused:
             raise ValueError(
@@ -584,6 +632,8 @@ class EulerSolver:
         graphs = list(graphs)
         if not graphs:
             raise ValueError("empty batch")
+        if self.backend != "device":
+            raise ValueError("solve_batch_async is a device-backend path")
         if len(graphs) == 1:
             return self.solve_async(graphs[0])
         t0 = time.perf_counter()
@@ -676,9 +726,10 @@ class EulerSolver:
         one program launch a chunk; a group's leftover graphs run one at
         a time on the bucket's one-graph program rather than recording a
         one-off width (DESIGN.md §8).  Results come back in input order,
-        byte-identical to the sequential path."""
+        byte-identical to the sequential path.  The host backend ignores
+        ``batch`` (it has no programs to share)."""
         graphs = list(graphs)
-        if batch is None or batch <= 1:
+        if batch is None or batch <= 1 or self.backend == "host":
             return [self.solve(g, fused=fused) for g in graphs]
         by_bucket: dict = {}
         for i, g in enumerate(graphs):
@@ -696,6 +747,23 @@ class EulerSolver:
                 for i, res in zip(chunk, solved):
                     out[i] = res
         return out
+
+    def _solve_host(self, graph: Graph,
+                    part_of_vertex: Optional[np.ndarray],
+                    t0: float) -> EulerResult:
+        """The reference's host solve: the session's partitioner, then
+        :class:`~repro_torch.core.host_engine.HostEngine` in a
+        ``solve_host`` span.  No session state changes."""
+        from ..core.host_engine import HostEngine
+
+        part = self._partition(graph, part_of_vertex)
+        pg = partition_graph(graph, part)
+        eng = HostEngine(pg, remote_dedup=self.remote_dedup,
+                         deferred_transfer=self.deferred_transfer)
+        with self.trace.span("solve_host", edges=graph.num_edges):
+            res = eng._run()
+        res.timings["total_s"] = time.perf_counter() - t0
+        return res
 
     # ------------------------------------------------------------------
     def _result(self, graph: Graph, tree: MergeTree, key: BucketKey,

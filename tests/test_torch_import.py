@@ -78,6 +78,28 @@ assert not bad, bad
     assert r.returncode == 0, r.stdout + r.stderr
 
 
+def test_host_engine_imports_and_solves_with_jax_blocked():
+    """The host backend stands alone: ``repro_torch.core.host_engine``
+    imported first in a fresh process with JAX blocked, then a host solve
+    through the facade."""
+    code = f"""
+import importlib, sys
+sys.modules["jax"] = None
+sys.path[:0] = [{str(Path(REPO) / "src")!r}]
+importlib.import_module("repro_torch.core.host_engine")
+from repro_torch.euler import solve
+from repro_torch.graphgen.eulerize import eulerian_rmat
+res = solve(eulerian_rmat(6, avg_degree=4, seed=0), backend="host")
+assert res.validate().valid and res.backend == "host"
+bad = sorted(m for m in sys.modules if m == "repro" or m.startswith("repro."))
+assert not bad, bad
+"""
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    r = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                       text=True, env=env, timeout=300)
+    assert r.returncode == 0, r.stdout + r.stderr
+
+
 def _imported_roots(path: Path):
     for node in ast.walk(ast.parse(path.read_text(), str(path))):
         if isinstance(node, ast.Import):

@@ -2,10 +2,11 @@
 ``repro/obs``) against the JAX package's: the same operations under a
 fake clock give the same Prometheus text and the same snapshot, and the
 solver sessions of both packages emit the same spans, in the same tree,
-for a fused and an eager solve, and count the same ``CacheStats`` over
-one sequence of solves.  ``repro.obs`` is stdlib only, so the parity
+for a fused, an eager and a host solve, and count the same
+``CacheStats`` over one sequence of solves.  ``repro.obs`` is stdlib only, so the parity
 cases run in this process; the solves' reference runs on one simulated
 device here."""
+import dataclasses
 import json
 import threading
 import urllib.error
@@ -345,3 +346,38 @@ def test_batch_spans_and_counts_match_reference():
         assert mine.circuit.tolist() == ref.circuit.tolist()
     names = [t[0] for t in ours[0][1]]
     assert names.count("upload") == 1 and names.count("retrace") == 1
+
+
+def _host_session(EulerSolver, graphs, log, reg):
+    """Host-backend solves (the backend's default ``n_parts``, 4): each
+    solve's span tree and attributes, and the session's counters, which a
+    host solve leaves untouched."""
+    solver = EulerSolver(backend="host", registry=reg, trace=log)
+    out = []
+    for g in graphs:
+        log.clear()
+        res = solver.solve(g).validate()
+        out.append((_tree(log), [s.get("attrs") for s in log.spans()],
+                    res.cache, solver.cache_stats))
+    return out
+
+
+def test_host_spans_match_reference():
+    """``backend="host"`` on both packages: one ``solve_host`` span with
+    the graph's edge count a solve, no other span, no cache counter
+    moved, and the result's ``cache`` the empty ``CacheStats``."""
+    from repro.euler import EulerSolver as JSolver
+    from repro.graphgen.eulerize import eulerian_rmat as j_eulerian_rmat
+
+    ours = _host_session(
+        EulerSolver, [eulerian_rmat(s, avg_degree=4, seed=s)
+                      for s in (5, 6)],
+        t_obs.TraceLog(), t_obs.Registry())
+    theirs = _host_session(
+        JSolver, [j_eulerian_rmat(s, avg_degree=4, seed=s) for s in (5, 6)],
+        j_obs.TraceLog(), j_obs.Registry())
+    assert [o[:2] for o in ours] == [t[:2] for t in theirs]
+    assert [dataclasses.asdict(c) for o in ours for c in o[2:]] == \
+        [dataclasses.asdict(c) for t in theirs for c in t[2:]]
+    assert ours[0][0] == [("solve_host", None, ["edges"])]
+    assert ours[0][2] == ours[0][3] == type(ours[0][2])()
