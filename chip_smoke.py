@@ -167,6 +167,39 @@ exits non-zero:
                 ``warmup_s``, ``capture_s`` and ``run_s``, and each
                 engine's per-level ``cumulative`` beside the
                 ``nvidia-smi`` line;
+  5g. serve   — the Euler serving loop (``launch/serve.py::main_euler``,
+                its ``MicroBatcher`` and the solver's width ladder),
+                called in-process as the reference documents its
+                deployment: Eulerian RMAT scale 9, P = 8, ``--same-bucket
+                --pool 8 --max-batch 8 --widths 1,2,4,8 --deadline-ms 10
+                --requests 256``; (a) with ``--sync-prewarm`` (the ladder
+                recorded before serving), (b) with ``--sync --no-prewarm``
+                (the synchronous loop without the ladder), (c) with the
+                prewarm thread detached, so the ladder records behind live
+                traffic while each recording holds the card gate alone
+                (the thread is joined after the run).  Each run prints
+                circuits/s, p50/p95 ms, the flush-width histogram, the
+                mean flush, recordings, hits, misses, evictions, prewarms
+                and state uploads (and (c) the first wide flush's second
+                and the dispatches before it) beside the ``nvidia-smi``
+                line; every delivered result is validated, each of the 256
+                requests is delivered once, and 8 of them, spread over the
+                run, must be byte-equal (circuit and mate) to ``fused=False``
+                solves of the same graphs in a new session.  (d) The byte
+                budget: Eulerian RMAT scales 15 and 16 (the main scale
+                less five and four; average degree 5, seed 0), P = 8; each
+                program's ``reserved_bytes`` measured alone in a session
+                of one program, then a session with
+                ``program_cache_bytes`` at 1.25 times the larger solves
+                them in turns six times: every solve must record (the
+                other bucket's program evicted), ``cache_bytes_used()``
+                stay within the budget after each true-up, and every
+                recording whose cost was predicted (both buckets measured
+                in the session) must keep ``max_memory_reserved()`` below
+                the two programs' bytes together — the eviction came
+                before the recording; prints each solve's prediction,
+                charge, peak and evictions; one result a bucket is held
+                byte-equal to an eager solve in a new session;
   6. k5       — the sorted segment sum against its twin (f32 tolerance
                 1e-5, half types 2e-2, atol ×8) at the GNN aggregation
                 shapes full_graph_sm and ogb_products (seeded sorted ids)
@@ -237,6 +270,8 @@ import re
 import subprocess
 import sys
 import math
+import tempfile
+import threading
 import time
 from pathlib import Path
 from unittest import mock
@@ -264,6 +299,7 @@ from repro_torch.kernels import flash_attention as fa  # noqa: E402
 from repro_torch.kernels import graph_loop  # noqa: E402
 from repro_torch.kernels import pointer_double as pd  # noqa: E402
 from repro_torch.kernels import segment_reduce as sr  # noqa: E402
+from repro_torch.launch import serve  # noqa: E402
 from repro_torch.launch.serve import LMPrograms, serve_lm  # noqa: E402
 from repro_torch.models import transformer as tr  # noqa: E402
 from repro_torch.models.layers import gqa_attention  # noqa: E402
@@ -1582,6 +1618,152 @@ def check_host(scale: int, smi: str) -> None:
     torch.cuda.empty_cache()
 
 
+#: phase 5g: the reference's documented serving deployment
+#: (``src/repro/launch/serve.py``'s docstring and defaults), and its runs
+SERVE_ARGS = ["--scale", "9", "--parts", str(PARTS), "--same-bucket",
+              "--pool", "8", "--max-batch", "8", "--widths", "1,2,4,8",
+              "--deadline-ms", "10"]
+SERVE_REQUESTS = 256
+SERVE_RUNS = {"a_ladder": ["--sync-prewarm"],
+              "b_sync": ["--sync", "--no-prewarm"],
+              "c_detached": []}
+#: results of each run held byte-equal to eager solves
+SERVE_SAMPLES = 8
+
+
+def eager_twins(results, device="cuda") -> bool:
+    """Whether each result's circuit and mate equal a ``fused=False``
+    solve of its graph in a new session."""
+    solver = EulerSolver(n_parts=PARTS, fused=False, device=device)
+    same = all(same_bytes(r, solver.solve(r.graph).validate())
+               for r in results)
+    del solver
+    return same
+
+
+def serve_run(name: str, extra: list, smi: str, device="cuda") -> dict:
+    """One in-process ``main_euler`` run of phase 5g (module docstring):
+    every delivered result validated as it is harvested, a failure of
+    the prewarm thread caught, the detached thread joined after; returns
+    the run's JSON line."""
+    delivered, errors = [], []
+    harvest = serve.MicroBatcher._harvest_one
+
+    def validated(self):
+        out = harvest(self)
+        for _, r in out:
+            r.validate()
+        delivered.extend(out)
+        return out
+
+    with tempfile.TemporaryDirectory() as tmp, \
+            mock.patch.object(serve.MicroBatcher, "_harvest_one", validated), \
+            mock.patch.object(threading, "excepthook", errors.append):
+        path = Path(tmp) / "serve.json"
+        serve.main_euler(SERVE_ARGS + extra + [
+            "--requests", str(SERVE_REQUESTS), "--json", str(path),
+            "--device", device])
+        for t in threading.enumerate():
+            if t.name == "prewarm":
+                t.join()
+        stats = json.loads(path.read_text().splitlines()[-1])
+    if errors:
+        raise AssertionError(f"[serve] {name}: the prewarm thread failed: "
+                             f"{errors[0].exc_value!r}")
+    seqs = sorted(s for s, _ in delivered)
+    if seqs != list(range(SERVE_REQUESTS)) or \
+            stats["served"] != SERVE_REQUESTS:
+        raise AssertionError(f"[serve] {name}: delivered {len(seqs)} "
+                             f"results, {stats['served']} served, of "
+                             f"{SERVE_REQUESTS}")
+    picks = np.linspace(0, len(delivered) - 1, SERVE_SAMPLES).astype(int)
+    by_seq = dict(delivered)
+    sample = [by_seq[seqs[i]] for i in picks]
+    same = eager_twins(sample, device)
+    keys = ("circuits_per_s", "p50_ms", "p95_ms", "mean_flush", "compiles",
+            "hits", "misses", "evictions", "prewarms", "state_uploads",
+            "cold_s", "prewarm_s", "first_wide_flush_s",
+            "dispatches_before_wide", "pipeline_depth")
+    say("serve", run=name, scale=9, parts=PARTS, served=stats["served"],
+        all_valid=True, sample_byte_equal_eager=same,
+        width_hist=f"'{json.dumps(stats['width_hist'], separators=(',', ':'))}'",
+        **{k: stats[k] for k in keys}, smi=f"'{smi}'")
+    if not same:
+        raise AssertionError(f"[serve] {name}: a served result differs "
+                             f"from its eager solve")
+    if device == "cuda":
+        torch.cuda.empty_cache()
+    return stats
+
+
+def check_serve_budget(scales, smi: str, device="cuda") -> None:
+    """Phase 5g (d), the byte budget (module docstring)."""
+    graphs = [eulerian_rmat(s, avg_degree=AVG_DEGREE, seed=SEED)
+              for s in scales]
+    probe = EulerSolver(n_parts=PARTS, program_cache_max=1, device=device)
+    alone = []
+    for s, g in zip(scales, graphs):
+        key = probe.bucket_of(g)
+        probe.solve(g).validate()
+        alone.append(probe._engines[key].fused_program(key[0]).reserved_bytes)
+        say("serve", run="d_budget", scale=s, parts=PARTS, e_cap=key[0],
+            reserved_bytes_alone=alone[-1])
+    del probe
+    if device == "cuda":
+        torch.cuda.empty_cache()
+    budget = int(1.25 * max(alone))
+    solver = EulerSolver(n_parts=PARTS, program_cache_bytes=budget,
+                         device=device)
+    keys = [solver.bucket_of(g) for g in graphs]
+    kept = {}
+    for turn in range(6):
+        j = turn % 2
+        predicted = solver._program_cost(keys[j], None)
+        both_measured = all((k[0], 1) in solver._measured for k in keys)
+        if device == "cuda":
+            torch.cuda.reset_peak_memory_stats()
+        r = solver.solve(graphs[j]).validate()
+        peak = torch.cuda.max_memory_reserved() if device == "cuda" else 0
+        used = solver.cache_bytes_used()
+        measured = [solver._measured.get((k[0], 1), 0) for k in keys]
+        kept.setdefault(j, r)
+        say("serve", run="d_budget", turn=turn, scale=scales[j],
+            hit=r.cache.hit, predicted_bytes=predicted,
+            charged_bytes=solver._program_bytes.get((keys[j], None)),
+            used_bytes=used, budget_bytes=budget,
+            evictions=solver.cache_stats.evictions,
+            peak_reserved_bytes=peak, both_measured=both_measured,
+            two_programs_bytes=sum(measured), smi=f"'{smi}'")
+        if r.cache.hit:
+            raise AssertionError("[serve] d_budget: a solve hit; the other "
+                                 "bucket's recording should have evicted it")
+        if used > budget:
+            raise AssertionError(f"[serve] d_budget: {used} bytes charged "
+                                 f"over the budget of {budget}")
+        if both_measured and device == "cuda" and peak >= sum(measured):
+            raise AssertionError(
+                f"[serve] d_budget: recording {turn} peaked at {peak} "
+                f"reserved bytes, not below the two programs' "
+                f"{sum(measured)}: the eviction did not come first")
+    same = eager_twins([kept[0], kept[1]], device)
+    say("serve", run="d_budget", evictions=solver.cache_stats.evictions,
+        sample_byte_equal_eager=same)
+    if solver.cache_stats.evictions == 0 or not same:
+        raise AssertionError("[serve] d_budget: no eviction, or a result "
+                             "differs from its eager solve")
+    del solver, kept, r
+    if device == "cuda":
+        torch.cuda.empty_cache()
+
+
+def check_serve(main_scale: int, smi: str, device="cuda") -> dict:
+    """Phase 5g (module docstring); returns each run's JSON line."""
+    runs = {name: serve_run(name, extra, smi, device)
+            for name, extra in SERVE_RUNS.items()}
+    check_serve_budget((main_scale - 5, main_scale - 4), smi, device)
+    return runs
+
+
 def k5_ids(n: int, s: int, skewed: bool, gen, dev) -> torch.Tensor:
     """Sorted int32 segment ids of ``n`` rows over ``s`` segments: uniform
     draws, or ``floor(s · u²)`` for uniform ``u`` (skewed: segment j gets
@@ -2319,6 +2501,9 @@ def main(argv=None) -> int:
 
     # ---- 5f. the reference's host engine beside the device solve ----
     check_host(args.scale - 4, smi)
+
+    # ---- 5g. the Euler serving loop and the program byte budget ----
+    check_serve(args.scale, smi)
 
     # ---- 6–7. K5 and K6 against their twins, timed ----
     table["segment_sum_sorted"] = check_k5(dev)

@@ -10,13 +10,17 @@ every result carries its :class:`CacheStats`.  ``solve_async`` returns a
 :class:`PendingSolve` (over the engine's :class:`PendingRun`) without
 waiting for the card, so the host can prepare the next graph meanwhile.
 ``solve_batch`` (``EulerSolver.solve_batch``, ``solve_batch_async``,
-``solve_many(batch=B)``) runs B same-bucket graphs as one program.
+``solve_many(batch=B)``) runs B same-bucket graphs as one program;
+``EulerSolver.prewarm`` records a bucket's width ladder ahead of traffic,
+and :func:`modal_bucket_pool` picks a serving pool of one bucket.
 """
 from ..core.engine import PendingRun
+from .autotune import FlushLog
+from .bucket import modal_bucket_pool
 from .result import CacheStats, EulerResult
 from .solver import (EulerSolver, PendingSolve, resolve_device, solve,
                      solve_batch, solve_many)
 
 __all__ = ["solve", "solve_many", "solve_batch", "EulerSolver",
            "EulerResult", "CacheStats", "PendingSolve", "PendingRun",
-           "resolve_device"]
+           "resolve_device", "modal_bucket_pool", "FlushLog"]

@@ -11,10 +11,11 @@ A graph is padded into the smallest bucket that fits it:
   · the scan length rounds up to a power of two (:func:`ladder_levels`);
     the extra supersteps are no-ops.
 
-The port keys nothing on the bucket yet (it compiles no programs), but it
-pads and sizes exactly as the reference does, so both packages run the
-same tables and return the same circuits.  The autotuner's tight profile
-and the serving pool helper are not ported.
+The port keys its recorded CUDA graphs on the bucket, and pads and
+sizes exactly as the reference does, so both packages run the same
+tables and return the same circuits.  :func:`modal_bucket_pool` picks
+the serving pool of one bucket.  The autotuner's tight profile is not
+ported (ROADMAP queue 1 item 6b).
 """
 from __future__ import annotations
 
@@ -195,6 +196,27 @@ def pad_graph(graph: Graph, part_of_vertex: np.ndarray,
         np.full(n_new, int(part_of_vertex[anchor]), dtype=np.int64),
     ])
     return g2, part2
+
+
+def modal_bucket_pool(solver, graphs, n: int) -> list:
+    """The ≤ ``n`` graphs sharing the most common shape bucket.
+
+    Batched solving (DESIGN.md §8) needs same-bucket graphs; this groups
+    candidates by ``solver.bucket_of`` — skipping graphs too small or
+    sparse for the solver's partition count — and returns the modal
+    bucket's members in input order (may hold fewer than ``n``; empty if
+    no candidate partitions cleanly).  Used by the serving loop's
+    ``--same-bucket`` pool.
+    """
+    buckets: dict = {}
+    for g in graphs:
+        try:
+            buckets.setdefault(solver.bucket_of(g), []).append(g)
+        except ValueError:
+            continue  # partitioner can't fill n_parts for this graph
+    if not buckets:
+        return []
+    return max(buckets.values(), key=len)[:n]
 
 
 def strip_circuit(circuit: np.ndarray, num_edges: int) -> np.ndarray:

@@ -19,7 +19,15 @@ A solver is a persistent session, as the reference's is:
   * a counted LRU of programs per ``(bucket, batch)``
     (``program_cache_max``, default 32), where the port's program is the
     bucket's recorded CUDA graph; an eviction frees the graph and its
-    pools before another records;
+    pools before another records.  With ``program_cache_bytes`` it is
+    also held to a byte budget: a miss is charged a predicted cost
+    before it records (:meth:`EulerSolver._program_cost`), trued up to
+    the recording's measured reserved pool after, and pinned programs
+    (:meth:`EulerSolver.pin_program`) are never evicted;
+  * a width ladder (``width_ladder``): :meth:`EulerSolver.prewarm`
+    records a bucket's batched programs ahead of traffic, and
+    :meth:`EulerSolver.warmed_widths` tells the serving loop
+    (``launch/serve.py::MicroBatcher``) which widths it may dispatch;
   * the accounting in :class:`~repro_torch.euler.result.CacheStats` on
     every result and in ``cache_stats``, read through
     :mod:`repro_torch.obs` counters under the reference's family names
@@ -56,10 +64,11 @@ card it raises instead of falling back.  ``backend="host"`` runs the
 reference's exact host BSP engine instead
 (:class:`~repro_torch.core.host_engine.HostEngine`: numpy and scipy, the
 paper's Int64 memory-state accounting and both §5 heuristics, one graph
-at a time, no device).  Not ported yet (ROADMAP queue 1): the width
-ladder, ``prewarm``, the autotuner, the byte budget and pins (item 6), a
-multi-device mesh (item 9) and, on the device backend, the
-``deferred_transfer=False`` baseline (raises; queue 3).
+at a time, no device).  Not ported yet (ROADMAP queue 1): the
+autotuner's half of the session (``prewarm_async``, the compile
+service, ``tighten``/``rekey``; item 6b), a multi-device mesh (item 9)
+and, on the device backend, the ``deferred_transfer=False`` baseline
+(raises; queue 3).
 
     >>> from repro_torch.euler import solve                 # doctest: +SKIP
     >>> res = solve(graph, n_parts=8).validate()            # doctest: +SKIP
@@ -72,7 +81,7 @@ import itertools
 import threading
 import time
 from collections import OrderedDict
-from typing import Iterable, List, Optional, Tuple
+from typing import Iterable, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -226,9 +235,18 @@ class EulerSolver:
                         the fixed 12/64.
     ladder_waste_cap:   buckets whose quantized/exact table area exceeds
                         this keep plain ``round_caps`` keying.
+    width_ladder:       batch widths :meth:`prewarm` records by default
+                        (stored sorted, without repeats).
     program_cache_max:  count cap of the ``(bucket, B)`` program LRU; an
                         eviction frees the recorded graph and its pools
                         and counts in ``cache_stats.evictions``.
+    program_cache_bytes: byte budget of the same LRU (None: count cap
+                        only).  A program costs its recording's reserved
+                        pool (``FusedRun.reserved_bytes``); a miss is
+                        charged a prediction from this session's
+                        recordings before it records and trued up after,
+                        each followed by LRU-first eviction that spares
+                        pinned programs and the one being charged.
     device_resident:    keep each prepared graph's uploaded initial state
                         on the device, so repeat solves upload nothing;
                         off = a fresh upload a fused solve.
@@ -252,7 +270,10 @@ class EulerSolver:
                  slack: float = 1.3, partition_seed: int = 0,
                  min_bucket_edges: int = 64, cap_ladder: bool = True,
                  level_ladder: bool = True, straggler_cap: bool = True,
-                 ladder_waste_cap: float = 4.0, program_cache_max: int = 32,
+                 ladder_waste_cap: float = 4.0,
+                 width_ladder: Sequence[int] = (1, 2, 4),
+                 program_cache_max: int = 32,
+                 program_cache_bytes: Optional[int] = None,
                  device_resident: bool = True,
                  sharded_phase3: Optional[bool] = None,
                  gather_circuit: bool = True,
@@ -283,7 +304,10 @@ class EulerSolver:
         self.level_ladder = level_ladder
         self.straggler_cap = straggler_cap
         self.ladder_waste_cap = float(ladder_waste_cap)
+        self.width_ladder = tuple(sorted({int(w) for w in width_ladder}))
         self.program_cache_max = int(program_cache_max)
+        self.program_cache_bytes = (None if program_cache_bytes is None
+                                    else int(program_cache_bytes))
         self.device_resident = bool(device_resident)
         if sharded_phase3 is None:
             sharded_phase3 = self.n_parts > 1
@@ -307,6 +331,14 @@ class EulerSolver:
         self._prep_cache_max = 64
         # measured quantized/exact table-area ratio per bucket key
         self.bucket_waste: dict = {}
+        # the byte budget's books: the bytes charged to each live
+        # (bucket, B) program and their total, the pinned programs, and
+        # the reserved bytes measured per (e_cap, B) this session, from
+        # which a miss's cost is predicted before it records
+        self._program_bytes: dict = {}
+        self._bytes_total = 0
+        self._pinned: set = set()
+        self._measured: dict = {}
         reg = registry if registry is not None else obs.default_registry()
         self.registry = reg
         self.trace = trace if trace is not None else obs.default_tracelog()
@@ -330,8 +362,9 @@ class EulerSolver:
             "euler_state_uploads", "host->device initial-state transfers"
         ).labels(**lab)
         self._g_bytes = reg.gauge(
-            "euler_cache_bytes", "reserved bytes of live recorded programs"
-        ).labels(**lab)
+            "euler_cache_bytes",
+            "bytes charged to live programs (reserved pools, predicted "
+            "until recorded)").labels(**lab)
         self._h_compile = reg.histogram(
             "euler_compile_seconds",
             "cold (bucket, B) program warm-up+recording seconds",
@@ -444,39 +477,84 @@ class EulerSolver:
                 self._engines[key] = eng
             return eng
 
-    def _refresh_bytes(self) -> None:
-        """``euler_cache_bytes``: the reserved bytes of the live runs."""
+    def _program_cost(self, key: BucketKey, batch: Optional[int]) -> int:
+        """Predicted bytes of the ``(bucket, B)`` program about to record:
+        the reserved bytes measured this session for the same ``(e_cap,
+        B)``, else those of the same ``e_cap`` at the nearest other width
+        scaled by B over that width, else 0 (the reference's seam for its
+        static cost model; nothing is measured on the CPU)."""
+        e_cap, width = key[0], batch or 1
         with self._lock:
-            self._g_bytes.set(sum(eng.reserved_bytes()
-                                  for eng in self._engines.values()))
+            if (e_cap, width) in self._measured:
+                return self._measured[(e_cap, width)]
+            seen = [w for (e, w) in self._measured if e == e_cap]
+            if not seen:
+                return 0
+            near = min(seen, key=lambda w: (abs(w - width), -w))
+            return self._measured[(e_cap, near)] * width // near
+
+    def _charge(self, pkey, nbytes: int) -> None:
+        """Set the bytes charged to a live program, and the total."""
+        with self._lock:
+            self._bytes_total += nbytes - self._program_bytes.get(pkey, 0)
+            self._program_bytes[pkey] = nbytes
+            self._g_bytes.set(self._bytes_total)
+
+    def _true_up(self, key: BucketKey, batch: Optional[int],
+                 nbytes: int) -> None:
+        """After a recording: keep its measured reserved bytes for later
+        predictions, charge them in place of the prediction if the
+        program is still live, and evict to the budget again, the new
+        program exempt."""
+        pkey = (key, batch)
+        with self._lock:
+            self._measured[(key[0], batch or 1)] = int(nbytes)
+            if pkey in self._programs:
+                self._charge(pkey, int(nbytes))
+                self._evict_to_budget(keep=pkey)
 
     def _evict_entry(self, pkey) -> None:
-        """Drop one ``(bucket, B)`` program: its LRU entry and the
-        engine's recorded graph, whose pools go back to the card."""
+        """Drop one ``(bucket, B)`` program: its LRU entry, its charged
+        bytes, its pin and the engine's recorded graph, whose pools go
+        back to the card."""
         with self._lock:
             self._programs.pop(pkey, None)
+            self._bytes_total -= self._program_bytes.pop(pkey, 0)
+            self._pinned.discard(pkey)
             k_old, b_old = pkey
             old_eng = self._engines.get(k_old)
             if old_eng is not None:
                 old_eng.evict_program(k_old[0], b_old)
             self._c_evictions.inc()
-            self._refresh_bytes()
+            self._g_bytes.set(self._bytes_total)
 
     def _evict_to_budget(self, keep=None) -> None:
-        """Evict least recently used programs until the count cap holds;
-        ``keep`` is exempt."""
+        """Evict least recently used programs until the count cap and
+        (when set) the byte budget hold; pinned programs and ``keep``
+        are exempt."""
         with self._lock:
+            def victims():
+                return [p for p in self._programs
+                        if p != keep and p not in self._pinned]
+
             while len(self._programs) > self.program_cache_max:
-                victims = [p for p in self._programs if p != keep]
-                if not victims:
+                vs = victims()
+                if not vs:
                     break
-                self._evict_entry(victims[0])
+                self._evict_entry(vs[0])
+            if self.program_cache_bytes is not None:
+                while self._bytes_total > self.program_cache_bytes:
+                    vs = victims()
+                    if not vs:
+                        break
+                    self._evict_entry(vs[0])
 
     def _account(self, key: BucketKey, batch: Optional[int]) -> bool:
         """Record a solve against the ``(bucket, B)`` program LRU; returns
-        whether the program was live (a hit).  A miss that overflows
-        ``program_cache_max`` evicts first, so the old graph's pools are
-        freed before the new one records."""
+        whether the program was live (a hit).  A miss is charged its
+        predicted cost (:meth:`_program_cost`) and evicts until the count
+        cap and the byte budget hold, so the old graphs' pools are freed
+        before the new one records."""
         with self._lock:
             pkey = (key, batch)
             hit = pkey in self._programs
@@ -486,8 +564,90 @@ class EulerSolver:
             else:
                 self._c_misses.inc()
                 self._programs[pkey] = True
+                self._charge(pkey, self._program_cost(key, batch))
                 self._evict_to_budget(keep=pkey)
             return hit
+
+    # ------------------------------------------------------------------
+    # the width ladder: batched programs recorded ahead of traffic
+    # ------------------------------------------------------------------
+    def warmed_widths(self, key: BucketKey) -> List[int]:
+        """Batch widths with a live program for this bucket (1 = the
+        one-graph program).  The serving loop's micro-batcher splits a
+        partial flush over exactly these, so it never records inline."""
+        with self._lock:
+            return sorted({1 if b is None else b
+                           for (k, b) in self._programs if k == key})
+
+    def prewarm(self, graph: Graph,
+                widths: Optional[Sequence[int]] = None) -> List[int]:
+        """Record the bucket's programs for ``widths`` (default: the
+        session's ``width_ladder``) ahead of arrivals, by solving
+        ``graph`` through the normal path: width 1 by :meth:`solve`, a
+        wider one by :meth:`solve_batch` of ``graph`` repeated (one prep,
+        one table build).  One ``prewarm`` span a width newly recorded,
+        each counted in ``cache_stats.prewarms``; already-live widths are
+        skipped.  Returns the widths recorded here.  Runs on a background
+        thread beside serving: a recording holds the card gate alone
+        (``capture.CARD``), so the serving thread's CUDA work waits for
+        it."""
+        widths = self.width_ladder if widths is None else widths
+        key = self.bucket_of(graph)
+        recorded: List[int] = []
+        for w in sorted({max(1, int(w)) for w in widths}):
+            with self._lock:
+                if (key, None if w == 1 else w) in self._programs:
+                    continue
+            with self.trace.span("prewarm", bucket=key[0], width=w):
+                if w == 1:
+                    self.solve(graph)
+                else:
+                    self.solve_batch([graph] * w)
+            self._c_prewarms.inc()
+            recorded.append(w)
+        return recorded
+
+    # ------------------------------------------------------------------
+    # the byte budget: usage, pins, explicit drops
+    # ------------------------------------------------------------------
+    def cache_bytes_used(self) -> int:
+        """Bytes charged to the live programs."""
+        with self._lock:
+            return self._bytes_total
+
+    def pin_program(self, key: BucketKey, width: int) -> bool:
+        """Keep a live ``(bucket, width)`` program from LRU and byte
+        eviction; False if no such program is live."""
+        pkey = (key, None if int(width) <= 1 else int(width))
+        with self._lock:
+            if pkey not in self._programs:
+                return False
+            self._pinned.add(pkey)
+            return True
+
+    def unpin_program(self, key: BucketKey, width: int) -> bool:
+        """Release a pin; returns whether it was pinned."""
+        pkey = (key, None if int(width) <= 1 else int(width))
+        with self._lock:
+            was = pkey in self._pinned
+            self._pinned.discard(pkey)
+            return was
+
+    def pinned_programs(self) -> List[Tuple[BucketKey, int]]:
+        """Live pinned programs as ``(bucket, width)`` pairs."""
+        with self._lock:
+            return sorted(((k, 1 if b is None else b)
+                           for (k, b) in self._pinned), key=str)
+
+    def drop_program(self, key: BucketKey, width: int) -> bool:
+        """Evict one ``(bucket, width)`` program now; a pinned or absent
+        one is left alone (returns False)."""
+        pkey = (key, None if int(width) <= 1 else int(width))
+        with self._lock:
+            if pkey not in self._programs or pkey in self._pinned:
+                return False
+            self._evict_entry(pkey)
+            return True
 
     # ------------------------------------------------------------------
     def solve(self, graph: Graph,
@@ -579,14 +739,15 @@ class EulerSolver:
                 hit: bool) -> PendingRun:
         """Launch a staged run outside the session lock (a ``launch``
         span): a replay is only enqueued, a miss warms up and records
-        first, and is counted."""
+        first, is counted, and has its charge trued up to the bytes the
+        recording reserved (:meth:`_true_up`)."""
         with self.trace.span("launch", bucket=key[0], width=run.batch or 1,
                              hit=hit):
             pending = run.launch(*staged)
         if pending.recorded:
             with self._lock:
                 self.captures += 1
-            self._refresh_bytes()
+            self._true_up(key, run.batch, run.reserved_bytes)
         if not hit:
             marks = pending.marks
             self._h_compile.observe(marks["warmup_s"] + marks["capture_s"])

@@ -1,43 +1,245 @@
 """Request-serving drivers (mirrors ``repro/launch/serve.py``).
 
+Default workload — the paper's own architecture behind the public facade
+(:func:`main_euler`): an arrival-driven loop feeding a stream of
+generated graphs through ONE persistent
+:class:`repro_torch.euler.EulerSolver` session, scheduled by a
+micro-batcher (:class:`MicroBatcher`): requests accumulate per bucket
+and flush when a bucket reaches ``--max-batch`` or its oldest request
+has waited ``--deadline-ms``.  Flushes dispatch asynchronously
+(``solve_batch_async``/``solve_async``) through a ``--pipeline-depth``
+window, so the host's prep and batching of the next flush overlap the
+card's replay of this one; a partial flush is split over the batch
+widths already recorded (the solver's width ladder, recorded by
+``prewarm``) instead of falling back to one graph at a time.  After
+warm-up every flush replays a recorded ``(bucket, B)`` CUDA graph and,
+for pooled graphs, uploads nothing.  Reports circuits/s, p50/p95
+latency and the session's cache stats; ``--sync --no-prewarm`` is the
+synchronous loop without the ladder.
+
+    PYTHONPATH=src python -m repro_torch.launch.serve --scale 9 --parts 8 \\
+        --same-bucket --pool 8 --requests 256 [--device cpu]
+
+It runs on ``cuda`` unless given ``--device cpu`` and raises when there
+is no card.  The width ladder is recorded on a background thread: on
+the CPU (or under ``--sync-prewarm``) the loop waits for it, on the card
+it serves meanwhile, though a recording holds the card alone
+(``core/capture.py::CARD``), so dispatches wait for each one.
+``--adaptive`` (the reference's autotuner) is not ported yet (ROADMAP
+queue 1 item 6b).
+
 The LM prefill + KV-cache decode driver (the reference's ``main_lm``) is
-ported; its body is :func:`serve_lm`, which callers can drive with any
-config, prompts and weights:
+behind ``--workload lm``; its body is :func:`serve_lm`, which callers
+can drive with any config, prompts and weights:
 
     PYTHONPATH=src python -m repro_torch.launch.serve --workload lm \\
         --arch smollm-360m --batch 4 --prompt-len 64 --gen 32 [--device cpu]
 
-Like the reference, the CLI serves the reduced config with seeded random
-weights.  It runs on ``cuda`` unless given ``--device cpu`` and raises
-when there is no card.
-
-Two execution modes, as for the Euler solver.  ``fused=True`` (the
-default) is the reference's: ``main_lm`` jits the prefill and the decode
-step (the decode donating its cache); here each becomes one CUDA graph
-(:class:`LMPrograms`), recorded once per serving shape after one eager
-warm-up and replayed, in place over static buffers.  ``fused=False`` is
-the eager oracle: every op launched from Python.  Both give the same
-bits.  The Euler workload (the reference's default, ``main_euler`` with
-its ``MicroBatcher``) is not ported yet (ROADMAP queue 1 item 6).
+Like the reference, that CLI serves the reduced config with seeded
+random weights.  Two execution modes, as for the Euler solver.
+``fused=True`` (the default) is the reference's: ``main_lm`` jits the
+prefill and the decode step (the decode donating its cache); here each
+becomes one CUDA graph (:class:`LMPrograms`), recorded once per serving
+shape after one eager warm-up and replayed, in place over static
+buffers.  ``fused=False`` is the eager oracle: every op launched from
+Python.  Both give the same bits.
 """
 from __future__ import annotations
 
 import argparse
 import dataclasses
+import json
 import sys
+import threading
+import time
+from collections import deque
 from typing import Dict, Optional, Tuple
 
 import numpy as np
 import torch
 
+from .. import obs
 from ..configs.registry import get_config
 from ..core import capture
 from ..core.engine import drained_clock
-from ..euler.solver import resolve_device
+from ..euler.autotune import FlushLog
+from ..euler.bucket import modal_bucket_pool
+from ..euler.solver import EulerSolver, resolve_device
+from ..graphgen.eulerize import eulerian_rmat
 from ..kernels import ops
 from ..models.transformer import (LMConfig, Params, decode_step,
                                   init_kv_cache, init_lm_params,
                                   prefill_step)
+
+
+class MicroBatcher:
+    """Bucket-keyed micro-batching scheduler over an ``EulerSolver``.
+
+    ``submit(seq, graph)`` queues one request; ``poll()`` flushes buckets
+    whose oldest request passed ``deadline_s``; ``drain()`` flushes and
+    completes everything at shutdown.  All three return completed
+    ``(seq, EulerResult)`` pairs (each pair exactly once, seq-sorted
+    within a call).
+
+    Flushing is asynchronous and width-laddered (DESIGN.md §9):
+
+    - A flush of n requests splits greedily onto the *largest* warmed
+      batch widths ≤ n (``solver.warmed_widths`` ∪ {1}), so a 5-request
+      deadline flush with a warmed {1, 2, 4} ladder runs as one B=4
+      program + one B=1 program instead of five B=1 solves — and never
+      dispatches an unwarmed width, whose warm-up and recording would
+      stall every request behind it (``prewarm`` is the one path that
+      adds widths; an unwarmed bucket serves entirely at B=1).
+    - Each dispatch enters a ``pipeline_depth``-deep in-flight window
+      (``solve_batch_async``/``solve_async``); the card replays while
+      the host preps and batches the next flush.  Overflowing the window
+      blocks on the *oldest* dispatch, so results complete in dispatch
+      order.  ``pipeline_depth=0`` is the synchronous loop.
+
+    Mixed buckets never share a flush — each bucket queue is
+    independent — so no request is padded up to a foreign shape
+    (DESIGN.md §8).
+
+    ``autotuner=`` takes an object with the reference's
+    ``observe_arrival(key, graph)`` and ``observe_flush(key, n)``, fed on
+    every submit and flush; the port has no autotuner yet (ROADMAP queue
+    1 item 6b).
+    """
+
+    def __init__(self, solver, max_batch: int = 8,
+                 deadline_s: float = 0.010, clock=time.perf_counter,
+                 pipeline_depth: int = 2, autotuner=None):
+        if max_batch < 1 or pipeline_depth < 0:
+            raise ValueError(
+                f"need max_batch >= 1 and pipeline_depth >= 0, got "
+                f"{max_batch}, {pipeline_depth}")
+        self.solver = solver
+        self.max_batch = max_batch
+        self.deadline_s = deadline_s
+        self.clock = clock
+        self.pipeline_depth = pipeline_depth
+        self.autotuner = autotuner
+        self.pending: dict = {}     # bucket key → [(seq, graph, t_arrival)]
+        self.inflight: deque = deque()   # (PendingSolve, [seq], [t_arrival])
+        # flush widths, request latencies and queue depth live in the
+        # metrics registry as children labelled by the solver's session,
+        # so one scrape separates concurrent batchers; each flush's split
+        # is also traced as a "flush" span
+        reg = getattr(solver, "registry", None) or obs.default_registry()
+        self.trace = getattr(solver, "trace", None) or obs.default_tracelog()
+        lab = {"session": getattr(solver, "session", "s?")}
+        self.flushes = FlushLog(clock=clock, metric=reg.histogram(
+            "euler_flush_width", "requests per dispatched program",
+            lo_exp=0, hi_exp=8).labels(**lab))
+        # per-request arrival→delivery seconds (bounded log2 histogram)
+        self.latencies = reg.histogram(
+            "euler_latency_seconds", "request arrival→delivery seconds",
+            lo_exp=-14, hi_exp=8).labels(**lab)
+        self._g_depth = reg.gauge(
+            "euler_queue_depth", "requests queued awaiting a flush"
+        ).labels(**lab)
+
+    # -- pipeline ------------------------------------------------------
+    def _harvest_one(self):
+        """Block on the OLDEST in-flight dispatch and deliver it."""
+        pend, seqs, ts = self.inflight.popleft()
+        results = pend.results()
+        now = self.clock()
+        for t in ts:
+            self.latencies.observe(now - t)
+        return list(zip(seqs, results))
+
+    def _harvest(self, block: bool = False):
+        """Deliver completed dispatches, oldest first; ``block=True``
+        waits for all of them (drain), else only already-finished heads
+        are taken (``ready()`` asks the card through the card gate and
+        answers False while a recording holds it)."""
+        out = []
+        while self.inflight and (block or self.inflight[0][0].ready()):
+            out.extend(self._harvest_one())
+        return out
+
+    def _widths_for(self, key, n: int):
+        """Program widths a flush of ``n`` may dispatch at: every warmed
+        width plus B=1 (recorded by the bucket's first solve).  An
+        unwarmed width — the full quota included — is never dispatched
+        from the serving loop: a new batch program's warm-up and
+        recording would stall every in-flight request behind it.
+        ``EulerSolver.prewarm`` is the one path that adds widths."""
+        ws = {w for w in self.solver.warmed_widths(key)
+              if 1 <= w <= self.max_batch}
+        ws.add(1)
+        return sorted(ws, reverse=True)
+
+    def _flush(self, key):
+        reqs = self.pending.pop(key, [])
+        if not reqs:
+            return []
+        if self.autotuner is not None:
+            self.autotuner.observe_flush(key, len(reqs))
+        out = []
+        bucket = key[0] if isinstance(key, tuple) else key
+        widths = []
+        with self.trace.span("flush", bucket=bucket, n=len(reqs)) as sp:
+            i = 0
+            while i < len(reqs):
+                n = len(reqs) - i
+                w = next(x for x in self._widths_for(key, n) if x <= n)
+                chunk = reqs[i:i + w]
+                i += w
+                graphs = [g for _, g, _ in chunk]
+                pend = (self.solver.solve_batch_async(graphs) if w > 1
+                        else self.solver.solve_async(graphs[0]))
+                self.inflight.append((pend, [s for s, _, _ in chunk],
+                                      [t for _, _, t in chunk]))
+                self.flushes.observe(w)
+                widths.append(w)
+                while len(self.inflight) > self.pipeline_depth:
+                    out.extend(self._harvest_one())
+            sp.set(widths=widths)
+        self._g_depth.set(sum(len(q) for q in self.pending.values()))
+        return out
+
+    # -- public interface ----------------------------------------------
+    def submit(self, seq: int, graph):
+        """Queue one request; returns any results completed by the
+        pipeline, plus this bucket's flush if the submission filled it."""
+        key = self.solver.bucket_of(graph)
+        if self.autotuner is not None:
+            self.autotuner.observe_arrival(key, graph)
+        q = self.pending.setdefault(key, [])
+        q.append((seq, graph, self.clock()))
+        self._g_depth.set(sum(len(x) for x in self.pending.values()))
+        out = self._flush(key) if len(q) >= self.max_batch else []
+        out.extend(self._harvest())
+        return sorted(out)
+
+    def poll(self):
+        """Flush every bucket whose oldest request passed the deadline;
+        deliver whatever the pipeline has completed."""
+        now = self.clock()
+        due = [k for k, q in self.pending.items()
+               if q and now - q[0][2] >= self.deadline_s]
+        out = []
+        for k in due:
+            out.extend(self._flush(k))
+        out.extend(self._harvest())
+        return sorted(out)
+
+    def next_deadline(self):
+        """Earliest pending-request deadline (None if nothing pending) —
+        the arrival loop sleeps until this instead of spinning."""
+        ts = [q[0][2] for q in self.pending.values() if q]
+        return min(ts) + self.deadline_s if ts else None
+
+    def drain(self):
+        """Flush all pending requests and complete the pipeline
+        (shutdown); results are seq-sorted — i.e. submit order."""
+        out = []
+        for k in list(self.pending):
+            out.extend(self._flush(k))
+        out.extend(self._harvest(block=True))
+        return sorted(out)
 
 
 @dataclasses.dataclass
@@ -311,17 +513,256 @@ def main_lm(argv=None):
 
 
 def main_euler(argv=None):
-    raise NotImplementedError(
-        "the Euler serving workload (MicroBatcher) is not ported yet "
-        "(ROADMAP queue 1 item 6); use --workload lm")
+    """The Euler-circuit serving loop (the reference's static path; the
+    module docstring).  Returns circuits served a second."""
+    ap = argparse.ArgumentParser(
+        description="Euler-circuit serving loop over the solver facade")
+    ap.add_argument("--scale", type=int, default=9,
+                    help="RMAT scale of the request graphs")
+    ap.add_argument("--avg-degree", type=int, default=5)
+    ap.add_argument("--parts", type=int, default=0,
+                    help="partitions (0 → one per visible card; 1 on cpu)")
+    ap.add_argument("--pool", type=int, default=6,
+                    help="distinct graphs cycled through the request stream")
+    ap.add_argument("--same-bucket", action="store_true",
+                    help="draw the pool from one modal shape bucket so "
+                         "every flush can fill the batch quota (small "
+                         "graphs otherwise fragment across buckets)")
+    ap.add_argument("--requests", type=int, default=0,
+                    help="serve exactly N requests (0 → duration-driven)")
+    ap.add_argument("--duration", type=float, default=10.0,
+                    help="serve for this many seconds after warmup")
+    ap.add_argument("--max-batch", type=int, default=8,
+                    help="micro-batch flush quota per bucket (1 → "
+                         "unbatched request loop)")
+    ap.add_argument("--deadline-ms", type=float, default=10.0,
+                    help="flush a bucket when its oldest request has "
+                         "waited this long")
+    ap.add_argument("--eager", action="store_true",
+                    help="per-level eager supersteps instead of the "
+                         "recorded graph (disables micro-batching)")
+    ap.add_argument("--sync", action="store_true",
+                    help="synchronous dispatch (pipeline depth 0); "
+                         "default is the async pipeline")
+    ap.add_argument("--pipeline-depth", type=int, default=2,
+                    help="in-flight dispatch window of the async batcher")
+    ap.add_argument("--no-ladder", action="store_true",
+                    help="disable cap/level/round bucket quantization "
+                         "(pow2-per-field keying)")
+    ap.add_argument("--widths", default="1,2,4",
+                    help="comma-separated batch widths to pre-warm per "
+                         "hot bucket (max-batch is always added)")
+    ap.add_argument("--no-prewarm", action="store_true",
+                    help="skip the background width-ladder prewarm "
+                         "(partial flushes then run at B=1)")
+    ap.add_argument("--adaptive", action="store_true",
+                    help="the reference's self-tuning warm path; not "
+                         "ported yet (ROADMAP queue 1 item 6b)")
+    ap.add_argument("--sync-prewarm", action="store_true",
+                    help="join the static prewarm thread before serving "
+                         "on any device (default: join on cpu only, "
+                         "detach on the card)")
+    ap.add_argument("--cache-bytes", type=int, default=0,
+                    help="byte budget of the recorded-program LRU, in "
+                         "reserved bytes measured per recording and "
+                         "predicted before one (0 → count-capped only)")
+    ap.add_argument("--arrival-hz", type=float, default=0.0,
+                    help="paced request arrivals per second "
+                         "(0 → closed loop: submit as fast as served)")
+    ap.add_argument("--metrics-port", type=int, default=None,
+                    help="expose the session's metrics registry over HTTP "
+                         "on this port for the run: GET /metrics "
+                         "(Prometheus text) and /metrics.json (snapshot); "
+                         "0 picks an ephemeral port")
+    ap.add_argument("--json", default=None,
+                    help="append a JSON line of serving stats to this file")
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--device", default="cuda",
+                    help="torch device (default: cuda; cpu runs the "
+                         "kernels' plain twins)")
+    args = ap.parse_args(argv)
+    if args.adaptive:
+        raise NotImplementedError(
+            "--adaptive (the autotuner's compile service and ladder "
+            "policy) is not ported yet (ROADMAP queue 1 item 6b)")
+
+    device = resolve_device(args.device)
+    on_card = device.type == "cuda"
+    n_parts = args.parts or (torch.cuda.device_count() if on_card else 1)
+    max_batch = 1 if args.eager else args.max_batch
+    ladder = not args.no_ladder
+    widths = sorted({int(w) for w in args.widths.split(",") if w}
+                    | {max_batch})
+    solver = EulerSolver(n_parts=n_parts, device=device,
+                         fused=not args.eager,
+                         cap_ladder=ladder, level_ladder=ladder,
+                         straggler_cap=ladder,
+                         width_ladder=tuple(widths),
+                         program_cache_bytes=args.cache_bytes or None)
+    metrics_srv = None
+    if args.metrics_port is not None:
+        metrics_srv = obs.MetricsServer(solver.registry,
+                                        port=args.metrics_port,
+                                        trace=solver.trace)
+        print(f"metrics: {metrics_srv.url}/metrics (Prometheus) and "
+              f"{metrics_srv.url}/metrics.json")
+    if args.same_bucket:
+        pool = modal_bucket_pool(
+            solver,
+            (eulerian_rmat(args.scale, avg_degree=args.avg_degree,
+                           seed=args.seed + i) for i in range(args.pool * 8)),
+            args.pool,
+        )
+        if not pool:
+            raise SystemExit(
+                "--same-bucket found no graph that partitions into "
+                f"{n_parts} non-empty parts at scale {args.scale}; use a "
+                f"larger --scale or fewer --parts"
+            )
+    else:
+        pool = [eulerian_rmat(args.scale, avg_degree=args.avg_degree,
+                              seed=args.seed + i) for i in range(args.pool)]
+    mode = "eager" if args.eager else "fused"
+    depth = 0 if (args.sync or args.eager) else args.pipeline_depth
+    print(f"serving {mode} on {n_parts} partitions ({device}); request "
+          f"pool: {len(pool)} graphs, ~{pool[0].num_edges} edges each; "
+          f"micro-batch ≤{max_batch}, deadline {args.deadline_ms}ms, "
+          f"pipeline depth {depth}, widths {widths}")
+
+    # Cold pass: one sequential sweep records each bucket's B=1 program
+    # and measures cold (recording-inclusive) latency.  The width ladder
+    # then records on a background thread; the batcher only ever
+    # dispatches to widths already live, so serving can start at once.
+    rep: dict = {}
+    t0 = time.perf_counter()
+    with solver.trace.span("cold_sweep", pool=len(pool)):
+        warm = solver.solve_many(pool)
+    warm[0].validate()
+    t_cold = time.perf_counter() - t0
+    cold_thr = len(pool) / max(t_cold, 1e-9)
+    for g, r in zip(pool, warm):
+        rep.setdefault(r.cache.bucket, g)
+    t0 = time.perf_counter()
+    if max_batch > 1 and not args.eager and not args.no_prewarm:
+        ladder_widths = [w for w in widths if w > 1]
+        # thread-contract: daemon (never blocks interpreter exit; prewarm
+        # holds no resource of its own, and a recording it leaves behind
+        # is the solver's to free).  Joined before the measured loop on
+        # the CPU (or under --sync-prewarm), where its solves would share
+        # the serving loop's cores; on the card it detaches and the
+        # ladder records behind live traffic, each recording holding the
+        # card gate alone.  The batcher dispatches only widths already
+        # live either way.
+        pw = threading.Thread(
+            target=lambda: [solver.prewarm(g, ladder_widths)
+                            for g in rep.values()],
+            name="prewarm", daemon=True)
+        pw.start()
+        if args.sync_prewarm or not on_card:
+            pw.join()
+    t_warm = time.perf_counter() - t0
+    cs = solver.cache_stats
+    print(f"cold pass {t_cold:.2f}s ({cold_thr:.2f} circuits/s); "
+          f"width prewarm {t_warm:.2f}s — {len(rep)} bucket(s), "
+          f"{cs.compiles} program recording(s), "
+          f"{cs.prewarms} prewarmed width(s)")
+
+    batcher = MicroBatcher(solver, max_batch=max_batch,
+                           deadline_s=args.deadline_ms / 1e3,
+                           pipeline_depth=depth)
+    served = 0
+    edges = 0
+    submitted = 0
+    last = None
+    period = 1.0 / args.arrival_hz if args.arrival_hz > 0 else 0.0
+    t0 = time.perf_counter()
+    next_arrival = t0
+    while True:
+        now = time.perf_counter()
+        # --requests caps *submissions*; the final drain then delivers
+        # exactly N results even when flushes complete out of quota
+        if args.requests and submitted >= args.requests:
+            break
+        if not args.requests and now - t0 >= args.duration:
+            break
+        done = []
+        if now >= next_arrival:
+            done.extend(batcher.submit(submitted,
+                                       pool[submitted % len(pool)]))
+            submitted += 1
+            next_arrival = (next_arrival + period) if period else now
+        done.extend(batcher.poll())
+        if period:
+            # arrival-driven idle: sleep to the next arrival or the next
+            # bucket deadline, whichever fires first (no spinning)
+            dl = batcher.next_deadline()
+            wake = min(next_arrival, dl) if dl is not None else next_arrival
+            pause = wake - time.perf_counter()
+            if pause > 0:
+                time.sleep(min(pause, 0.05))
+        for _, res in done:
+            served += 1
+            edges += len(res.circuit)
+            last = res
+    for _, res in batcher.drain():
+        served += 1
+        edges += len(res.circuit)
+        last = res
+    elapsed = time.perf_counter() - t0
+
+    cs = solver.cache_stats
+    thr = served / max(elapsed, 1e-9)
+    fl = batcher.flushes
+    first_wide = (fl.first_wide_t - t0 if fl.first_wide_t is not None
+                  else None)
+    # percentiles from the registry histogram (log2 buckets with linear
+    # interpolation, DESIGN.md §13)
+    p50 = batcher.latencies.percentile(0.50) * 1e3
+    p95 = batcher.latencies.percentile(0.95) * 1e3
+    print(f"served {served} circuits ({edges} edges) in {elapsed:.2f}s "
+          f"→ {thr:.2f} circuits/s, {edges / max(elapsed, 1e-9):.0f} edges/s "
+          f"({fl.total} dispatches, mean width {fl.mean_width():.1f})")
+    print(f"latency p50 {p50:.1f}ms / p95 {p95:.1f}ms; cache: {cs.hits} "
+          f"hits / {cs.misses} misses / {cs.compiles} recordings / "
+          f"{cs.evictions} evictions; {cs.state_uploads} state uploads")
+    if served == 0:
+        raise RuntimeError("serving loop made no progress")
+    last.validate()
+    if args.json:
+        width_hist = {str(w): c for w, c in sorted(fl.hist.items())}
+        stats = {
+            "workload": "euler-serve", "scale": args.scale,
+            "parts": n_parts, "max_batch": max_batch,
+            "deadline_ms": args.deadline_ms, "pipeline_depth": depth,
+            "ladder": ladder, "adaptive": bool(args.adaptive),
+            "served": served,
+            "elapsed_s": round(elapsed, 3),
+            "circuits_per_s": round(thr, 3),
+            "cold_circuits_per_s": round(cold_thr, 3),
+            "cold_s": round(t_cold, 3), "prewarm_s": round(t_warm, 3),
+            "p50_ms": round(p50, 3), "p95_ms": round(p95, 3),
+            "mean_flush": round(fl.mean_width(), 2),
+            "width_hist": width_hist,
+            "first_wide_flush_s": (round(first_wide, 3)
+                                   if first_wide is not None else None),
+            "dispatches_before_wide": fl.narrow_before_wide,
+            "buckets": len(rep),
+            "compiles": cs.compiles, "hits": cs.hits, "misses": cs.misses,
+            "evictions": cs.evictions, "prewarms": cs.prewarms,
+            "state_uploads": cs.state_uploads,
+        }
+        with open(args.json, "a") as f:
+            f.write(json.dumps(stats) + "\n")
+    if metrics_srv is not None:
+        metrics_srv.close()
+    return thr
 
 
 def main(argv=None):
     argv = list(sys.argv[1:] if argv is None else argv)
     ap = argparse.ArgumentParser(add_help=False)
     ap.add_argument("--workload", choices=("euler", "lm"), default="euler",
-                    help="request-serving workload (default: euler, not "
-                         "ported yet)")
+                    help="request-serving workload (default: euler)")
     args, rest = ap.parse_known_args(argv)
     return main_lm(rest) if args.workload == "lm" else main_euler(rest)
 

@@ -39,12 +39,13 @@ print(len(names))
 
 
 @pytest.mark.parametrize("module", ["repro_torch.launch.serve",
+                                    "repro_torch.euler.autotune",
                                     "repro_torch.models.transformer",
                                     "repro_torch.kernels.ops",
                                     "repro_torch.configs.registry"])
 def test_serving_slice_imports_with_jax_blocked(module):
-    """The LM serving slice's entry points stand alone, each imported
-    first in a fresh process."""
+    """The serving slices' entry points (LM and Euler) stand alone, each
+    imported first in a fresh process."""
     code = f"""
 import importlib, sys
 sys.modules["jax"] = None

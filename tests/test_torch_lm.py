@@ -294,9 +294,12 @@ def test_main_lm_cli_on_cpu(capsys):
     assert "generated ids" in capsys.readouterr().out
 
 
-def test_euler_workload_is_not_ported_yet():
-    with pytest.raises(NotImplementedError, match="item 6"):
-        serve.main([])
+def test_euler_workload_serves_on_cpu(capsys):
+    """The default workload is the Euler serving loop (``main_euler``)."""
+    thr = serve.main(["--device", "cpu", "--scale", "6", "--parts", "2",
+                      "--requests", "4", "--no-prewarm"])
+    assert thr > 0
+    assert "served 4 circuits" in capsys.readouterr().out
 
 
 def test_serve_without_a_card_raises():

@@ -8,6 +8,7 @@ cases run in this process; the solves' reference runs on one simulated
 device here."""
 import dataclasses
 import json
+import re
 import threading
 import urllib.error
 import urllib.request
@@ -346,6 +347,79 @@ def test_batch_spans_and_counts_match_reference():
         assert mine.circuit.tolist() == ref.circuit.tolist()
     names = [t[0] for t in ours[0][1]]
     assert names.count("upload") == 1 and names.count("retrace") == 1
+
+
+#: the serving loop's families (``launch/serve.py::MicroBatcher`` and
+#: ``EulerSolver.prewarm``)
+SERVE_FAMILIES = ("euler_flush_width", "euler_latency_seconds",
+                  "euler_queue_depth", "euler_cache_prewarms")
+
+
+def _serve_session(EulerSolver, MicroBatcher, graphs, log, reg):
+    """``prewarm(a, (1, 2))``, then a ``MicroBatcher`` under a still clock
+    taking three same-bucket requests and draining them (one flush
+    split as B = 2 + B = 1): the span tree of the whole sequence, the
+    ``flush`` and ``prewarm`` spans' attributes, the serving families'
+    Prometheus lines (session label dropped) and the results."""
+    solver = EulerSolver(n_parts=1, registry=reg, trace=log)
+    log.clear()
+    recorded = solver.prewarm(graphs[0], widths=(1, 2))
+    mb = MicroBatcher(solver, max_batch=8, deadline_s=0.0,
+                      clock=lambda: 0.0)
+    for i, g in enumerate(graphs):
+        mb.submit(i, g)
+    done = mb.drain()
+    attrs = [(s["name"], s.get("attrs")) for s in log.spans()
+             if s["name"] in ("flush", "prewarm")]
+    return _tree(log), attrs, recorded, done
+
+
+def _serve_lines(obs, reg):
+    return [re.sub(r'session="s\d+"', 'session="s"', line)
+            for line in obs.render_prometheus(reg).splitlines()
+            if any(f in line for f in SERVE_FAMILIES)]
+
+
+def test_serve_spans_and_families_match_reference():
+    """One ``MicroBatcher`` sequence on both packages (one partition; the
+    reference on one device): the same span tree (``prewarm`` around a
+    solve and a batch, ``flush`` around its dispatches, the fetches in
+    the drain), the same ``flush``/``prewarm`` attributes, the same
+    ``euler_flush_width``, ``euler_latency_seconds``,
+    ``euler_queue_depth`` and ``euler_cache_prewarms`` lines, and the
+    same bytes."""
+    from repro.euler import EulerSolver as JSolver
+    from repro.graphgen.eulerize import eulerian_rmat as j_eulerian_rmat
+    from repro.launch.serve import MicroBatcher as JBatcher
+    from repro_torch.launch.serve import MicroBatcher
+
+    probe = EulerSolver(n_parts=1, device="cpu")
+    buckets = {}
+    for s in range(12):
+        buckets.setdefault(
+            probe.bucket_of(eulerian_rmat(5, avg_degree=4, seed=s)),
+            []).append(s)
+    seeds = max(buckets.values(), key=len)[:3]
+    assert len(seeds) == 3, buckets
+    reg, jreg = t_obs.Registry(), j_obs.Registry()
+    ours = _serve_session(
+        lambda **kw: EulerSolver(device="cpu", **kw), MicroBatcher,
+        [eulerian_rmat(5, avg_degree=4, seed=s) for s in seeds],
+        t_obs.TraceLog(), reg)
+    theirs = _serve_session(
+        JSolver, JBatcher,
+        [j_eulerian_rmat(5, avg_degree=4, seed=s) for s in seeds],
+        j_obs.TraceLog(), jreg)
+    assert ours[:3] == theirs[:3]
+    assert ours[2] == [1, 2]
+    assert [a for n, a in ours[1] if n == "flush"][0]["widths"] == [2, 1]
+    lines = _serve_lines(t_obs, reg)
+    assert lines == _serve_lines(j_obs, jreg)
+    assert 'euler_cache_prewarms{session="s"} 2' in lines
+    assert [s for s, _ in ours[3]] == [s for s, _ in theirs[3]] == [0, 1, 2]
+    for (_, mine), (_, ref) in zip(ours[3], theirs[3]):
+        assert mine.circuit.tolist() == ref.circuit.tolist()
+        assert mine.mate.tolist() == ref.mate.tolist()
 
 
 def _host_session(EulerSolver, graphs, log, reg):
