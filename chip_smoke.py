@@ -177,7 +177,15 @@ exits non-zero:
                 (the synchronous loop without the ladder), (c) with the
                 prewarm thread detached, so the ladder records behind live
                 traffic while each recording holds the card gate alone
-                (the thread is joined after the run).  Each run prints
+                (the thread is joined after the run), (e) with
+                ``--adaptive`` (no cold sweep: the first flush records
+                B = 1 inline, and the autotuner orders ladder widths from
+                the observed flushes onto its compile thread; every
+                compile job's ticket is kept and none may fail, and the
+                ``compile-service`` thread must be stopped when
+                ``main_euler`` returns; it also prints the tuner's steps,
+                async prewarms, pins, tightened scales and charged
+                bytes).  Each run prints
                 circuits/s, p50/p95 ms, the flush-width histogram, the
                 mean flush, recordings, hits, misses, evictions, prewarms
                 and state uploads (and (c) the first wide flush's second
@@ -199,7 +207,21 @@ exits non-zero:
                 the two programs' bytes together — the eviction came
                 before the recording; prints each solve's prediction,
                 charge, peak and evictions; one result a bucket is held
-                byte-equal to an eager solve in a new session;
+                byte-equal to an eager solve in a new session.  (f) The
+                tight cap profile, in ``AutoTuner._apply``'s order, on
+                (e)'s pool bucket (scale 9, P = 8) in a new session: B = 1
+                and B = 8 recorded, their ``reserved_bytes`` and the
+                bucket's caps printed, ``cap_observations`` beside the
+                tight floors and the measured waste (whether ``plan``
+                would tighten on its own); then ``tighten`` and a retune
+                job on the compile thread (``submit_retune(g, e_cap,
+                [8]``: rekey, record the tight bucket's B = 1 and B = 8;
+                its ticket must hold no error), the tight caps, the
+                tight programs' ``reserved_bytes`` and how many tight
+                buckets the pool splits into; the pool solved again one
+                at a time and as a B = 8 batch of the members of the
+                retuned graph's tight bucket, every result byte-equal to
+                ``fused=False`` solves in a new session;
   6. k5       — the sorted segment sum against its twin (f32 tolerance
                 1e-5, half types 2e-2, atol ×8) at the GNN aggregation
                 shapes full_graph_sm and ogb_products (seeded sorted ids)
@@ -292,7 +314,11 @@ from repro_torch.core.engine import Engine, FusedRun  # noqa: E402
 from repro_torch.core.graph import Graph  # noqa: E402
 from repro_torch.core.phase3 import circuit_from_mate_np  # noqa: E402
 from repro_torch.euler import EulerSolver, solve  # noqa: E402
-from repro_torch.euler.bucket import strip_circuit  # noqa: E402
+from repro_torch.euler.autotune import (CompileService,  # noqa: E402
+                                        TunerParams)
+from repro_torch.euler.bucket import (TIGHT_DIVISORS,  # noqa: E402
+                                      ladder_floors, modal_bucket_pool,
+                                      strip_circuit)
 from repro_torch.graphgen.eulerize import eulerian_rmat  # noqa: E402
 from repro_torch.kernels import build, ref  # noqa: E402
 from repro_torch.kernels import flash_attention as fa  # noqa: E402
@@ -1626,7 +1652,11 @@ SERVE_ARGS = ["--scale", "9", "--parts", str(PARTS), "--same-bucket",
 SERVE_REQUESTS = 256
 SERVE_RUNS = {"a_ladder": ["--sync-prewarm"],
               "b_sync": ["--sync", "--no-prewarm"],
-              "c_detached": []}
+              "c_detached": [],
+              "e_adaptive": ["--adaptive"]}
+#: the autotuner's keys of an ``--adaptive`` run's JSON line, printed
+TUNER_KEYS = ("tuner_steps", "async_prewarms", "pinned", "tightened_scales",
+              "cache_bytes")
 #: results of each run held byte-equal to eager solves
 SERVE_SAMPLES = 8
 
@@ -1644,10 +1674,12 @@ def eager_twins(results, device="cuda") -> bool:
 def serve_run(name: str, extra: list, smi: str, device="cuda") -> dict:
     """One in-process ``main_euler`` run of phase 5g (module docstring):
     every delivered result validated as it is harvested, a failure of
-    the prewarm thread caught, the detached thread joined after; returns
-    the run's JSON line."""
-    delivered, errors = [], []
+    the prewarm thread or of a compile job caught, the compile thread
+    found stopped when ``main_euler`` returns, the detached prewarm
+    thread joined after; returns the run's JSON line."""
+    delivered, errors, tickets = [], [], []
     harvest = serve.MicroBatcher._harvest_one
+    enqueue = CompileService._enqueue
 
     def validated(self):
         out = harvest(self)
@@ -1656,20 +1688,34 @@ def serve_run(name: str, extra: list, smi: str, device="cuda") -> dict:
         delivered.extend(out)
         return out
 
+    def kept(self, *args):
+        ticket = enqueue(self, *args)
+        tickets.append(ticket)
+        return ticket
+
     with tempfile.TemporaryDirectory() as tmp, \
             mock.patch.object(serve.MicroBatcher, "_harvest_one", validated), \
+            mock.patch.object(CompileService, "_enqueue", kept), \
             mock.patch.object(threading, "excepthook", errors.append):
         path = Path(tmp) / "serve.json"
         serve.main_euler(SERVE_ARGS + extra + [
             "--requests", str(SERVE_REQUESTS), "--json", str(path),
             "--device", device])
+        compiling = [t for t in threading.enumerate()
+                     if t.name == "compile-service"]
         for t in threading.enumerate():
             if t.name == "prewarm":
                 t.join()
         stats = json.loads(path.read_text().splitlines()[-1])
     if errors:
-        raise AssertionError(f"[serve] {name}: the prewarm thread failed: "
+        raise AssertionError(f"[serve] {name}: a thread failed: "
                              f"{errors[0].exc_value!r}")
+    failed = [t for t in tickets if t.error is not None]
+    if failed or compiling:
+        raise AssertionError(
+            f"[serve] {name}: {len(failed)} of {len(tickets)} compile jobs "
+            f"failed ({failed[0].error!r} first)" if failed else
+            f"[serve] {name}: the compile thread outlived main_euler")
     seqs = sorted(s for s, _ in delivered)
     if seqs != list(range(SERVE_REQUESTS)) or \
             stats["served"] != SERVE_REQUESTS:
@@ -1684,10 +1730,15 @@ def serve_run(name: str, extra: list, smi: str, device="cuda") -> dict:
             "hits", "misses", "evictions", "prewarms", "state_uploads",
             "cold_s", "prewarm_s", "first_wide_flush_s",
             "dispatches_before_wide", "pipeline_depth")
+    tuner = {k: json.dumps(stats[k], separators=(",", ":"))
+             for k in TUNER_KEYS if k in stats}
+    if tuner:
+        tuner.update(compile_jobs=len(tickets),
+                     jobs=",".join(t.label for t in tickets))
     say("serve", run=name, scale=9, parts=PARTS, served=stats["served"],
         all_valid=True, sample_byte_equal_eager=same,
         width_hist=f"'{json.dumps(stats['width_hist'], separators=(',', ':'))}'",
-        **{k: stats[k] for k in keys}, smi=f"'{smi}'")
+        **{k: stats[k] for k in keys}, **tuner, smi=f"'{smi}'")
     if not same:
         raise AssertionError(f"[serve] {name}: a served result differs "
                              f"from its eager solve")
@@ -1756,11 +1807,93 @@ def check_serve_budget(scales, smi: str, device="cuda") -> None:
         torch.cuda.empty_cache()
 
 
+#: the cap fields phase 5g (f) prints, in this order
+CAP_FIELDS = ("edge_cap", "new_cap", "park_cap", "ship_cap", "open_cap",
+              "open_ship_cap", "touch_cap", "touch_ship_cap", "p3v_cap")
+
+
+def _caps(values) -> str:
+    """A bucket key's caps (or a field → value mapping) in CAP_FIELDS'
+    order."""
+    if isinstance(values, tuple):
+        values = dataclasses.asdict(values[3])
+    return "'" + ",".join(str(values.get(f, 0)) for f in CAP_FIELDS) + "'"
+
+
+def _reserved(solver, key, widths) -> dict:
+    eng = solver._engines[key]
+    return {w: eng.fused_program(key[0], None if w == 1 else w).reserved_bytes
+            for w in widths}
+
+
+def check_serve_tighten(smi: str, device="cuda") -> None:
+    """Phase 5g (f), the tight cap profile (module docstring)."""
+    solver = EulerSolver(n_parts=PARTS, device=device)
+    pool = modal_bucket_pool(
+        solver, (eulerian_rmat(9, avg_degree=AVG_DEGREE, seed=SEED + i)
+                 for i in range(8 * 8)), 8)
+    g = pool[0]
+    key = solver.bucket_of(g)
+    e_cap = key[0]
+    solver.prewarm(g, [1, 8])
+    before = _reserved(solver, key, (1, 8))
+    seen = solver.cap_observations(e_cap)
+    floors = ladder_floors(e_cap, PARTS, slack=solver.slack, tight=True)
+    fits = all(seen[f] <= floors[f] for f in TIGHT_DIVISORS if seen.get(f))
+    waste = solver.bucket_waste[key]
+    say("serve", run="f_tighten", scale=9, parts=PARTS, e_cap=e_cap,
+        pool=len(pool), fields=f"'{','.join(CAP_FIELDS)}'", caps=_caps(key),
+        reserved_bytes_b1=before[1], reserved_bytes_b8=before[8],
+        observed=_caps(seen), tight_floors=_caps(floors),
+        waste=f"{waste:.4f}", fits_tight_floors=fits,
+        plan_would_tighten=fits and waste >= TunerParams().tighten_waste)
+    if not solver.tighten(e_cap):
+        raise AssertionError("[serve] f_tighten: the scale was tight already")
+    svc = solver._ensure_compile_service()
+    t0 = time.perf_counter()
+    ticket = svc.submit_retune(g, e_cap, [8])
+    if not ticket.wait(timeout=600) or ticket.error is not None:
+        raise AssertionError(f"[serve] f_tighten: the retune job failed: "
+                             f"{ticket.error!r}")
+    retune_s = time.perf_counter() - t0
+    tkey = solver.bucket_of(g)
+    after = _reserved(solver, tkey, (1, 8))
+    tight_keys = [solver.bucket_of(x) for x in pool]
+    ones = [solver.solve(x).validate() for x in pool]
+    members = [x for x, k in zip(pool, tight_keys) if k == tkey]
+    eights = solver.solve_batch([members[i % len(members)]
+                                 for i in range(8)])
+    for r in eights:
+        r.validate()
+    svc.stop()
+    stopped = not svc._thread.is_alive()
+    same = eager_twins(ones + eights, device)
+    say("serve", run="f_tighten", tight_caps=_caps(tkey),
+        retuned_widths=",".join(map(str, ticket.widths)),
+        retune_s=f"{retune_s:.3f}",
+        reserved_bytes_b1=after[1], reserved_bytes_b8=after[8],
+        b1_ratio=f"{after[1] / max(before[1], 1):.4f}",
+        b8_ratio=f"{after[8] / max(before[8], 1):.4f}",
+        tight_buckets=len(set(tight_keys)), b8_members=len(members),
+        b1_hit=ones[0].cache.hit, b8_hit=eights[0].cache.hit,
+        captures=solver.captures, compile_thread_stopped=stopped,
+        byte_equal_eager=same, smi=f"'{smi}'")
+    if tkey == key or ticket.widths != [1, 8] or not same or not stopped \
+            or not (ones[0].cache.hit and eights[0].cache.hit):
+        raise AssertionError("[serve] f_tighten: the retune did not record "
+                             "the tight bucket's B = 1 and B = 8, or a "
+                             "tight result differs from its eager solve")
+    del solver, ones, eights
+    if device == "cuda":
+        torch.cuda.empty_cache()
+
+
 def check_serve(main_scale: int, smi: str, device="cuda") -> dict:
     """Phase 5g (module docstring); returns each run's JSON line."""
     runs = {name: serve_run(name, extra, smi, device)
             for name, extra in SERVE_RUNS.items()}
     check_serve_budget((main_scale - 5, main_scale - 4), smi, device)
+    check_serve_tighten(smi, device)
     return runs
 
 

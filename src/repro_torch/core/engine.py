@@ -895,17 +895,14 @@ class Engine:
 
     def evict_program(self, num_edges: int, batch: Optional[int]) -> int:
         """Drop the program of ``(num_edges, batch)`` and free what it
-        holds (:meth:`FusedRun.free`); on a card the freed pools then go
-        back to the card (``empty_cache``).  Returns how many programs
-        were dropped."""
+        holds (:meth:`FusedRun.retire`): at once, its pools going back to
+        the card, unless a launch holds the run (a recording in another
+        thread), whose fetch frees it.  Returns how many programs were
+        dropped."""
         run = self._fused.pop((int(num_edges), batch), None)
         if run is None:
             return 0
-        device = run.device
-        run.free()
-        if device is not None and device.type == "cuda":
-            with capture.CARD.shared(device):
-                torch.cuda.empty_cache()
+        run.retire()
         return 1
 
 
@@ -998,13 +995,16 @@ class PendingRun:
             fetch_s = marks["copy_s"] + time.perf_counter() - t0
         self.replay_s = marks["replay_s"]
         self._rounds = rounds
-        self._run.fetched(rounds)
+        run = self._run
+        run.fetched(rounds)
         self._host = (host, {"load_s": marks["load_s"],
                              **self.marks,
                              "run_s": marks["replay_s"] + fetch_s,
                              "fetch_s": fetch_s})
         self._run = self._out = self._counters = self._events = None
         self._enqueued = None
+        if run.retired:
+            run.release()       # evicted while this launch held it
         return self._host
 
     def rounds_run(self) -> List[int]:
@@ -1065,7 +1065,11 @@ class FusedRun:
     the nodes' bodies run on its stream's memory pool);
     :meth:`rounds_run` gives the rounds of the last run fetched.
     :meth:`free` waits for the side stream, then drops the graph and
-    everything it holds.
+    everything it holds.  An eviction (:meth:`retire`) frees the run at
+    once unless a launch holds it, say a recording in another thread:
+    then the fetch of that launch's pending frees it, as it does for a
+    launch that began after the eviction, so a run the engine no longer
+    lists never keeps its graph.
 
     The run refers to its engine weakly: the engine holds its runs, and
     a cycle would keep a dropped engine's graphs alive until the next
@@ -1089,6 +1093,7 @@ class FusedRun:
         self._ran = False         # its first (CPU) run was counted a trace
         self._rounds: Optional[List[int]] = None
         self._lock = threading.Lock()     # one launch at a time
+        self.retired = False      # evicted: its pendings' fetches free it
 
     @property
     def device(self) -> Optional[torch.device]:
@@ -1256,6 +1261,26 @@ class FusedRun:
                              None, False, dev, self.engine.trace)
         pending._own(out, loops.counters)
         return pending
+
+    def retire(self) -> bool:
+        """Mark the run evicted and :meth:`release` it now unless a launch
+        holds it; returns whether it was released now.  A launch holding
+        it, or one that begins later, leaves a pending whose fetch
+        releases it (:meth:`PendingRun.wait`)."""
+        self.retired = True
+        if not self._lock.acquire(blocking=False):
+            return False
+        self._lock.release()
+        self.release()
+        return True
+
+    def release(self) -> None:
+        """:meth:`free`, then give the freed pools back to the card."""
+        device = self.device
+        self.free()
+        if device is not None and device.type == "cuda":
+            with capture.CARD.shared(device):
+                torch.cuda.empty_cache()
 
     def free(self) -> None:
         """Wait for the launcher's enqueues and the side stream, then

@@ -14,8 +14,9 @@ A graph is padded into the smallest bucket that fits it:
 The port keys its recorded CUDA graphs on the bucket, and pads and
 sizes exactly as the reference does, so both packages run the same
 tables and return the same circuits.  :func:`modal_bucket_pool` picks
-the serving pool of one bucket.  The autotuner's tight profile is not
-ported (ROADMAP queue 1 item 6b).
+the serving pool of one bucket.  The autotuner re-keys a bucket scale
+whose members all fit it onto the tight profile (:data:`TIGHT_DIVISORS`,
+``ladder_floors``/``ladder_caps`` with ``tight=True``).
 """
 from __future__ import annotations
 
@@ -76,6 +77,24 @@ LADDER_DIVISORS = {
     "p3v_cap": 1,
 }
 
+#: Tight-profile divisors, the autotuner's feedback rung: a bucket scale
+#: whose measured per-field needs sit under half the default floors is
+#: re-keyed onto these halved floors.  Correctness never depends on the
+#: profile: a field above its floor still rounds up to a power of two.
+TIGHT_DIVISORS = {
+    "park_cap": 8,
+    "ship_cap": 8,
+    "open_cap": 8,
+    "open_ship_cap": 8,
+    "touch_cap": 2,
+    "touch_ship_cap": 2,
+    "p3v_cap": 2,
+}
+
+#: Cap fields the ladder sizes (and the autotuner observes a solve).
+LADDER_FIELDS = ("edge_cap", "park_cap", "ship_cap", "new_cap", "open_cap",
+                 "touch_cap", "open_ship_cap", "touch_ship_cap", "p3v_cap")
+
 
 def _edge_floor(e_cap: int, n_parts: int, slack: float) -> int:
     """Worst-case padded local-edge table width over a bucket, rounded up
@@ -87,26 +106,35 @@ def _edge_floor(e_cap: int, n_parts: int, slack: float) -> int:
 
 
 def ladder_floors(e_cap: int, n_parts: int, slack: float = 1.3,
-                  lo: int = 16) -> dict:
-    """Per-field cap floors for one bucket scale.
+                  lo: int = 16, tight: bool = False) -> dict:
+    """Per-field cap floors for one bucket scale, under the default
+    profile (:data:`LADDER_DIVISORS`) or the ``tight`` one
+    (:data:`TIGHT_DIVISORS`); edge/new share the worst-case
+    padded-partition rung under both.
 
     >>> f = ladder_floors(128, 8)
     >>> f["park_cap"], f["touch_cap"]
     (32, 128)
+    >>> t = ladder_floors(128, 8, tight=True)
+    >>> t["park_cap"], t["touch_cap"]
+    (16, 64)
     """
+    div = TIGHT_DIVISORS if tight else LADDER_DIVISORS
     ef = max(_edge_floor(e_cap, n_parts, slack), lo)
     floors = {"edge_cap": ef, "new_cap": ef}
-    for f, d in LADDER_DIVISORS.items():
+    for f, d in div.items():
         floors[f] = max(e_cap // d, lo)
     return floors
 
 
 def ladder_caps(caps: EngineCaps, e_cap: int, n_parts: int,
-                slack: float = 1.3, lo: int = 16) -> EngineCaps:
-    """Quantize every table capacity onto the bucket's shared cap ladder:
-    a field at or under its floor takes the floor, an outlier above it
-    rounds up to a power of two."""
-    floors = ladder_floors(e_cap, n_parts, slack=slack, lo=lo)
+                slack: float = 1.3, lo: int = 16,
+                tight: bool = False) -> EngineCaps:
+    """Quantize every table capacity onto the bucket's shared cap ladder
+    (the ``tight`` profile's floors if asked): a field at or under its
+    floor takes the floor, an outlier above it rounds up to a power of
+    two."""
+    floors = ladder_floors(e_cap, n_parts, slack=slack, lo=lo, tight=tight)
 
     def q(v: int, floor: int) -> int:
         if not v:

@@ -28,6 +28,15 @@ A solver is a persistent session, as the reference's is:
     records a bucket's batched programs ahead of traffic, and
     :meth:`EulerSolver.warmed_widths` tells the serving loop
     (``launch/serve.py::MicroBatcher``) which widths it may dispatch;
+    :meth:`EulerSolver.prewarm_async` queues them on the session's
+    compile thread (``euler/autotune.py::CompileService``), which the
+    autotuner drives;
+  * the autotuner's feedback rung: ``_prepare`` keeps the largest raw
+    cap need seen per field and bucket scale
+    (:meth:`EulerSolver.cap_observations`); :meth:`EulerSolver.tighten`
+    moves a scale onto the tight cap profile and
+    :meth:`EulerSolver.rekey` purges its prep memos, so its graphs
+    re-bucket under tighter caps (a new engine and new recordings);
   * the accounting in :class:`~repro_torch.euler.result.CacheStats` on
     every result and in ``cache_stats``, read through
     :mod:`repro_torch.obs` counters under the reference's family names
@@ -64,11 +73,9 @@ card it raises instead of falling back.  ``backend="host"`` runs the
 reference's exact host BSP engine instead
 (:class:`~repro_torch.core.host_engine.HostEngine`: numpy and scipy, the
 paper's Int64 memory-state accounting and both §5 heuristics, one graph
-at a time, no device).  Not ported yet (ROADMAP queue 1): the
-autotuner's half of the session (``prewarm_async``, the compile
-service, ``tighten``/``rekey``; item 6b), a multi-device mesh (item 9)
-and, on the device backend, the ``deferred_transfer=False`` baseline
-(raises; queue 3).
+at a time, no device).  Not ported yet (ROADMAP queue 1): a
+multi-device mesh (item 9) and, on the device backend, the
+``deferred_transfer=False`` baseline (raises; queue 3).
 
     >>> from repro_torch.euler import solve                 # doctest: +SKIP
     >>> res = solve(graph, n_parts=8).validate()            # doctest: +SKIP
@@ -98,8 +105,10 @@ from ..core.phase3 import (_cc_labels_sharded, _rank_sharded,
                            gather_circuit_sharded, splice_components,
                            splice_components_sharded)
 from ..graphgen.partition import partition_vertices
-from .bucket import (ceil_pow2, ladder_caps, ladder_levels, ladder_rounds,
-                     ladder_waste, pad_graph, round_caps, strip_circuit)
+from .autotune import CompileService
+from .bucket import (LADDER_FIELDS, ceil_pow2, ladder_caps, ladder_levels,
+                     ladder_rounds, ladder_waste, pad_graph, round_caps,
+                     strip_circuit)
 from .result import CacheStats, EulerResult
 
 BucketKey = Tuple[int, int, int, EngineCaps]   # (e_cap, n_parts, n_levels, caps)
@@ -339,6 +348,13 @@ class EulerSolver:
         self._bytes_total = 0
         self._pinned: set = set()
         self._measured: dict = {}
+        # the autotuner's feedback rung: bucket scales moved onto the
+        # tight cap profile, and the largest raw (pre-quantization,
+        # slack-inclusive) cap need seen per field at each scale
+        self._tight_scales: set = set()
+        self._field_max: dict = {}
+        # the compile thread of prewarm_async, made at its first use
+        self._compile_service = None
         reg = registry if registry is not None else obs.default_registry()
         self.registry = reg
         self.trace = trace if trace is not None else obs.default_tracelog()
@@ -427,10 +443,18 @@ class EulerSolver:
                 n_levels = ladder_levels(n_levels)
             raw = Engine.size_caps(pg, slack=self.slack)
             caps = round_caps(raw)
+            # the autotuner's evidence that a scale's members all fit
+            # the tight profile's floors
+            seen = self._field_max.setdefault(e_cap, {})
+            for f in LADDER_FIELDS:
+                v = int(getattr(raw, f))
+                if v > seen.get(f, 0):
+                    seen[f] = v
             waste = 1.0
             if self.cap_ladder:
                 quant = ladder_caps(raw, e_cap, self.n_parts,
-                                    slack=self.slack)
+                                    slack=self.slack,
+                                    tight=e_cap in self._tight_scales)
                 waste = ladder_waste(caps, quant)
                 if waste <= self.ladder_waste_cap:
                     caps = quant        # outlier shapes keep pow2 keying
@@ -607,6 +631,36 @@ class EulerSolver:
             recorded.append(w)
         return recorded
 
+    def prewarm_async(self, graph: Graph,
+                      widths: Optional[Sequence[int]] = None,
+                      priority: float = 0.0) -> list:
+        """Queue :meth:`prewarm` of ``widths`` (default: the session's
+        ``width_ladder``) on the session's compile thread
+        (:class:`~repro_torch.euler.autotune.CompileService`), one job a
+        width; returns a ``CompileTicket`` a width.  Each width lands in
+        :meth:`warmed_widths` as its job starts recording, so the
+        micro-batcher widens its flushes mid-session.  A recording holds
+        the card gate alone, so the serving thread's CUDA work waits for
+        it.  Already-live widths return finished tickets."""
+        svc = self._ensure_compile_service()
+        widths = self.width_ladder if widths is None else widths
+        return [svc.submit(graph, w, priority=priority)
+                for w in sorted({max(1, int(w)) for w in widths})]
+
+    def _ensure_compile_service(self):
+        """The session's compile service, made (and started) at its
+        first use."""
+        with self._lock:
+            if self._compile_service is None:
+                self._compile_service = CompileService(self)
+            return self._compile_service
+
+    @property
+    def compile_service(self):
+        """The session's compile service, or None if never used."""
+        with self._lock:
+            return self._compile_service
+
     # ------------------------------------------------------------------
     # the byte budget: usage, pins, explicit drops
     # ------------------------------------------------------------------
@@ -648,6 +702,48 @@ class EulerSolver:
                 return False
             self._evict_entry(pkey)
             return True
+
+    # ------------------------------------------------------------------
+    # the ladder's feedback rung: tighten buckets whose members fit
+    # ------------------------------------------------------------------
+    def cap_observations(self, e_cap: int) -> dict:
+        """The largest raw (pre-quantization, slack-inclusive) cap need
+        seen per ladder field at this bucket scale: the autotuner's
+        evidence for a tighten."""
+        with self._lock:
+            return dict(self._field_max.get(int(e_cap), {}))
+
+    def tighten(self, e_cap: int) -> bool:
+        """Move a bucket scale onto the tight cap profile
+        (:data:`~repro_torch.euler.bucket.TIGHT_DIVISORS`) for later
+        preps.  Memoized graphs keep their bucket until :meth:`rekey`
+        purges the scale, so the tight bucket can record on the compile
+        thread before a serving flush re-keys onto it.  False if the
+        scale was tight already."""
+        with self._lock:
+            e = int(e_cap)
+            if e in self._tight_scales:
+                return False
+            self._tight_scales.add(e)
+            return True
+
+    def tightened_scales(self) -> List[int]:
+        """Bucket scales on the tight profile, sorted."""
+        with self._lock:
+            return sorted(self._tight_scales)
+
+    def rekey(self, e_cap: int) -> int:
+        """Purge the prep memos of every graph at this scale, so its next
+        solve re-buckets under the scale's current profile; returns how
+        many were purged.  A dispatch staged before keeps its old bucket,
+        engine and program."""
+        with self._lock:
+            e = int(e_cap)
+            stale = [gid for gid, (_g, out) in self._prep_cache.items()
+                     if out[2][0] == e]
+            for gid in stale:
+                self._prep_cache.pop(gid)
+            return len(stale)
 
     # ------------------------------------------------------------------
     def solve(self, graph: Graph,

@@ -25,8 +25,15 @@ is no card.  The width ladder is recorded on a background thread: on
 the CPU (or under ``--sync-prewarm``) the loop waits for it, on the card
 it serves meanwhile, though a recording holds the card alone
 (``core/capture.py::CARD``), so dispatches wait for each one.
-``--adaptive`` (the reference's autotuner) is not ported yet (ROADMAP
-queue 1 item 6b).
+``--adaptive`` is the reference's self-tuning warm path: no cold sweep
+and no static prewarm; the first flush records the B=1 program inline,
+and an :class:`~repro_torch.euler.autotune.AutoTuner`, fed by the
+batcher and stepped once a loop turn, orders ladder widths from the
+observed flush sizes onto the session's compile thread, pins what it
+serves and may move the bucket scale onto the tight cap profile:
+
+    PYTHONPATH=src python -m repro_torch.launch.serve --scale 9 --parts 8 \\
+        --same-bucket --pool 8 --requests 256 --adaptive [--device cpu]
 
 The LM prefill + KV-cache decode driver (the reference's ``main_lm``) is
 behind ``--workload lm``; its body is :func:`serve_lm`, which callers
@@ -62,7 +69,7 @@ from .. import obs
 from ..configs.registry import get_config
 from ..core import capture
 from ..core.engine import drained_clock
-from ..euler.autotune import FlushLog
+from ..euler.autotune import AutoTuner, FlushLog
 from ..euler.bucket import modal_bucket_pool
 from ..euler.solver import EulerSolver, resolve_device
 from ..graphgen.eulerize import eulerian_rmat
@@ -102,8 +109,9 @@ class MicroBatcher:
 
     ``autotuner=`` takes an object with the reference's
     ``observe_arrival(key, graph)`` and ``observe_flush(key, n)``, fed on
-    every submit and flush; the port has no autotuner yet (ROADMAP queue
-    1 item 6b).
+    every submit and flush: an
+    :class:`~repro_torch.euler.autotune.AutoTuner` under ``main_euler
+    --adaptive``.
     """
 
     def __init__(self, solver, max_batch: int = 8,
@@ -513,7 +521,7 @@ def main_lm(argv=None):
 
 
 def main_euler(argv=None):
-    """The Euler-circuit serving loop (the reference's static path; the
+    """The Euler-circuit serving loop, static or ``--adaptive`` (the
     module docstring).  Returns circuits served a second."""
     ap = argparse.ArgumentParser(
         description="Euler-circuit serving loop over the solver facade")
@@ -556,8 +564,11 @@ def main_euler(argv=None):
                     help="skip the background width-ladder prewarm "
                          "(partial flushes then run at B=1)")
     ap.add_argument("--adaptive", action="store_true",
-                    help="the reference's self-tuning warm path; not "
-                         "ported yet (ROADMAP queue 1 item 6b)")
+                    help="self-tuning warm path: skip the cold sweep and "
+                         "static prewarm, serve from the first arrival, "
+                         "and let the autotuner's compile thread record "
+                         "ladder widths behind live traffic from the "
+                         "observed flush histograms")
     ap.add_argument("--sync-prewarm", action="store_true",
                     help="join the static prewarm thread before serving "
                          "on any device (default: join on cpu only, "
@@ -581,15 +592,15 @@ def main_euler(argv=None):
                     help="torch device (default: cuda; cpu runs the "
                          "kernels' plain twins)")
     args = ap.parse_args(argv)
-    if args.adaptive:
-        raise NotImplementedError(
-            "--adaptive (the autotuner's compile service and ladder "
-            "policy) is not ported yet (ROADMAP queue 1 item 6b)")
 
+    max_batch = 1 if args.eager else args.max_batch
+    if args.adaptive and (args.eager or max_batch <= 1):
+        raise SystemExit("--adaptive needs the fused path and "
+                         "--max-batch > 1 (there is no width ladder to "
+                         "tune otherwise)")
     device = resolve_device(args.device)
     on_card = device.type == "cuda"
     n_parts = args.parts or (torch.cuda.device_count() if on_card else 1)
-    max_batch = 1 if args.eager else args.max_batch
     ladder = not args.no_ladder
     widths = sorted({int(w) for w in args.widths.split(",") if w}
                     | {max_batch})
@@ -629,47 +640,60 @@ def main_euler(argv=None):
           f"micro-batch ≤{max_batch}, deadline {args.deadline_ms}ms, "
           f"pipeline depth {depth}, widths {widths}")
 
-    # Cold pass: one sequential sweep records each bucket's B=1 program
-    # and measures cold (recording-inclusive) latency.  The width ladder
-    # then records on a background thread; the batcher only ever
-    # dispatches to widths already live, so serving can start at once.
+    tuner = None
     rep: dict = {}
-    t0 = time.perf_counter()
-    with solver.trace.span("cold_sweep", pool=len(pool)):
-        warm = solver.solve_many(pool)
-    warm[0].validate()
-    t_cold = time.perf_counter() - t0
-    cold_thr = len(pool) / max(t_cold, 1e-9)
-    for g, r in zip(pool, warm):
-        rep.setdefault(r.cache.bucket, g)
-    t0 = time.perf_counter()
-    if max_batch > 1 and not args.eager and not args.no_prewarm:
-        ladder_widths = [w for w in widths if w > 1]
-        # thread-contract: daemon (never blocks interpreter exit; prewarm
-        # holds no resource of its own, and a recording it leaves behind
-        # is the solver's to free).  Joined before the measured loop on
-        # the CPU (or under --sync-prewarm), where its solves would share
-        # the serving loop's cores; on the card it detaches and the
-        # ladder records behind live traffic, each recording holding the
-        # card gate alone.  The batcher dispatches only widths already
-        # live either way.
-        pw = threading.Thread(
-            target=lambda: [solver.prewarm(g, ladder_widths)
-                            for g in rep.values()],
-            name="prewarm", daemon=True)
-        pw.start()
-        if args.sync_prewarm or not on_card:
-            pw.join()
-    t_warm = time.perf_counter() - t0
-    cs = solver.cache_stats
-    print(f"cold pass {t_cold:.2f}s ({cold_thr:.2f} circuits/s); "
-          f"width prewarm {t_warm:.2f}s — {len(rep)} bucket(s), "
-          f"{cs.compiles} program recording(s), "
-          f"{cs.prewarms} prewarmed width(s)")
+    if args.adaptive:
+        # No cold sweep and no static prewarm: requests are served from
+        # the first arrival, the first flush records the B=1 program
+        # inline, and the autotuner's compile thread records ladder
+        # widths behind live traffic from the observed flush histograms.
+        t_cold = t_warm = 0.0
+        cold_thr = 0.0
+        tuner = AutoTuner(solver, max_batch=max_batch)
+        print("adaptive: serving from first arrival; ladder widths "
+              "record behind live traffic as flush histograms accrue")
+    else:
+        # Cold pass: one sequential sweep records each bucket's B=1
+        # program and measures cold (recording-inclusive) latency.  The
+        # width ladder then records on a background thread; the batcher
+        # only ever dispatches to widths already live, so serving can
+        # start at once.
+        t0 = time.perf_counter()
+        with solver.trace.span("cold_sweep", pool=len(pool)):
+            warm = solver.solve_many(pool)
+        warm[0].validate()
+        t_cold = time.perf_counter() - t0
+        cold_thr = len(pool) / max(t_cold, 1e-9)
+        for g, r in zip(pool, warm):
+            rep.setdefault(r.cache.bucket, g)
+        t0 = time.perf_counter()
+        if max_batch > 1 and not args.eager and not args.no_prewarm:
+            ladder_widths = [w for w in widths if w > 1]
+            # thread-contract: daemon (never blocks interpreter exit;
+            # prewarm holds no resource of its own, and a recording it
+            # leaves behind is the solver's to free).  Joined before the
+            # measured loop on the CPU (or under --sync-prewarm), where
+            # its solves would share the serving loop's cores; on the card
+            # it detaches and the ladder records behind live traffic, each
+            # recording holding the card gate alone.  The batcher
+            # dispatches only widths already live either way.
+            pw = threading.Thread(
+                target=lambda: [solver.prewarm(g, ladder_widths)
+                                for g in rep.values()],
+                name="prewarm", daemon=True)
+            pw.start()
+            if args.sync_prewarm or not on_card:
+                pw.join()
+        t_warm = time.perf_counter() - t0
+        cs = solver.cache_stats
+        print(f"cold pass {t_cold:.2f}s ({cold_thr:.2f} circuits/s); "
+              f"width prewarm {t_warm:.2f}s — {len(rep)} bucket(s), "
+              f"{cs.compiles} program recording(s), "
+              f"{cs.prewarms} prewarmed width(s)")
 
     batcher = MicroBatcher(solver, max_batch=max_batch,
                            deadline_s=args.deadline_ms / 1e3,
-                           pipeline_depth=depth)
+                           pipeline_depth=depth, autotuner=tuner)
     served = 0
     edges = 0
     submitted = 0
@@ -692,6 +716,10 @@ def main_euler(argv=None):
             submitted += 1
             next_arrival = (next_arrival + period) if period else now
         done.extend(batcher.poll())
+        if tuner is not None:
+            # rate-limited inside step(): decays the histograms,
+            # snapshots the session, feeds the compile thread and pins
+            tuner.step()
         if period:
             # arrival-driven idle: sleep to the next arrival or the next
             # bucket deadline, whichever fires first (no spinning)
@@ -710,6 +738,11 @@ def main_euler(argv=None):
         last = res
     elapsed = time.perf_counter() - t0
 
+    tuner_stats = {}
+    if tuner is not None:
+        tuner_stats = tuner.stats()
+        tuner.close(timeout=5.0)
+
     cs = solver.cache_stats
     thr = served / max(elapsed, 1e-9)
     fl = batcher.flushes
@@ -725,6 +758,13 @@ def main_euler(argv=None):
     print(f"latency p50 {p50:.1f}ms / p95 {p95:.1f}ms; cache: {cs.hits} "
           f"hits / {cs.misses} misses / {cs.compiles} recordings / "
           f"{cs.evictions} evictions; {cs.state_uploads} state uploads")
+    if tuner is not None:
+        fw = f"{first_wide:.2f}s" if first_wide is not None else "never"
+        print(f"adaptive: first wide flush at {fw} "
+              f"({fl.narrow_before_wide} narrow dispatches before it); "
+              f"{tuner_stats.get('async_prewarms', 0)} async prewarm(s), "
+              f"{tuner_stats.get('pinned', 0)} pinned program(s), "
+              f"{tuner_stats.get('tuner_steps', 0)} tuner step(s)")
     if served == 0:
         raise RuntimeError("serving loop made no progress")
     last.validate()
@@ -746,11 +786,12 @@ def main_euler(argv=None):
             "first_wide_flush_s": (round(first_wide, 3)
                                    if first_wide is not None else None),
             "dispatches_before_wide": fl.narrow_before_wide,
-            "buckets": len(rep),
+            "buckets": len(rep) or tuner_stats.get("tuner_buckets", 0),
             "compiles": cs.compiles, "hits": cs.hits, "misses": cs.misses,
             "evictions": cs.evictions, "prewarms": cs.prewarms,
             "state_uploads": cs.state_uploads,
         }
+        stats.update(tuner_stats)
         with open(args.json, "a") as f:
             f.write(json.dumps(stats) + "\n")
     if metrics_srv is not None:

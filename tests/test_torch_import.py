@@ -101,6 +101,35 @@ assert not bad, bad
     assert r.returncode == 0, r.stdout + r.stderr
 
 
+def test_autotuner_imports_and_serves_with_jax_blocked():
+    """The autotuner stands alone: ``repro_torch.euler.autotune`` imported
+    first in a fresh process with JAX blocked, a ``plan`` step, then
+    ``main_euler --adaptive`` on the CPU at scale 5 (its compile thread
+    records the B = 2 program and stops)."""
+    code = f"""
+import importlib, sys, threading
+sys.modules["jax"] = None
+sys.path[:0] = [{str(Path(REPO) / "src")!r}]
+at = importlib.import_module("repro_torch.euler.autotune")
+dec = at.plan(at.TunerSnapshot(
+    buckets={{(128, 8): at.BucketStats(4.0, {{8: 2.0}})}},
+    warmed={{(128, 8): [1]}}, pinned=[]))
+assert [(k, w) for k, w, _ in dec.prewarm] == [((128, 8), 8)], dec
+from repro_torch.launch import serve
+serve.main_euler(["--device", "cpu", "--scale", "5", "--parts", "2",
+                  "--same-bucket", "--pool", "2", "--max-batch", "2",
+                  "--requests", "6", "--adaptive"])
+assert not any(t.name == "compile-service" for t in threading.enumerate())
+bad = sorted(m for m in sys.modules if m == "repro" or m.startswith("repro."))
+assert not bad, bad
+"""
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    r = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                       text=True, env=env, timeout=300)
+    assert r.returncode == 0, r.stdout + r.stderr
+    assert "adaptive: first wide flush" in r.stdout
+
+
 def _imported_roots(path: Path):
     for node in ast.walk(ast.parse(path.read_text(), str(path))):
         if isinstance(node, ast.Import):

@@ -2,8 +2,9 @@
 ``repro/obs``) against the JAX package's: the same operations under a
 fake clock give the same Prometheus text and the same snapshot, and the
 solver sessions of both packages emit the same spans, in the same tree,
-for a fused, an eager and a host solve, and count the same
-``CacheStats`` over one sequence of solves.  ``repro.obs`` is stdlib only, so the parity
+for a fused, an eager and a host solve, count the same
+``CacheStats`` over one sequence of solves, and the autotuner's compile
+thread and policy steps emit the same spans and families.  ``repro.obs`` is stdlib only, so the parity
 cases run in this process; the solves' reference runs on one simulated
 device here."""
 import dataclasses
@@ -420,6 +421,125 @@ def test_serve_spans_and_families_match_reference():
     for (_, mine), (_, ref) in zip(ours[3], theirs[3]):
         assert mine.circuit.tolist() == ref.circuit.tolist()
         assert mine.mate.tolist() == ref.mate.tolist()
+
+
+#: the compile thread's families (``euler/autotune.py::CompileService``)
+COMPILE_FAMILIES = ("euler_compile_jobs", "euler_compile_queue_depth")
+
+
+class _TunedSolver:
+    """The same stand-in solver for both packages' ``AutoTuner`` and
+    ``CompileService``: one bucket, prewarms recorded in a set, a graph
+    named ``"boom"`` fails its job; spans and metrics go to the given
+    trace log and registry."""
+
+    def __init__(self, log, reg):
+        self.trace, self.registry = log, reg
+        self.warm: set = set()
+        self.program_cache_bytes = 100
+        self.bucket_waste = {(128, 8): 2.0}
+        self.slack = 1.3
+        self.pins: set = set()
+
+    def bucket_of(self, graph):
+        return (128, 8)
+
+    def warmed_widths(self, key):
+        return sorted(self.warm | {1})
+
+    def prewarm(self, graph, widths):
+        if graph == "boom":
+            raise RuntimeError("boom")
+        new = [w for w in widths if w not in self.warm]
+        self.warm.update(new)
+        return new
+
+    def rekey(self, e_cap):
+        return 0
+
+    def pinned_programs(self):
+        return sorted(self.pins, key=str)
+
+    def cache_bytes_used(self):
+        return 95
+
+    def cap_observations(self, e_cap):
+        return {"park_cap": 10, "touch_cap": 50}
+
+    def tightened_scales(self):
+        return []
+
+    def tighten(self, e_cap):
+        return True
+
+    def pin_program(self, key, w):
+        self.pins.add((key, w))
+        return True
+
+    def unpin_program(self, key, w):
+        self.pins.discard((key, w))
+        return True
+
+    def drop_program(self, key, w):
+        return True
+
+
+def _tuner_session(autotune, obs):
+    """Two tuner steps under a fake clock over a stand-in solver (the
+    first orders B = 4 and a tighten onto a stopped compile service),
+    then a failing job, a drain and a stop: the span tree, the
+    ``compile_job``/``tuner_step`` attributes, and the compile families'
+    Prometheus lines."""
+    log, reg = obs.TraceLog(clock=lambda: 0.0), obs.Registry()
+    # an empty TraceLog is falsy, and both packages resolve the solver's
+    # log as ``solver.trace or default_tracelog()``: one event first
+    log.event("session")
+    solver = _TunedSolver(log, reg)
+    svc = autotune.CompileService(solver, start=False)
+    t = [0.0]
+    tuner = autotune.AutoTuner(solver, service=svc, max_batch=4,
+                               clock=lambda: t[0])
+    for _ in range(6):
+        tuner.observe_arrival((128, 8), "g")
+    tuner.observe_flush((128, 8), 4)
+    tuner.observe_flush((128, 8), 3)
+    tuner.step()
+    svc.submit("boom", 8, priority=0.5)
+    depth = [line for line in obs.render_prometheus(reg).splitlines()
+             if "euler_compile_queue_depth " in line]
+    svc.start()
+    assert svc.join(timeout=30)
+    t[0] = 1.0
+    tuner.step()
+    tuner.close()
+    attrs = [(s["name"], s.get("attrs")) for s in log.spans()
+             if s["name"] in ("compile_job", "tuner_step")]
+    lines = [line for line in obs.render_prometheus(reg).splitlines()
+             if any(f in line for f in COMPILE_FAMILIES)]
+    return _tree(log), attrs, depth + lines, tuner.stats()
+
+
+def test_tuner_spans_and_compile_families_match_reference():
+    """``AutoTuner`` and ``CompileService`` of both packages over the same
+    stand-in solver: the same ``tuner_step`` and ``compile_job`` spans
+    (a failed job's ``error`` included), the same
+    ``euler_compile_jobs{state}`` and ``euler_compile_queue_depth``
+    lines, and the same tuner stats."""
+    from repro.euler import autotune as j_autotune
+    from repro_torch.euler import autotune as t_autotune
+
+    ours = _tuner_session(t_autotune, t_obs)
+    theirs = _tuner_session(j_autotune, j_obs)
+    assert ours == theirs
+    names = [n for n, _ in ours[1]]
+    assert names.count("tuner_step") == 2 and names.count("compile_job") == 5
+    assert ours[1][0] == ("tuner_step", {"prewarm": 2, "pin": 1, "evict": 0,
+                                         "tighten": 1})
+    assert ("compile_job", {"label": "prewarm[B8]", "error": "RuntimeError",
+                            "widths": [], "state": "failed"}) in ours[1]
+    assert 'euler_compile_jobs{state="failed"} 1' in ours[2]
+    assert 'euler_compile_jobs{state="queued"} 5' in ours[2]
+    assert "euler_compile_queue_depth 4.0" in ours[2]
 
 
 def _host_session(EulerSolver, graphs, log, reg):

@@ -1,5 +1,6 @@
 """The port's Euler serving loop (``repro_torch.launch.serve``:
-``MicroBatcher``, ``main_euler``), its flush accounting
+``MicroBatcher``, ``main_euler``, static and ``--adaptive``), its flush
+accounting
 (``repro_torch.euler.autotune.FlushLog``) and the session's width ladder
 and byte budget (``EulerSolver.prewarm``/``warmed_widths``,
 ``program_cache_bytes``, pins), all on the CPU.
@@ -19,6 +20,7 @@ solves the golden again live).  The JAX package is not imported here:
 import ast
 import doctest
 import json
+import threading
 from pathlib import Path
 
 import numpy as np
@@ -36,6 +38,7 @@ from repro_torch.launch.serve import MicroBatcher
 
 GOLDEN = Path(REPO) / "tests" / "golden" / "torch_batch_reference.npz"
 REFERENCE_SERVE = Path(REPO) / "src" / "repro" / "launch" / "serve.py"
+REFERENCE_AUTOTUNE = Path(REPO) / "src" / "repro" / "euler" / "autotune.py"
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -286,7 +289,7 @@ def test_flush_log_is_bounded_and_tracks_first_wide():
 
 def test_flush_log_doctest():
     res = doctest.testmod(autotune)
-    assert res.attempted == 4 and res.failed == 0
+    assert res.attempted == 7 and res.failed == 0
 
 
 # ---------------------------------------------------------------------------
@@ -568,9 +571,60 @@ def test_main_euler_sync_eager_and_same_bucket_on_cpu(tmp_path):
     assert sync["hits"] == 2 + 6 and sync["misses"] == 1
 
 
-def test_main_euler_adaptive_is_not_ported_yet():
-    with pytest.raises(NotImplementedError, match="item 6b"):
-        serve.main(["--device", "cpu", "--adaptive"])
+def reference_tuner_keys() -> set:
+    """The keys of the reference's ``AutoTuner.stats()``, which its
+    ``main_euler --adaptive`` adds to the ``--json`` line, read from its
+    source."""
+    tree = ast.parse(REFERENCE_AUTOTUNE.read_text())
+    cls = next(n for n in tree.body if isinstance(n, ast.ClassDef)
+               and n.name == "AutoTuner")
+    fn = next(n for n in cls.body if isinstance(n, ast.FunctionDef)
+              and n.name == "stats")
+    ret = next(n.value for n in ast.walk(fn) if isinstance(n, ast.Return))
+    return {k.value for k in ret.keys}
+
+
+def test_main_euler_adaptive_on_cpu(tmp_path, monkeypatch, capsys):
+    """``--adaptive`` at scale 6, P = 2, one bucket's pool of 3 and a
+    quota of 2: no cold sweep, all 12 requests delivered once and valid,
+    the tuner stepped, and the JSON line holds the reference's static
+    keys plus its ``AutoTuner.stats()`` keys; the compile thread is
+    stopped when ``main_euler`` returns."""
+    delivered = []
+    harvest = MicroBatcher._harvest_one
+
+    def kept(self):
+        out = harvest(self)
+        for _, r in out:
+            r.validate()
+        delivered.extend(out)
+        return out
+
+    monkeypatch.setattr(MicroBatcher, "_harvest_one", kept)
+    out = tmp_path / "serve.json"
+    thr = serve.main(["--device", "cpu", "--scale", "6", "--parts", "2",
+                      "--same-bucket", "--pool", "3", "--max-batch", "2",
+                      "--requests", "12", "--adaptive", "--json", str(out)])
+    stats = json.loads(out.read_text().splitlines()[-1])
+    tuner_keys = reference_tuner_keys()
+    assert len(tuner_keys) == 8
+    assert set(stats) == reference_static_keys() | tuner_keys
+    assert stats["adaptive"] and stats["served"] == 12 and thr > 0
+    assert stats["cold_s"] == 0.0 and stats["tuner_steps"] >= 1
+    assert stats["buckets"] == stats["tuner_buckets"] == 1
+    assert sum(int(w) * c for w, c in stats["width_hist"].items()) == 12
+    assert sorted(s for s, _ in delivered) == list(range(12))
+    assert not any(t.name == "compile-service" and t.is_alive()
+                   for t in threading.enumerate())
+    text = capsys.readouterr().out
+    assert "adaptive: first wide flush at" in text
+    assert "cold pass" not in text
+
+
+@pytest.mark.parametrize("extra", [["--eager"], ["--max-batch", "1"]])
+def test_main_euler_adaptive_needs_a_ladder(extra):
+    with pytest.raises(SystemExit, match="--adaptive needs"):
+        serve.main(["--device", "cpu", "--adaptive"] + extra)
 
 
 def test_main_euler_without_a_card_raises():
