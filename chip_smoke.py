@@ -276,7 +276,26 @@ exits non-zero:
                 position must fail both.  A profiled eager prefill and
                 decode step, and a profiled prefill and decode replay,
                 split the device time by kernel; an eager decode step
-                launches no kernel of the port.
+                launches no kernel of the port;
+  10. audit   — the program audit (``repro_torch.analysis``) on the card:
+                ``audit_graph`` of a scale-8, P = 8 bucket at widths 1, 2,
+                4 and 8, sharded and replicated, a line a program: ``ok``,
+                the census of the recording's calls at the stand-ins
+                for the reference's collectives and kernels, the
+                recorded graph's K1–K4 kernel nodes against the expected
+                launches, its loop-test, while and host nodes and
+                device→host copies, its ``reserved_bytes`` beside
+                ``program_cost_bytes`` and their ratio; every program
+                must pass.  Three planted faults must each fail it: a
+                non-blocking copy of the mate into a pinned host tensor
+                recorded into the body, one ``_ring`` call more after
+                the rank, and a body that writes a static input.  Then the eviction check: a session
+                records bucket A (scale 16), its byte budget is set to
+                1.5 × A's ``reserved_bytes``, and bucket B (scale 17, a
+                larger ``e_cap``) is solved: B's charge, its static
+                model times the reserved/model ratio A measured, must
+                evict A at B's ``_account``, before B records; the
+                predicted and measured bytes are printed.
 
 The last three lines are the kernel table as JSON, the ``nvidia-smi``
 line, and ``{"ok": true, "device": {...}}``.
@@ -305,6 +324,9 @@ import numpy as np  # noqa: E402
 import torch  # noqa: E402
 import torch.nn.functional as F  # noqa: E402
 
+from repro_torch.analysis import audit_graph  # noqa: E402
+from repro_torch.analysis.graph_audit import (  # noqa: E402
+    LOOP_TEST, graph_kernel_nodes, program_cost_bytes)
 from repro_torch.configs.base import gnn_shapes, lm_shapes  # noqa: E402
 from repro_torch.configs.registry import get_config  # noqa: E402
 from repro_torch.core import capture  # noqa: E402
@@ -412,6 +434,10 @@ PATH_KERNELS = {False: ("pointer_double", "pointer_double_rank"),
                 True: ("pointer_double_shard", "pointer_double_rank_shard")}
 MODES = {"sharded": {}, "replicated": {"sharded_phase3": False},
          "no_gather": {"gather_circuit": False}}
+#: phase 10: the audited bucket's scale and widths, and the eviction
+#: check's two buckets (A, then the larger B)
+AUDIT_SCALE, AUDIT_WIDTHS = 8, (1, 2, 4, 8)
+EVICT_SCALES = (16, 17)
 
 
 def say(phase: str, **fields) -> None:
@@ -2516,6 +2542,171 @@ def check_lm_slice(dev, smi: str) -> dict:
     return dict(counts, flash_attention=rec_prefill["flash_attention"])
 
 
+def _compact(counts: dict) -> str:
+    return "'" + json.dumps(counts, separators=(",", ":"),
+                            sort_keys=True) + "'"
+
+
+def audit_lines(mode: str, report: dict, smi: str) -> None:
+    """Phase 10: one ``[audit]`` line a program of an ``audit_graph``
+    report (module docstring)."""
+    for prog in report["programs"]:
+        gcen = prog["graph_census"]
+        nodes = graph_kernel_nodes(gcen)
+        want = {lp["kernel"]: lp["launches"]
+                for lp in prog["cost"]["loops"].values()}
+        reserved = prog["cost"]["reserved_bytes"]
+        model = prog["cost"]["program_bytes"]
+        census = {k: v for k, v in prog["census"].items()
+                  if not k.startswith("kernel:")}
+        say("audit", mode=mode, scale=AUDIT_SCALE, parts=PARTS,
+            e_cap=prog["e_cap"], batch=prog["batch"] or 1, ok=prog["ok"],
+            census=_compact(census),
+            kernel_nodes="'" + ",".join(f"{k}:{nodes[k]}/{n}"
+                                        for k, n in want.items()) + "'",
+            loop_test_nodes=nodes[LOOP_TEST],
+            while_nodes=gcen.get("conditional", 0),
+            host_nodes=gcen.get("host", 0),
+            memcpy_dtoh=gcen.get("memcpy_dtoh", 0),
+            memcpy_unknown=gcen.get("memcpy_unknown", 0),
+            graph_kernels=gcen.get("kernel", 0),
+            resident_intact=prog["resident_intact"],
+            reserved_bytes=reserved, program_cost_bytes=model,
+            ratio=f"{reserved / model:.4f}", smi=f"'{smi}'")
+        for viol in prog["violations"]:
+            say("audit", mode=mode, batch=prog["batch"] or 1,
+                violation=f"'{viol}'")
+
+
+def check_audit_faults(g) -> None:
+    """Phase 10's planted faults: each must fail the audit."""
+    whole, rank = Engine.whole_run, p3._rank_sharded
+    pinned = {}
+
+    def copying(self, state, anc, sv, num_edges):
+        out = whole(self, state, anc, sv, num_edges)
+        host = pinned.get("mate")
+        if host is None:      # the warm-up's eager run, not the recording
+            host = pinned["mate"] = torch.empty(
+                out.mate.shape, dtype=out.mate.dtype, pin_memory=True)
+        host.copy_(out.mate, non_blocking=True)
+        return out
+
+    def one_more_ring(mate_sh, batch=1):
+        dist, reach = rank(mate_sh, batch)
+        p3._ring(dist, 0, batch)
+        return dist, reach
+
+    def writing(self, state, anc, sv, num_edges):
+        out = whole(self, state, anc, sv, num_edges)
+        state.pk_mask.zero_()
+        return out
+
+    faults = {"dtoh_copy": (mock.patch.object(Engine, "whole_run", copying),
+                            "memcpy_dtoh"),
+              "extra_ring": (mock.patch.object(p3, "_rank_sharded",
+                                               one_more_ring), "ring_step"),
+              "writes_inputs": (mock.patch.object(Engine, "whole_run",
+                                                  writing),
+                                "changed the static inputs")}
+    for name, (patch, needle) in faults.items():
+        solver = EulerSolver(n_parts=PARTS, width_ladder=(1,))
+        with patch:
+            report = audit_graph(solver, g)
+        viol = report["programs"][0]["violations"]
+        caught = not report["ok"] and any(needle in v for v in viol)
+        say("audit", fault=name, caught=caught,
+            violations=f"'{' | '.join(viol)}'")
+        if not caught:
+            raise AssertionError(f"[audit] the planted fault {name} passed "
+                                 f"the audit")
+        del solver
+        torch.cuda.empty_cache()
+
+
+def check_audit_eviction(smi: str) -> None:
+    """Phase 10's eviction check (module docstring)."""
+    a, b = (eulerian_rmat(s, avg_degree=AVG_DEGREE, seed=SEED)
+            for s in EVICT_SCALES)
+    solver = EulerSolver(n_parts=PARTS)
+    ka, kb = solver.bucket_of(a), solver.bucket_of(b)
+    if kb[0] <= ka[0]:
+        raise AssertionError(f"[audit] bucket B's e_cap {kb[0]} is not "
+                             f"above A's {ka[0]}")
+    events = []
+    evict, capture_run = Engine.evict_program, FusedRun._capture
+
+    def counted_evict(self, num_edges, batch):
+        events.append(("evict", num_edges))
+        return evict(self, num_edges, batch)
+
+    def counted_capture(self):
+        events.append(("record", self.num_edges))
+        return capture_run(self)
+
+    with mock.patch.object(Engine, "evict_program", counted_evict), \
+            mock.patch.object(FusedRun, "_capture", counted_capture):
+        solver.solve(a).validate()
+        reserved_a = solver._engines[ka].fused_program(ka[0]).reserved_bytes
+        model_a, model_b = (program_cost_bytes(k, None, sharded=True)
+                            for k in (ka, kb))
+        budget = solver.program_cache_bytes = int(1.5 * reserved_a)
+        predicted_b = solver._program_cost(kb, None)
+        torch.cuda.reset_peak_memory_stats()
+        solver.solve(b).validate()
+        peak = torch.cuda.max_memory_reserved()
+    reserved_b = solver._engines[kb].fused_program(kb[0]).reserved_bytes
+    order = [e for e in events if e in (("evict", ka[0]),
+                                        ("record", kb[0]))]
+    first = order == [("evict", ka[0]), ("record", kb[0])]
+    say("audit", check="eviction", scale_a=EVICT_SCALES[0],
+        scale_b=EVICT_SCALES[1], parts=PARTS, e_cap_a=ka[0], e_cap_b=kb[0],
+        reserved_a=reserved_a, model_a=model_a,
+        ratio_a=f"{reserved_a / model_a:.4f}", budget_bytes=budget,
+        model_b=model_b, predicted_b=predicted_b, reserved_b=reserved_b,
+        predicted_over_measured_b=f"{predicted_b / reserved_b:.4f}",
+        ratio_b=f"{reserved_b / model_b:.4f}",
+        events=f"'{json.dumps(events, separators=(',', ':'))}'",
+        evicted_before_record=first, peak_reserved_bytes=peak,
+        evictions=solver.cache_stats.evictions, smi=f"'{smi}'")
+    if not first:
+        raise AssertionError(f"[audit] bucket A was not evicted before B "
+                             f"recorded: {events}")
+    if peak >= reserved_a + reserved_b:
+        raise AssertionError(f"[audit] B's solve peaked at {peak} reserved "
+                             f"bytes, not below A's and B's programs "
+                             f"together ({reserved_a + reserved_b})")
+    del solver
+    torch.cuda.empty_cache()
+
+
+def check_audit(smi: str) -> None:
+    """Phase 10 (module docstring)."""
+    t0 = time.perf_counter()
+    g = eulerian_rmat(AUDIT_SCALE, avg_degree=AVG_DEGREE, seed=SEED)
+    for mode in ("sharded", "replicated"):
+        solver = EulerSolver(n_parts=PARTS, width_ladder=AUDIT_WIDTHS,
+                             **MODES[mode])
+        t = time.perf_counter()
+        report = audit_graph(solver, g)
+        say("audit", mode=mode, scale=AUDIT_SCALE, parts=PARTS,
+            e_cap=report["bucket"]["e_cap"],
+            n_levels=report["bucket"]["n_levels"],
+            programs=len(report["programs"]), ok=report["ok"],
+            seconds=f"{time.perf_counter() - t:.3f}",
+            per_program_bytes=_compact(
+                report["cache_budget"]["per_program_bytes"]))
+        audit_lines(mode, report, smi)
+        if not report["ok"]:
+            raise AssertionError(f"[audit] {mode}: a program failed the "
+                                 f"audit")
+        del solver
+        torch.cuda.empty_cache()
+    check_audit_faults(g)
+    check_audit_eviction(smi)
+    say("audit", seconds=f"{time.perf_counter() - t0:.3f}")
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--scale", type=int, default=20,
@@ -2649,6 +2840,9 @@ def main(argv=None) -> int:
     counts = check_lm_slice(dev, smi)
     launches["segment_sum_sorted"] = counts["segment_sum_sorted"]
     launches["flash_attention"] = counts["flash_attention"]
+
+    # ---- 10. the program audit, planted faults, the first-record charge
+    check_audit(smi)
 
     print(json.dumps({"kernels": [
         {"name": name, **KERNELS[name], "launches": launches[name],

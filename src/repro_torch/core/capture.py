@@ -28,6 +28,20 @@ eagerly the rounds it ran, in a graph the counter its while node writes
 at every replay.  The fused run (``core/engine.py::FusedRun``) copies
 them out with each run's outputs (``PendingRun.rounds_run``).
 
+The census.  The reference audits its programs by walking their jaxprs
+(``repro/analysis/jaxpr_audit.py``), where a scan or ``fori_loop`` body
+is traced once.  A recording here runs Python instead: every level and
+every ring step runs.  Inside :func:`censusing` the port's stand-ins for
+the reference's collectives and kernel calls (``core/engine.py``'s
+``_route`` and ``_log_mates`` for ``all_to_all``, ``core/phase3.py``'s
+``_ring`` for ``ppermute``, its partition sums for ``psum`` and its
+gathers for ``all_gather``, and the K1–K4 wrappers for ``pallas_call``)
+count their calls into the thread's :class:`Census`, each tagged with
+the loops open around it (:func:`scope`).  A splice loop's body counts
+once, as the reference's ``while_loop`` body: inside a recording it runs
+once, and eagerly only its first round counts.  With no census open a
+hook costs one lookup and a ``None`` check.
+
 The card gate.  ``torch.cuda.graph`` records in CUDA's ``"global"``
 capture mode: while one thread records, a call that may synchronize
 (an allocation, a copy, an event or stream synchronization) from any
@@ -42,7 +56,9 @@ from __future__ import annotations
 
 import contextlib
 import threading
-from typing import Callable, Iterator, List, Optional, Sequence, Tuple
+from collections import Counter
+from typing import (Callable, Dict, Iterator, List, Optional, Sequence,
+                    Tuple)
 
 import torch
 
@@ -60,10 +76,13 @@ class Loops:
     int32 round counter.  On a card it also holds the stream and the
     memory pool that the while nodes record their bodies on; both are
     made here, before a capture starts, and must live as long as the
-    graph that holds the nodes."""
+    graph that holds the nodes.  ``bodies`` are the addresses of the
+    while nodes' body graphs (for :func:`graph_census`; valid while
+    the graph that holds the nodes is)."""
 
     def __init__(self, device: torch.device):
         self.counters: List[torch.Tensor] = []
+        self.bodies: List[int] = []
         self.stream: Optional[torch.cuda.Stream] = None
         self.pool: Optional[torch.cuda.MemPool] = None
         if device.type == "cuda":
@@ -217,6 +236,118 @@ def recording(graph: "torch.cuda.CUDAGraph",
         raise
 
 
+class Census:
+    """What one recording (on the CPU: one run) called at the port's
+    stand-ins for the reference's collectives and kernels (module
+    docstring).  ``counts`` maps a name to its calls: ``all_to_all`` (a
+    table group's exchange counts the reference's eqns for the group,
+    one a field shipped plus the mask), ``ppermute`` (one a ring loop,
+    the reference's one eqn a ``fori_loop``), ``ring_step`` (one a
+    ``_ring`` call), ``psum``, ``all_gather``, ``pallas_call`` (one a
+    K1–K4 wrapper call, kernel or twin) and ``kernel:<wrapper>``, and
+    ``while`` (one a splice loop).  ``scopes`` lists every loop opened,
+    in order, as ``(kind, counts inside it)``, kinds ``level``, ``ring``
+    and ``while``; ``inside[kind]`` counts what was called inside any
+    loop of that kind."""
+
+    def __init__(self):
+        self.counts: Counter = Counter()
+        self.inside: Dict[str, Counter] = {}
+        self.scopes: List[Tuple[str, Counter]] = []
+        self._open: List[Tuple[str, Counter]] = []
+        self._muted = 0
+
+    def add(self, name: str, k: int = 1) -> None:
+        if self._muted:
+            return
+        self.counts[name] += k
+        for kind in {kind for kind, _ in self._open}:
+            self.inside.setdefault(kind, Counter())[name] += k
+        for _, ctr in self._open:
+            ctr[name] += k
+
+    @contextlib.contextmanager
+    def scope(self, kind: str) -> Iterator[None]:
+        """A loop of ``kind`` around the ``with`` body; a ring loop also
+        counts its ``ppermute`` and a splice loop its ``while``, where
+        the loop opens."""
+        if kind in ("ring", "while"):
+            self.add("ppermute" if kind == "ring" else "while")
+        ctr: Counter = Counter()
+        if not self._muted:
+            self.scopes.append((kind, ctr))
+        self._open.append((kind, ctr))
+        try:
+            yield
+        finally:
+            self._open.pop()
+
+    @contextlib.contextmanager
+    def muted(self) -> Iterator[None]:
+        """Count nothing inside (a splice loop's later eager rounds)."""
+        self._muted += 1
+        try:
+            yield
+        finally:
+            self._muted -= 1
+
+
+_NULL = contextlib.nullcontext()
+_census = threading.local()     # .open: this thread's open Census
+
+
+def open_census() -> Optional[Census]:
+    """The census open on this thread, if any."""
+    return getattr(_census, "open", None)
+
+
+@contextlib.contextmanager
+def censusing(census: Census) -> Iterator[Census]:
+    """Count this thread's calls at the hooks into ``census``."""
+    outer, _census.open = open_census(), census
+    try:
+        yield census
+    finally:
+        _census.open = outer
+
+
+def note(name: str, k: int = 1) -> None:
+    """A hook: ``k`` calls of ``name``, if a census is open."""
+    c = getattr(_census, "open", None)
+    if c is not None:
+        c.add(name, k)
+
+
+def note_kernel(name: str) -> None:
+    """A hook in a K1–K4 wrapper: one ``pallas_call`` of ``name``."""
+    c = getattr(_census, "open", None)
+    if c is not None:
+        c.add("pallas_call")
+        c.add(f"kernel:{name}")
+
+
+def scope(kind: str):
+    """:meth:`Census.scope` of the open census, else a no-op."""
+    c = getattr(_census, "open", None)
+    return _NULL if c is None else c.scope(kind)
+
+
+def graph_census(graph: "torch.cuda.CUDAGraph", loops: Loops,
+                 device: torch.device) -> Dict[str, int]:
+    """The node census (``graph_loop.census``) of a graph just recorded
+    by :func:`recording` with ``keep_graph=True``, its while bodies
+    (``loops.bodies``) included; then the graph is instantiated.
+    Raises ``RuntimeError`` when the census cannot be read."""
+    try:
+        counts = graph_loop.census(graph.raw_cuda_graph(), loops.bodies,
+                                   device)
+    except RuntimeError as e:
+        raise RuntimeError(f"the recorded graph's census cannot be read: "
+                           f"{e}") from e
+    graph.instantiate()
+    return counts
+
+
 def device_while(body: Callable[[], None], changed: torch.Tensor,
                  rounds: int) -> None:
     """Record ``body`` (one round, written in place) as one while node of
@@ -230,9 +361,11 @@ def device_while(body: Callable[[], None], changed: torch.Tensor,
                            "capture.counting(): nothing would hold its "
                            "while node's stream, pool and counter")
     ctr = torch.empty((), dtype=torch.int32, device=changed.device)
-    graph_loop.while_loop(body, changed, ctr, rounds, loops.stream,
-                          loops.pool)
+    body_graph = graph_loop.while_loop(body, changed, ctr, rounds,
+                                       loops.stream, loops.pool)
     loops.counters.append(ctr)
+    if body_graph is not None:
+        loops.bodies.append(body_graph)
 
 
 def converge(step: Callable[..., Sequence[torch.Tensor]],
@@ -252,13 +385,17 @@ def converge(step: Callable[..., Sequence[torch.Tensor]],
         for buf, new in zip(bufs, step(*bufs)):
             buf.copy_(new)
 
+    cen = open_census()
     if capturing(bufs[0].device):
-        device_while(one_round, bufs[-1], rounds)
+        with scope("while"):
+            device_while(one_round, bufs[-1], rounds)
         return bufs
     ran = 0
-    while ran < rounds and bool(bufs[-1].any()):    # one host read a round
-        one_round()
-        ran += 1
+    with scope("while"):
+        while ran < rounds and bool(bufs[-1].any()):  # one host read a round
+            with cen.muted() if cen is not None and ran else _NULL:
+                one_round()
+            ran += 1
     loops = _active()
     if loops is not None:
         loops.counters.append(torch.tensor(ran, dtype=torch.int32))

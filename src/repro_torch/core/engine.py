@@ -68,7 +68,8 @@ from .phase1 import (BIG, I32, NewEdges, OpenTable, Phase1Caps, TouchTable,
                      _compact, _seg_starts, _valid_first, pair_table_cap,
                      phase1_local, take)
 from .phase2 import MergeTree, generate_merge_tree
-from .phase3 import phase3_device, phase3_sharded, shard_width, unshard
+from .phase3 import (phase3_device, phase3_sharded, shard_width,
+                     sharded_phase3_schedule, unshard)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -240,14 +241,68 @@ def require_batch_fits(num_edges: int, batch: int) -> None:
             f"use a smaller batch")
 
 
+#: Field counts behind the fused program's collective schedule (the
+#: reference's ``_SHIP_GROUPS``): on the mesh each table group ships every
+#: field plus its lane mask through an ``all_to_all`` of its own a
+#: superstep, and the mate route adds (s, v, mask).  Derived from
+#: ``EngineState`` so the budget tracks the state layout.  Here a group's
+#: exchange (:func:`_route`, :func:`_log_mates`) stands for all of them.
+_SHIP_GROUPS = {
+    "park": sum(f.startswith("pk_") for f in EngineState._fields),   # 8
+    "open": sum(f.startswith("op_") for f in EngineState._fields),   # 6
+    "touch": sum(f.startswith("tc_") for f in EngineState._fields),  # 7
+    "mate": 3,                                                       # s, v, m
+}
+
+
+def fused_collective_budget(n_levels: int, num_edges: Optional[int] = None,
+                            n_parts: Optional[int] = None,
+                            sharded_phase3: bool = False,
+                            gather_circuit: bool = True) -> dict:
+    """The fused program's static collective schedule, the reference's
+    (``repro/core/engine.py::fused_collective_budget``), counted as its
+    traced eqns: per level, one ``all_to_all`` per shipped field per
+    table group (``_SHIP_GROUPS``); after the levels, one ``all_gather``
+    for the replicated Phase 3, or for the sharded one
+    (``sharded_phase3=True``, needs ``num_edges`` and ``n_parts``) the
+    ring schedule of :func:`~repro_torch.core.phase3.sharded_phase3_schedule`.
+    ``dynamic_all_to_all`` is the per-run total over the ``n_levels``
+    levels.  On one device each is a stand-in (module docstring), and
+    ``repro_torch.analysis.graph_audit`` holds a recording's calls at
+    them to this schedule."""
+    per_level = sum(_SHIP_GROUPS.values())
+    out = {
+        "all_to_all": per_level,          # eqns inside the level-scan body
+        "all_gather": 1,                  # eqns outside the scan
+        "psum": 0,
+        "ppermute": 0,
+        "scan_length": n_levels,
+        "dynamic_all_to_all": per_level * n_levels,
+    }
+    if sharded_phase3:
+        if num_edges is None or n_parts is None:
+            raise ValueError(
+                "sharded_phase3 budget needs num_edges and n_parts")
+        sched = sharded_phase3_schedule(num_edges, n_parts,
+                                        gather_circuit=gather_circuit)
+        out["all_gather"] = sched["all_gather"]
+        out["ppermute"] = sched["ppermute"]
+        out["psum"] = sched["psum"]
+        out["phase3"] = sched
+    return out
+
+
 def _route(dest: torch.Tensor, mask: torch.Tensor, fields, n: int,
-           lane: int):
+           lane: int, group: str):
     """Every source row's entries into its ``n`` send lanes of width
     ``lane``, keyed by destination partition: one per-row stable argsort
     of the ``[n_src, X]`` keys and one scatter per field into
     ``[n_src, n·lane + 1]`` buffers (BIG-filled; the last column is the
     pad slot that takes every entry that does not ship).  Returns
-    (buffers, mask buffer, per-source overflow [n_src])."""
+    (buffers, mask buffer, per-source overflow [n_src]).  ``group`` (a
+    key of ``_SHIP_GROUPS``) is the table group shipped: the reference's
+    ``all_to_all`` of each of its fields (:mod:`.capture`'s census)."""
+    capture.note("all_to_all", _SHIP_GROUPS[group])
     key = torch.where(mask, dest, n)          # pads route to virtual slot n
     order = torch.argsort(key, dim=-1, stable=True)
     kd = take(key, order)
@@ -307,11 +362,12 @@ def _receive_compact(bufs, rmask: torch.Tensor, lane: int, cap: int,
             take(rmask, order), rmask.sum(-1) > cap)
 
 
-def _ship(dest, mask, fields, n: int, lane: int, cap: int, batch: int = 1):
+def _ship(dest, mask, fields, n: int, lane: int, cap: int, group: str,
+          batch: int = 1):
     """Route, exchange and compact one table group (opens or touch
     pairs): ``(fields, mask, route overflow, compaction overflow)``, the
     first three per destination, the route overflow per source."""
-    bufs, bm, of_route = _route(dest, mask, fields, n, lane)
+    bufs, bm, of_route = _route(dest, mask, fields, n, lane, group)
     out, om, of_cap = _receive_compact(bufs, _received_mask(bm, lane, batch),
                                        lane, cap, batch)
     return out, om, of_route, of_cap
@@ -331,7 +387,9 @@ def _fit(x: torch.Tensor, cap: int, fill=None):
 def _log_mates(mate: torch.Tensor, s1, s2, lm, n_stubs: int) -> None:
     """Scatter one level's logged pairs, both directions, into ``mate``
     ``[B, 2E + 1]``, row b taking the pairs of the rows of graph b
-    (masked writes all put −1 into their graph's pad slot ``2E``)."""
+    (masked writes all put −1 into their graph's pad slot ``2E``).  It
+    stands for the reference's mate route and its ``all_to_all``s."""
+    capture.note("all_to_all", _SHIP_GROUPS["mate"])
     batch = mate.shape[0]
     row = torch.arange(s1.shape[0], device=mate.device)[:, None]
     ws = torch.cat([s1, s2], -1)
@@ -716,7 +774,7 @@ class Engine:
         send = state.pk_mask & (state.pk_act == lvl - 1)
         e_dest = torch.where(send, dest_of(state.pk_own0), n)
         if lvl == 0:       # level 0 consumes the initial local edges
-            _, _, of1 = _route(e_dest, send, (), n, c.ship_cap)
+            _, _, of1 = _route(e_dest, send, (), n, c.ship_cap, "park")
             ne = NewEdges(*(_fit(x, c.new_cap) for x in
                             (state.le_eid, state.le_u, state.le_v,
                              state.le_lau, state.le_lav, state.le_mask)))
@@ -725,7 +783,7 @@ class Engine:
             bufs, bm, of1 = _route(
                 e_dest, send, (state.pk_eid, state.pk_u, state.pk_v,
                                state.pk_lau, state.pk_lav, state.pk_act),
-                n, c.ship_cap)
+                n, c.ship_cap, "park")
             arrived = _received_mask(bm & (bufs[5] == lvl - 1), c.ship_cap,
                                      batch)
             del bm
@@ -741,7 +799,7 @@ class Engine:
         (os_, ov_, ol_, oc_), om_, of2, of3 = _ship(
             torch.where(state.op_mask, o_dest, n), state.op_mask,
             (state.op_stub, state.op_vert, state.op_la, state.op_comp),
-            n, osc, c.open_cap, batch)
+            n, osc, c.open_cap, "open", batch)
         opens = OpenTable(os_, ov_, ol_, oc_, om_)
         t_dest = dest_of(state.tc_own0) if lvl > 0 \
             else me.expand_as(state.tc_own0)
@@ -749,7 +807,7 @@ class Engine:
             torch.where(state.tc_mask, t_dest, n), state.tc_mask,
             (state.tc_s1, state.tc_s2, state.tc_vert, state.tc_la,
              state.tc_comp),
-            n, tsc, c.touch_cap, batch)
+            n, tsc, c.touch_cap, "touch", batch)
         touch = TouchTable(ts1, ts2, tv_, tl_, tc_, tm_)
 
         # ---- 3. Phase 1 ----
@@ -814,7 +872,7 @@ class Engine:
             probe = (self.trace.span("level", level=lvl, edges=num_edges)
                      if clock and self.timed_probe
                      else contextlib.nullcontext())
-            with probe:
+            with probe, capture.scope("level"):
                 if clock and not self._stepped:
                     self._stepped = True
                     self._traced("superstep")
@@ -856,6 +914,7 @@ class Engine:
         mate, flags, metrics, _ = self.run_levels(state, anc, num_edges,
                                                   clock=False)
         if not self.sharded_phase3:
+            capture.note("all_gather")    # the mate shards': here a view
             circuit, mate2, ok = phase3_device(
                 mate, sv, splice_rounds=c.phase3_rounds)
             return FusedOut(circuit, mate2, flags, metrics, ok)
@@ -1064,6 +1123,19 @@ class FusedRun:
     (:class:`~repro_torch.core.capture.Loops`, kept with the graph, since
     the nodes' bodies run on its stream's memory pool);
     :meth:`rounds_run` gives the rounds of the last run fetched.
+
+    Each recording (on the CPU: the first run) also keeps ``census``,
+    the :class:`~repro_torch.core.capture.Census` of the recorded body's
+    calls at the port's stand-ins for the reference's collectives and
+    kernels, which the program's audit reads
+    (``repro_torch.analysis.graph_audit``).  A run made for the audit
+    (``audit=True``) also keeps, on a card, ``graph_census``: the node
+    counts of the recorded graph (``kernels/graph_loop.py::census``),
+    for which the capture keeps its ``cudaGraph_t`` and instantiates it
+    after the census; the recording raises if the census cannot be
+    read.  Runs the solver caches record a plain graph.  A replay pays
+    nothing for either census.
+
     :meth:`free` waits for the side stream, then drops the graph and
     everything it holds.  An eviction (:meth:`retire`) frees the run at
     once unless a launch holds it, say a recording in another thread:
@@ -1077,10 +1149,11 @@ class FusedRun:
     """
 
     def __init__(self, engine: Engine, num_edges: int,
-                 batch: Optional[int] = None):
+                 batch: Optional[int] = None, audit: bool = False):
         self.engine = weakref.proxy(engine)
         self.num_edges = int(num_edges)
         self.batch = batch
+        self.audit = audit
         self.inputs: Optional[Tuple[EngineState, torch.Tensor,
                                     torch.Tensor]] = None
         self.graph: Optional["torch.cuda.CUDAGraph"] = None
@@ -1090,6 +1163,8 @@ class FusedRun:
         self._launcher: Optional[ThreadPoolExecutor] = None
         self.captures = 0
         self.reserved_bytes = 0
+        self.census: Optional[capture.Census] = None
+        self.graph_census: Optional[Dict[str, int]] = None
         self._ran = False         # its first (CPU) run was counted a trace
         self._rounds: Optional[List[int]] = None
         self._lock = threading.Lock()     # one launch at a time
@@ -1146,13 +1221,18 @@ class FusedRun:
 
     def _record(self) -> None:
         """Record the body into a new graph (a host read in it raises,
-        and so does a while node that cannot be made or instantiated);
-        a recording is a trace."""
-        graph = torch.cuda.CUDAGraph()
-        loops = capture.Loops(self.inputs[1].device)
-        with capture.recording(graph, loops):
+        and so does a while node that cannot be made or instantiated),
+        with its census, and for an audit its graph's; a recording is a
+        trace."""
+        dev = self.inputs[1].device
+        graph = torch.cuda.CUDAGraph(keep_graph=self.audit)
+        loops = capture.Loops(dev)
+        census = capture.Census()
+        with capture.recording(graph, loops), capture.censusing(census):
             self.out = self.engine.whole_run(*self.inputs, self.num_edges)
-        self.graph, self.loops = graph, loops
+        if self.audit:
+            self.graph_census = capture.graph_census(graph, loops, dev)
+        self.graph, self.loops, self.census = graph, loops, census
         self.captures += 1
         self.engine._traced("fused", edges=self.num_edges, batch=self.batch)
 
@@ -1247,12 +1327,16 @@ class FusedRun:
         t0 = time.perf_counter()
         self._load(state, anc, sv)
         t1 = time.perf_counter()
+        census = None
         if not self._ran:
             self._ran = True
             self.engine._traced("fused", edges=self.num_edges,
                                 batch=self.batch)
+            census = self.census = capture.Census()
         loops = capture.Loops(dev)
-        with capture.counting(loops):
+        with capture.counting(loops), (
+                contextlib.nullcontext() if census is None
+                else capture.censusing(census)):
             out = self.engine.whole_run(*self.inputs, self.num_edges)
         self.loops, self.out = loops, out
         pending = PendingRun(self, {"load_s": t1 - t0,

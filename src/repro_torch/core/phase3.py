@@ -53,6 +53,7 @@ import torch
 from ..kernels.pointer_double import (pointer_double, pointer_double_rank,
                                       pointer_double_rank_shard,
                                       pointer_double_shard)
+from . import capture
 from .capture import converge
 from .phase1 import (BIG, I32, _edge, _seg_starts, lexsort2, segment_min,
                      segment_sum, take)
@@ -455,7 +456,10 @@ def sharded_phase3_schedule(num_edges: int, n_parts: int,
 def _ring(x: torch.Tensor, dim: int = 0, batch: int = 1) -> torch.Tensor:
     """One ``ppermute`` step along the ring i → i+1: partition i receives
     partition i−1's value.  Rows are (partition, graph) pairs, partition
-    major, so the step rolls ``dim`` by ``batch`` rows."""
+    major, so the step rolls ``dim`` by ``batch`` rows.  Each ring loop
+    (the reference's ``fori_loop`` around one ``ppermute``) runs inside
+    ``capture.scope("ring")``; the census counts the steps."""
+    capture.note("ring_step")
     return torch.roll(x, shifts=batch, dims=dim)
 
 
@@ -486,11 +490,12 @@ def _doubling_sharded(kernel, q, carries, tables, me, S: int,
     n = me.shape[0] // batch
     bufs = [tuple(torch.empty_like(a) for a in carries) for _ in range(2)]
     cur = carries
-    for k in range(n):
-        if k:
-            tables = _ring(tables, 1, batch)
-        cur = kernel(q, *cur, _ring_bases(me, k, S, n), *tables, s_real=S,
-                     out=bufs[k % 2])
+    with capture.scope("ring"):
+        for k in range(n):
+            if k:
+                tables = _ring(tables, 1, batch)
+            cur = kernel(q, *cur, _ring_bases(me, k, S, n), *tables,
+                         s_real=S, out=bufs[k % 2])
     return cur
 
 
@@ -577,18 +582,20 @@ def splice_components_sharded(mate_sh: torch.Tensor, sv_sh: torch.Tensor,
         tbl = torch.full((4, rows * (P + 1)), BIG, dtype=I32, device=dev)
         cnt = torch.zeros(rows, dtype=I32, device=dev)
         of_t = torch.zeros(rows, dtype=torch.bool, device=dev)
-        for k in range(n):
-            if k:
-                buf = ring(buf)
-            bs, bv, bc, bm, bmk = buf
-            mine = (bmk > 0) & (bv % n == me[:, None])
-            pos = cnt[:, None] + torch.cumsum(mine, dim=1, dtype=I32) - 1
-            okw = mine & (pos < P)
-            slot = row64 * (P + 1) + torch.where(okw, pos, P)
-            tbl[:, slot.reshape(-1)] = torch.where(
-                okw, torch.stack([bv, bc, bs, bm]), BIG).reshape(4, -1)
-            cnt = cnt + mine.sum(1, dtype=I32)
-            of_t = of_t | (cnt > P)
+        with capture.scope("ring"):
+            for k in range(n):
+                if k:
+                    buf = ring(buf)
+                bs, bv, bc, bm, bmk = buf
+                mine = (bmk > 0) & (bv % n == me[:, None])
+                pos = cnt[:, None] + torch.cumsum(mine, dim=1,
+                                                  dtype=I32) - 1
+                okw = mine & (pos < P)
+                slot = row64 * (P + 1) + torch.where(okw, pos, P)
+                tbl[:, slot.reshape(-1)] = torch.where(
+                    okw, torch.stack([bv, bc, bs, bm]), BIG).reshape(4, -1)
+                cnt = cnt + mine.sum(1, dtype=I32)
+                of_t = of_t | (cnt > P)
         tv, tc, ts, tm = tbl.view(4, rows, P + 1)[:, :, :P]
 
         # ---- local per-vertex logic (the replicated path's) ----
@@ -607,23 +614,26 @@ def splice_components_sharded(mate_sh: torch.Tensor, sv_sh: torch.Tensor,
         vbuf = torch.stack([torch.where(cand, gc, BIG),
                             torch.where(cand, gv, BIG), cand.to(I32)])
         vote = torch.full((rows * S + rows * P,), BIG, dtype=I32, device=dev)
-        for k in range(n):
-            if k:
-                vbuf = ring(vbuf)
-            qc, qv, qm = vbuf
-            own = (qm > 0) & (qc >= lo) & (qc < hi)
-            ids = torch.where(own, row64 * S + (qc - lo), spill_v)
-            vote.scatter_reduce_(0, ids.reshape(-1), qv.reshape(-1), "amin")
+        with capture.scope("ring"):
+            for k in range(n):
+                if k:
+                    vbuf = ring(vbuf)
+                qc, qv, qm = vbuf
+                own = (qm > 0) & (qc >= lo) & (qc < hi)
+                ids = torch.where(own, row64 * S + (qc - lo), spill_v)
+                vote.scatter_reduce_(0, ids.reshape(-1), qv.reshape(-1),
+                                     "amin")
         vote = vote[:rows * S].view(rows, S)
 
         # ---- ring 3: read each record's comp vote back ----
         qc = torch.where(gmk, gc, BIG)
         va = torch.full_like(qc, BIG)
-        for _ in range(n):
-            own = (qc >= lo) & (qc < hi)
-            va = torch.where(own, take(vote, torch.where(own, qc - lo, 0)),
-                             va)
-            qc, va = ring(torch.stack([qc, va]))
+        with capture.scope("ring"):
+            for _ in range(n):
+                own = (qc >= lo) & (qc < hi)
+                va = torch.where(own,
+                                 take(vote, torch.where(own, qc - lo, 0)), va)
+                qc, va = ring(torch.stack([qc, va]))
 
         voted = cand & (va == gv)
         n_take = segment_sum(voted.to(I32), vseg, P, live=voted)
@@ -647,16 +657,17 @@ def splice_components_sharded(mate_sh: torch.Tensor, sv_sh: torch.Tensor,
                             hm.to(I32)])
         mpad = torch.cat([mate, torch.full((rows, 1), -1, dtype=I32,
                                            device=dev)], dim=1).reshape(-1)
-        for k in range(n):
-            if k:
-                wbuf = ring(wbuf)
-            wa, wb, wm = wbuf
-            own_a = (wm > 0) & (wa >= lo) & (wa < hi)
-            mpad[row64 * (S + 1) + torch.where(own_a, wa - lo, S)] = \
-                torch.where(own_a, wb, -1)
-            own_b = (wm > 0) & (wb >= lo) & (wb < hi)
-            mpad[row64 * (S + 1) + torch.where(own_b, wb - lo, S)] = \
-                torch.where(own_b, wa, -1)
+        with capture.scope("ring"):
+            for k in range(n):
+                if k:
+                    wbuf = ring(wbuf)
+                wa, wb, wm = wbuf
+                own_a = (wm > 0) & (wa >= lo) & (wa < hi)
+                mpad[row64 * (S + 1) + torch.where(own_a, wa - lo, S)] = \
+                    torch.where(own_a, wb, -1)
+                own_b = (wm > 0) & (wb >= lo) & (wb < hi)
+                mpad[row64 * (S + 1) + torch.where(own_b, wb - lo, S)] = \
+                    torch.where(own_b, wa, -1)
         mate_new = mpad.view(rows, S + 1)[:, :S]
 
         # ---- ring 5: deliver comp relabels to the label owners ----
@@ -664,24 +675,27 @@ def splice_components_sharded(mate_sh: torch.Tensor, sv_sh: torch.Tensor,
                             torch.where(hm, rot_c, BIG), hm.to(I32)])
         lmap = torch.cat([gid, torch.zeros((rows, 1), dtype=I32, device=dev)],
                          dim=1).reshape(-1)
-        for k in range(n):
-            if k:
-                mbuf = ring(mbuf)
-            mo, mn, mm = mbuf
-            own = (mm > 0) & (mo >= lo) & (mo < hi)
-            lmap[row64 * (S + 1) + torch.where(own, mo - lo, S)] = \
-                torch.where(own, mn, 0)
+        with capture.scope("ring"):
+            for k in range(n):
+                if k:
+                    mbuf = ring(mbuf)
+                mo, mn, mm = mbuf
+                own = (mm > 0) & (mo >= lo) & (mo < hi)
+                lmap[row64 * (S + 1) + torch.where(own, mo - lo, S)] = \
+                    torch.where(own, mn, 0)
         lmap = lmap.view(rows, S + 1)[:, :S]
 
         # ---- ring 6: every stub reads lmap[lab] from the label owner ----
         ql, lab_new = lab, lab
-        for _ in range(n):
-            own = (ql >= lo) & (ql < hi)
-            lab_new = torch.where(
-                own, take(lmap, torch.where(own, ql - lo, 0)), lab_new)
-            ql, lab_new = ring(torch.stack([ql, lab_new]))
+        with capture.scope("ring"):
+            for _ in range(n):
+                own = (ql >= lo) & (ql < hi)
+                lab_new = torch.where(
+                    own, take(lmap, torch.where(own, ql - lo, 0)), lab_new)
+                ql, lab_new = ring(torch.stack([ql, lab_new]))
 
         # the psum of the flags: over each graph's partitions
+        capture.note("psum")
         return (mate_new, lab_new, of | _per_graph(of_t, B).any(0),
                 _per_graph(hm.any(1), B).any(0))
 
@@ -706,11 +720,13 @@ def _rank_sharded(mate_sh: torch.Tensor, batch: int = 1
 
     # global start stub = min valid gid, by a ring-min of the row minima
     acc = rot = torch.where(valid, gid, BIG).amin(dim=1)
-    for _ in range(n):
-        rot = _ring(rot, 0, batch)
-        acc = torch.minimum(acc, rot)
+    with capture.scope("ring"):
+        for _ in range(n):
+            rot = _ring(rot, 0, batch)
+            acc = torch.minimum(acc, rot)
     # halt stub t = mate[start ^ 1], fetched from its owner by one psum
     # over each graph's partitions, then broadcast to its rows
+    capture.note("psum")
     q = (acc ^ 1)[:, None]
     t = _per_graph(torch.where(gid == q, mate_sh, 0).sum(dim=1),
                    batch).sum(0).to(I32).repeat(n)
@@ -748,6 +764,7 @@ def gather_circuit_sharded(mate_sh: torch.Tensor, dist_sh: torch.Tensor,
     one [n·S] stub space (:func:`unshard`), cut to ``n_stubs`` and
     emitted by :func:`emit_circuit`.  Returns ``(circuit [E], mate
     [n_stubs])``, for a batch ``([B, E], [B, n_stubs])``."""
+    capture.note("all_gather")
     mate, dist, reach = (unshard(x, batch)[..., :n_stubs]
                          for x in (mate_sh, dist_sh, reach_sh))
     return emit_circuit(mate >= 0, dist, reach), mate

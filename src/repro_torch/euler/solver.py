@@ -94,6 +94,7 @@ import numpy as np
 import torch
 
 from .. import obs
+from ..analysis.graph_audit import program_cost_bytes
 from ..core import capture
 from ..core.engine import (Engine, EngineCaps, FusedOut, FusedRun,
                            PendingRun, drained_clock, require_batch_fits,
@@ -253,7 +254,8 @@ class EulerSolver:
                         only).  A program costs its recording's reserved
                         pool (``FusedRun.reserved_bytes``); a miss is
                         charged a prediction from this session's
-                        recordings before it records and trued up after,
+                        recordings and the static model before it
+                        records and trued up after,
                         each followed by LRU-first eviction that spares
                         pinned programs and the one being charged.
     device_resident:    keep each prepared graph's uploaded initial state
@@ -348,6 +350,8 @@ class EulerSolver:
         self._bytes_total = 0
         self._pinned: set = set()
         self._measured: dict = {}
+        # the largest reserved/model ratio measured (None: none yet)
+        self._ratio: Optional[float] = None
         # the autotuner's feedback rung: bucket scales moved onto the
         # tight cap profile, and the largest raw (pre-quantization,
         # slack-inclusive) cap need seen per field at each scale
@@ -501,21 +505,35 @@ class EulerSolver:
                 self._engines[key] = eng
             return eng
 
+    def _model_cost(self, key: BucketKey, batch: Optional[int]) -> int:
+        """The reference's static cost of the program
+        (``analysis/graph_audit.py::program_cost_bytes``); 0 when the
+        key is not a real bucket key (unit-test fakes), as there."""
+        try:
+            return int(program_cost_bytes(key, batch,
+                                          sharded=self.sharded_phase3))
+        except (AttributeError, IndexError, TypeError, ValueError):
+            return 0
+
     def _program_cost(self, key: BucketKey, batch: Optional[int]) -> int:
         """Predicted bytes of the ``(bucket, B)`` program about to record:
         the reserved bytes measured this session for the same ``(e_cap,
         B)``, else those of the same ``e_cap`` at the nearest other width
-        scaled by B over that width, else 0 (the reference's seam for its
-        static cost model; nothing is measured on the CPU)."""
+        scaled by B over that width, else the static model
+        (:meth:`_model_cost`) times the largest reserved/model ratio a
+        recording of this session measured (1 before any: the
+        reference's charge).  Nothing is recorded on the CPU, so there a
+        miss stays charged the model, as in the reference."""
         e_cap, width = key[0], batch or 1
         with self._lock:
             if (e_cap, width) in self._measured:
                 return self._measured[(e_cap, width)]
             seen = [w for (e, w) in self._measured if e == e_cap]
-            if not seen:
-                return 0
-            near = min(seen, key=lambda w: (abs(w - width), -w))
-            return self._measured[(e_cap, near)] * width // near
+            if seen:
+                near = min(seen, key=lambda w: (abs(w - width), -w))
+                return self._measured[(e_cap, near)] * width // near
+            ratio = 1.0 if self._ratio is None else self._ratio
+        return int(self._model_cost(key, batch) * ratio)
 
     def _charge(self, pkey, nbytes: int) -> None:
         """Set the bytes charged to a live program, and the total."""
@@ -526,13 +544,16 @@ class EulerSolver:
 
     def _true_up(self, key: BucketKey, batch: Optional[int],
                  nbytes: int) -> None:
-        """After a recording: keep its measured reserved bytes for later
-        predictions, charge them in place of the prediction if the
-        program is still live, and evict to the budget again, the new
-        program exempt."""
+        """After a recording: keep its measured reserved bytes and their
+        ratio to the static model for later predictions, charge them in
+        place of the prediction if the program is still live, and evict
+        to the budget again, the new program exempt."""
         pkey = (key, batch)
+        model = self._model_cost(key, batch)
         with self._lock:
             self._measured[(key[0], batch or 1)] = int(nbytes)
+            if model > 0:
+                self._ratio = max(self._ratio or 0.0, nbytes / model)
             if pkey in self._programs:
                 self._charge(pkey, int(nbytes))
                 self._evict_to_budget(keep=pkey)

@@ -21,6 +21,10 @@ while the bool tensor ``changed`` holds anywhere and fewer than
   * on CPU tensors it stands in for the node, for the tests: it loops on
     the host, the trip rule taken from the twin, and runs the rounds now.
 
+``census(graph, bodies, device)`` counts the nodes of a recorded graph
+(``gl_census``): by type, memcpys by direction, kernel nodes by function
+name, the while bodies that ``while_loop`` returned included.
+
 ``stream`` (not the one being captured) and ``pool`` must be made before
 the capture starts, and the pool must live as long as the graph: the
 body's kernels run on its memory at every replay.  ``while_loop.launches`` counts the
@@ -30,7 +34,7 @@ second once a round, which the counter cannot see.
 from __future__ import annotations
 
 import ctypes
-from typing import Callable, Optional
+from typing import Callable, Dict, Optional, Sequence
 
 import torch
 
@@ -46,6 +50,9 @@ _ARGS = {
     "gl_body_begin": (_VOID, _VOID),
     "gl_body_end": (_VOID, ctypes.c_ulonglong, _VOID, ctypes.c_longlong,
                     _VOID, ctypes.c_int),
+    "gl_census": (_VOID, ctypes.POINTER(_VOID), ctypes.c_longlong,
+                  ctypes.c_char_p, ctypes.c_longlong,
+                  ctypes.POINTER(ctypes.c_longlong)),
 }
 
 
@@ -69,6 +76,39 @@ def load(device: torch.device) -> None:
         _check("gl_load", _call("gl_load"))
 
 
+def census(graph: int, bodies: Sequence[int], device: torch.device
+           ) -> Dict[str, int]:
+    """Node counts of the ``cudaGraph_t`` ``graph`` (an address, as
+    ``torch.cuda.CUDAGraph.raw_cuda_graph()`` gives it) and of the while
+    bodies ``bodies`` recorded into it (:func:`while_loop`'s returns;
+    valid while the graph is): ``kernel``,
+    ``memcpy`` and ``memcpy_<dir>`` (``htod``, ``dtoh``, ``dtod``,
+    ``htoh``, ``unknown``), ``memset``, ``host``, ``conditional``,
+    ``while_body``, ``event_record``, ``event_wait``, ``empty``,
+    ``child_graph``, ``mem_alloc``, ``mem_free``, ``other``, and
+    ``kernel:<function name>`` for each kernel (mangled as the driver
+    names it; ``kernel:?`` unnamed), and ``error:<call>:<code>`` for
+    each query that failed.  Raises ``RuntimeError`` if the driver's
+    calls cannot be found."""
+    need = ctypes.c_longlong(0)
+    cap = 1 << 20
+    body_array = (_VOID * max(len(bodies), 1))(*bodies)
+    with torch.cuda.device(device):
+        while True:
+            buf = ctypes.create_string_buffer(cap)
+            err = _call("gl_census", graph, body_array, len(bodies), buf,
+                        cap, ctypes.byref(need))
+            if err != -1:
+                break
+            cap = int(need.value)
+    _check("gl_census", err)
+    out = {}
+    for line in buf.value.decode().splitlines():
+        key, _, count = line.rpartition("\t")
+        out[key] = int(count)
+    return out
+
+
 def _host_while(body: Callable[[], None], changed: torch.Tensor,
                 ctr: torch.Tensor, rounds: int) -> None:
     """The node's stand-in: the same tests, made by the twin on the host."""
@@ -83,8 +123,10 @@ def _host_while(body: Callable[[], None], changed: torch.Tensor,
 def while_loop(body: Callable[[], None], changed: torch.Tensor,
                ctr: torch.Tensor, rounds: int,
                stream: Optional["torch.cuda.Stream"] = None,
-               pool: Optional["torch.cuda.MemPool"] = None) -> None:
-    """Run or record ``body`` as a bounded while loop (module docstring)."""
+               pool: Optional["torch.cuda.MemPool"] = None) -> Optional[int]:
+    """Run or record ``body`` as a bounded while loop (module docstring).
+    Recording, returns the address of the node's body graph (for
+    :func:`census`); on the CPU, None."""
     if changed.dtype != torch.bool or not changed.is_contiguous():
         raise TypeError("while_loop: changed must be a contiguous bool "
                         "tensor")
@@ -95,7 +137,7 @@ def while_loop(body: Callable[[], None], changed: torch.Tensor,
                          f"{changed.device}")
     if changed.device.type == "cpu":
         _host_while(body, changed, ctr, int(rounds))
-        return
+        return None
     dev = changed.device
     if not torch.cuda.is_current_stream_capturing():
         raise RuntimeError("while_loop records a CUDA graph node: call it "
@@ -127,6 +169,7 @@ def while_loop(body: Callable[[], None], changed: torch.Tensor,
         _check("gl_body_end", _call("gl_body_end", stream.cuda_stream,
                                     handle, *args))
         while_loop.launches += 1
+    return body_graph.value
 
 
 while_loop.launches = 0

@@ -31,7 +31,9 @@ contiguous, one device, outputs apart from every other buffer) and then:
 
 Outputs go to separate buffers (``out=``, else freshly allocated), so a
 caller running many rounds ping-pongs two sets.  ``launches`` on each
-wrapper counts the kernel launches it made (twin calls do not count).
+wrapper counts the kernel launches it made (twin calls do not count);
+every call, kernel or twin, is one ``pallas_call`` in an open census
+(``core/capture.py``).
 """
 from __future__ import annotations
 
@@ -40,6 +42,7 @@ from typing import Optional, Sequence, Tuple
 
 import torch
 
+from ..core import capture
 from . import build
 from .ref import (pointer_double_packed_ref,
                   pointer_double_rank_packed_ref,
@@ -143,6 +146,7 @@ def _round(name: str, symbol: str, twin, rec: torch.Tensor,
            out: Optional[torch.Tensor], width: int):
     """One doubling round on [N, ``width``] records through the C entry
     ``symbol`` (the twin on CPU tensors); returns ``(out, launched)``."""
+    capture.note_kernel(name)
     if out is None:
         out = torch.empty_like(rec)
     _check_records(name, rec, out, width)
@@ -189,6 +193,7 @@ pointer_double_rank.launches = 0
 
 def _shard_step(name: str, symbol: str, twin, q, carries, base, tables,
                 s_real: int, out):
+    capture.note_kernel(name)
     s_real = int(s_real)
     if out is None:
         out = tuple(torch.empty_like(a) for a in carries)

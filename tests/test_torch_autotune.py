@@ -14,7 +14,8 @@ to the JAX package's ``solve`` bytes in the golden
 ``tests/golden/torch_autotune_reference.npz``, written by
 ``PYTHONPATH=src python tests/test_torch_autotune.py`` (an 8-device
 subprocess); ``test_autotune_golden_is_the_jax_output`` solves one case
-again live.  The reference's scenario keeps only ``drain()``'s results
+again live.  As in the reference's scenario, the adaptive program set
+then passes the program audit (``audit_graph(widths="warmed")``).  The reference's scenario keeps only ``drain()``'s results
 and so loses the quota flush that ``submit`` returned; the port's
 collects both."""
 import threading
@@ -25,6 +26,7 @@ import pytest
 import torch
 
 from conftest import run_with_devices
+from repro_torch.analysis import audit_graph
 from repro_torch.core.engine import FusedRun
 from repro_torch.core.graph import Graph
 from repro_torch.euler import EulerSolver
@@ -693,6 +695,12 @@ def test_adaptive_session_upgrades_and_stays_byte_equal(reference):
     assert done[2].cache.batch == 2
     for i in range(GROUP):
         assert _same(done[i].validate(), reference, f"default_{i}"), i
+
+    # the audit accepts the adaptive program set as-is
+    rep = audit_graph(solver, group[0], widths="warmed")
+    assert rep["ok"], rep
+    assert set(rep["cache_budget"]["per_program_bytes"]) == {"B1", "B2"}
+    assert rep["cache_budget"]["total_bytes"] > 0
 
     e_cap = key[0]
     tk = tuner.service.submit_retune(group[0], e_cap, [2])

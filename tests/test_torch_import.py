@@ -60,7 +60,9 @@ assert not bad, bad
     assert r.returncode == 0, r.stdout + r.stderr
 
 
-@pytest.mark.parametrize("module", ["repro_torch.obs", "repro_torch.euler"])
+@pytest.mark.parametrize("module", ["repro_torch.obs", "repro_torch.euler",
+                                    "repro_torch.analysis",
+                                    "repro_torch.analysis.audit"])
 def test_session_slice_imports_with_jax_blocked(module):
     """The solver session and its observability layer (the port's copy of
     ``repro/obs``, stdlib only) stand alone, each imported first in a

@@ -9,7 +9,9 @@ The batcher's cases port ``tests/test_batched.py``'s over a stand-in
 solver that subclasses the port's ``EulerSolver(device="cpu")``; the
 budget's port ``tests/test_autotune.py``'s with ``_program_cost``
 patched, plus the port's own rule (a miss is charged a prediction before
-it records, trued up to the recording's reserved bytes after).  A
+it records: measured bytes, else the static model scaled by the measured
+reserved/model ratio; trued up to the recording's reserved bytes
+after).  A
 laddered flush's results are held against the JAX package's bytes for
 the same graphs: the golden ``tests/golden/torch_batch_reference.npz``
 (the JAX package's ``solve_batch`` of the scale-8 modal bucket at P = 8,
@@ -18,6 +20,7 @@ which that package's own tests hold equal to its ``solve``;
 solves the golden again live).  The JAX package is not imported here:
 ``main_euler``'s JSON keys are read from the reference's source."""
 import ast
+import dataclasses
 import doctest
 import json
 import threading
@@ -28,6 +31,7 @@ import pytest
 import torch
 
 from conftest import REPO
+from repro_torch.analysis import program_cost_bytes
 from repro_torch.core.engine import Engine, FusedRun
 from repro_torch.core.graph import Graph
 from repro_torch.euler import EulerSolver, FlushLog, modal_bucket_pool
@@ -363,18 +367,26 @@ def test_evicted_program_loses_its_pin():
 def test_true_up_charges_measured_bytes_and_predicts_from_them():
     """The port's cost: a miss is charged the bytes measured this session
     for its (e_cap, B), else its e_cap's nearest width scaled by B, else
-    0; the recording's reserved bytes replace the charge and predict the
-    next; a true-up over the budget evicts others, never the new
-    program."""
+    the static model (``program_cost_bytes``, the reference's charge)
+    times the largest reserved/model ratio measured (1 before any); the
+    recording's reserved bytes replace the charge and predict the next;
+    a true-up over the budget evicts others, never the new program."""
     solver = EulerSolver(n_parts=1, device="cpu", program_cache_bytes=100)
-    k1, k2, k3 = (256, 1, 4, "c1"), (256, 1, 4, "c2"), (512, 1, 4, "c1")
-    assert solver._program_cost(k1, None) == 0       # nothing measured
+    k1 = solver.bucket_of(eulerian_rmat(5, avg_degree=4, seed=1))
+    k2 = (*k1[:3], dataclasses.replace(k1[3], park_cap=k1[3].park_cap + 8))
+    k3 = solver.bucket_of(eulerian_rmat(7, avg_degree=4, seed=1))
+    assert k3[0] > k1[0]
+    m1, m3 = (program_cost_bytes(k, None) for k in (k1, k3))
+    assert solver._program_cost(k1, None) == m1 > 0  # nothing measured
+    assert solver._program_cost(k1, 4) == program_cost_bytes(k1, 4)
+    assert solver._program_cost(k3, None) == m3 > m1
     solver._account(k1, None)
     solver._true_up(k1, None, 40)
     assert solver.cache_bytes_used() == 40
     assert solver._program_cost(k2, None) == 40      # same (e_cap, 1)
     assert solver._program_cost(k2, 4) == 160        # scaled by B
-    assert solver._program_cost(k3, None) == 0       # another e_cap
+    # another e_cap: its model times the measured ratio
+    assert solver._program_cost(k3, None) == int(m3 * (40 / m1))
     solver._account(k1, 2)      # predicted 80: 120 > 100, k1/None goes
     assert solver.warmed_widths(k1) == [2]
     assert solver.cache_bytes_used() == 80
@@ -384,17 +396,64 @@ def test_true_up_charges_measured_bytes_and_predicts_from_them():
     assert solver._program_cost(k2, None) == 40
     assert solver._program_cost(k2, 4) == 140        # nearest width: 2
     assert solver._program_cost(k2, 3) == 105
+    # the ratio is the largest measured (70 of the model of (k1, 2) is
+    # less than 40 of k1's)
+    assert solver._program_cost(k3, 2) == int(
+        program_cost_bytes(k3, 2) * (40 / m1))
     # a program evicted before its true-up only leaves its measurement
-    solver._account(k3, None)
+    solver._account(k3, None)   # predicted about 2·40: (k1, 2) goes
+    assert solver.warmed_widths(k1) == []
     assert solver.drop_program(k3, 1)
     solver._true_up(k3, None, 30)
-    assert solver.cache_bytes_used() == 70
+    assert solver.cache_bytes_used() == 0
     assert solver._program_cost(k3, None) == 30
+    solver._account(k1, 2)      # measured 70
     solver._account(k2, None)   # predicted 40: 110 > 100, (k1, 2) goes
     assert solver.warmed_widths(k1) == [] and solver.cache_bytes_used() == 40
     solver._true_up(k2, None, 120)   # over the budget alone: it stays
     assert solver.warmed_widths(k2) == [1]
     assert solver.cache_bytes_used() == solver._g_bytes.value == 120
+
+
+def test_budget_evicts_at_account_once_a_true_up_set_the_ratio(monkeypatch):
+    """Bucket A's true-up sets the reserved/model ratio; bucket B, a
+    larger e_cap never measured, is then charged its model times that
+    ratio at its ``_account``, which evicts A before B's first launch
+    (on the card: before B records).  Before any true-up B's charge is
+    its model alone, which A's model-sized charge leaves room for."""
+    a, b = (eulerian_rmat(5, avg_degree=4, seed=1),
+            eulerian_rmat(7, avg_degree=4, seed=1))
+    solver = EulerSolver(n_parts=1, device="cpu")
+    ka, kb = solver.bucket_of(a), solver.bucket_of(b)
+    ma, mb = (program_cost_bytes(k, None) for k in (ka, kb))
+    reserved_a = 15 * ma          # about a recorded graph's pool
+    solver.program_cache_bytes = int(1.5 * reserved_a)
+    assert ma + mb <= solver.program_cache_bytes < reserved_a + 15 * mb
+    events = []
+    evict, launch = Engine.evict_program, FusedRun.launch
+
+    def counted_evict(self, num_edges, batch):
+        events.append(("evict", num_edges))
+        return evict(self, num_edges, batch)
+
+    def counted_launch(self, *args):
+        events.append(("launch", self.num_edges))
+        return launch(self, *args)
+
+    monkeypatch.setattr(Engine, "evict_program", counted_evict)
+    monkeypatch.setattr(FusedRun, "launch", counted_launch)
+    solver.solve(a).validate()
+    assert solver.cache_bytes_used() == ma      # the CPU records nothing
+    solver._true_up(ka, None, reserved_a)       # what a card measures
+    assert solver.cache_bytes_used() == reserved_a
+    predicted = solver._program_cost(kb, None)
+    assert predicted == int(mb * (reserved_a / ma))
+    solver.solve(b).validate()
+    assert events == [("launch", ka[0]), ("evict", ka[0]),
+                      ("launch", kb[0])]
+    assert solver.warmed_widths(ka) == [] and solver.warmed_widths(kb) == [1]
+    assert solver.cache_bytes_used() == predicted
+    assert solver.cache_stats.evictions == 1
 
 
 def test_budget_evicts_before_the_recording(monkeypatch):
