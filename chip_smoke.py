@@ -3,6 +3,7 @@
 
     python3 chip_smoke.py                 # scale-20 RMAT graph, 8 partitions,
                                           # full-width SmolLM-360M serving
+                                          # and training
 
 Phases, each printed on its own line; any failure raises and the script
 exits non-zero:
@@ -295,7 +296,44 @@ exits non-zero:
                 larger ``e_cap``) is solved: B's charge, its static
                 model times the reserved/model ratio A measured, must
                 evict A at B's ``_account``, before B records; the
-                predicted and measured bytes are printed.
+                predicted and measured bytes are printed;
+  11. train   — the LM trainer (``launch/train.py``, the ``build_cell``
+                train step: ``lm_loss`` under autograd with each layer and
+                each attention and cross-entropy block checkpointed,
+                AdamW, the warm-up/cosine schedule), every launch counter
+                set to 0 before and read after: no kernel of the port may
+                launch.  (a) The reduced config in f32 with ``remat`` and
+                ``q_block`` 16 at seq 64, one set of seeded weights on
+                ``cuda`` and on ``cpu``: loss and every gradient, then one
+                train step's moments, ``allclose`` at ``TRAIN_RTOL``/
+                ``TRAIN_ATOL``, and the parameters unchanged (lr 0 at step
+                0); then one step from a warm AdamW state (step 1000,
+                seeded moments, lr 1.5e-4): loss, step and moments at the
+                same tolerance, every weight's update within
+                ``UPDATE_ATOL``, and every weight tensor moved by more
+                than ``TRAIN_ATOL``.  Attention without its 1/√D and an
+                update without its weight decay (planted) must each fail
+                it.
+                (b) ``train.main`` at full width (``--full``, batch 8,
+                seq 1,024, ``TRAIN_STEPS`` steps, a checkpoint every 20, a
+                failure injected at step 30, a temporary checkpoint
+                directory removed after): one restart, the restored state
+                byte-equal to the snapshot its step saved, the replayed
+                step 20's loss equal to its first run's, and the loss
+                falling (the reference's assertion); prints the first,
+                least and last loss, the restarts and flagged stragglers,
+                the median step seconds and tokens/s, the peak memory, and
+                each save's bytes, snapshot, blocking and write seconds and
+                the restore's bytes and seconds.  (c) The train step at
+                train_4k's sequence (4,096; the batch cut from 256 to 8):
+                two warm-up steps and five timed, step ms, tokens/s, the
+                reference's model FLOPs (6·N·tokens) and their share of
+                989 TFLOP/s bf16, the peak memory; then one step under
+                torch.profiler, its device time (each device event
+                counted once; it may not exceed the step's wall) split
+                into attention passes (and their matrix products), the
+                other matrix products, cross-entropy, the optimizer and
+                the rest.
 
 The last three lines are the kernel table as JSON, the ``nvidia-smi``
 line, and ``{"ok": true, "device": {...}}``.
@@ -308,6 +346,8 @@ import ctypes
 import dataclasses
 import json
 import re
+import shutil
+import statistics
 import subprocess
 import sys
 import math
@@ -325,9 +365,11 @@ import torch  # noqa: E402
 import torch.nn.functional as F  # noqa: E402
 
 from repro_torch.analysis import audit_graph  # noqa: E402
+from repro_torch.checkpoint import ckpt as ckpt_mod  # noqa: E402
 from repro_torch.analysis.graph_audit import (  # noqa: E402
     LOOP_TEST, graph_kernel_nodes, program_cost_bytes)
-from repro_torch.configs.base import gnn_shapes, lm_shapes  # noqa: E402
+from repro_torch.configs.base import (ShapeCell, gnn_shapes,  # noqa: E402
+                                      lm_shapes)
 from repro_torch.configs.registry import get_config  # noqa: E402
 from repro_torch.core import capture  # noqa: E402
 from repro_torch.core import phase1 as p1  # noqa: E402
@@ -335,9 +377,11 @@ from repro_torch.core import phase3 as p3  # noqa: E402
 from repro_torch.core.engine import Engine, FusedRun  # noqa: E402
 from repro_torch.core.graph import Graph  # noqa: E402
 from repro_torch.core.phase3 import circuit_from_mate_np  # noqa: E402
+from repro_torch.data.lm import SyntheticLM  # noqa: E402
 from repro_torch.euler import EulerSolver, solve  # noqa: E402
 from repro_torch.euler.autotune import (CompileService,  # noqa: E402
                                         TunerParams)
+from repro_torch.ft.straggler import StragglerMonitor  # noqa: E402
 from repro_torch.euler.bucket import (TIGHT_DIVISORS,  # noqa: E402
                                       ladder_floors, modal_bucket_pool,
                                       strip_circuit)
@@ -347,10 +391,14 @@ from repro_torch.kernels import flash_attention as fa  # noqa: E402
 from repro_torch.kernels import graph_loop  # noqa: E402
 from repro_torch.kernels import pointer_double as pd  # noqa: E402
 from repro_torch.kernels import segment_reduce as sr  # noqa: E402
-from repro_torch.launch import serve  # noqa: E402
+from repro_torch.launch import serve, steps, train  # noqa: E402
 from repro_torch.launch.serve import LMPrograms, serve_lm  # noqa: E402
 from repro_torch.models import transformer as tr  # noqa: E402
-from repro_torch.models.layers import gqa_attention  # noqa: E402
+from repro_torch.models.layers import (auto_q_block,  # noqa: E402
+                                       chunked_gqa_attention, gqa_attention)
+from repro_torch.optim import (AdamWState, adamw_update,  # noqa: E402
+                                init_adamw)
+from repro_torch.tree import tree_leaves, tree_map  # noqa: E402
 
 #: H100 SXM device-memory rate (NVIDIA data sheet), bytes/s.
 HBM_BYTES_PER_S = 3.35e12
@@ -438,6 +486,30 @@ MODES = {"sharded": {}, "replicated": {"sharded_phase3": False},
 #: check's two buckets (A, then the larger B)
 AUDIT_SCALE, AUDIT_WIDTHS = 8, (1, 2, 4, 8)
 EVICT_SCALES = (16, 17)
+#: phase 11 (b): the trainer through its entry point at full width —
+#: batch, sequence, steps, checkpoint interval and the injected failure;
+#: the loss must fall over the run (the reference's assertion), and the
+#: schedule's warm-up gives lr = 3e-4 · step / 2000, so the run is as
+#: long as that takes (PERF.md §6 says how the count was chosen)
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 8, 1024, 60
+TRAIN_EVERY, TRAIN_FAIL = 20, 30
+#: phase 11 (c): train_4k's sequence, its batch cut from 256 to 8, two
+#: warm-up steps and five timed ones
+THROUGHPUT_BATCH, THROUGHPUT_WARMUP, THROUGHPUT_STEPS = 8, 2, 5
+#: phase 11 (a): one train step of the reduced config in f32 on the card
+#: against the CPU, loss, gradients and moments by ``allclose``: ten
+#: times ROADMAP's f32 rtol and an atol of 1e-5 (the gradients reach
+#: 0.6).  The CPU tests read 1.1e-6 between XLA and torch on the same
+#: step (tests/test_torch_train.py); cuBLAS orders its sums otherwise
+#: again.  The planted fault, attention without its 1/√D, must fail it
+TRAIN_RTOL, TRAIN_ATOL = 1e-4, 1e-5
+#: phase 11 (a): the atol on one warm step's parameter updates (about
+#: 1.5e-4 each at lr 1.5e-4): gradients within 1.5e-6 move an update by
+#: at most ~2e-8, and the f32 rounding of a weight near 1 by 1.2e-7; a
+#: dropped weight decay moves a weight near 1 by 1.5e-5
+UPDATE_ATOL = 1e-6
+#: kernel names of the matrix products in a profile
+GEMM_WORDS = ("gemm", "xmma", "cutlass", "nvjet")
 
 
 def say(phase: str, **fields) -> None:
@@ -2256,7 +2328,7 @@ def _profile_split(fn, top: int = 8) -> dict:
         name = ev.key.lower()
         if "flash_bf16_kernel" in name or "flash_f32_kernel" in name:
             key = "flash_attention_ms"
-        elif any(w in name for w in ("gemm", "xmma", "cutlass", "nvjet")):
+        elif any(w in name for w in GEMM_WORDS):
             key = "matmul_ms"
         else:
             key = "other_ms"
@@ -2707,6 +2779,462 @@ def check_audit(smi: str) -> None:
     say("audit", seconds=f"{time.perf_counter() - t0:.3f}")
 
 
+def _trees_close(got, want, rtol: float, atol: float):
+    """(every leaf ``allclose``, the largest |got − want|) over two trees
+    of tensors, compared on the CPU in f32."""
+    ok, err = True, 0.0
+    for a, b in zip(tree_leaves(got), tree_leaves(want)):
+        a, b = a.detach().cpu().float(), b.detach().cpu().float()
+        err = max(err, float((a - b).abs().max()))
+        ok = ok and torch.allclose(a, b, rtol=rtol, atol=atol)
+    return ok, err
+
+
+def unscaled_attention(q, k, v, q_block=1024, causal=True):
+    """A planted fault: ``chunked_gqa_attention`` without its 1/√D."""
+    return chunked_gqa_attention(q * math.sqrt(q.shape[-1]), k, v,
+                                 q_block=q_block, causal=causal)
+
+
+def no_weight_decay(params, grads, state, lr, **kw):
+    """A planted fault: ``adamw_update`` without its weight decay."""
+    return adamw_update(params, grads, state, lr,
+                        **{**kw, "weight_decay": 0.0})
+
+
+def _warm_adamw(params, seed: int = 7) -> AdamWState:
+    """AdamW at step 1000 with moments drawn from ``seed``, on the CPU (as
+    ``seeded_state`` in tests/test_torch_train.py): the schedule's lr is
+    1.5e-4 there, so one step moves every weight, and seeded moments make
+    the update a smooth function of the gradient."""
+    rng = np.random.default_rng(seed)
+    m = tree_map(lambda p: torch.from_numpy(
+        (rng.normal(size=tuple(p.shape)) * 1e-3).astype(np.float32)), params)
+    v = tree_map(lambda p: torch.from_numpy(
+        (rng.uniform(0.5, 1.5, size=tuple(p.shape)) * 1e-6)
+        .astype(np.float32)), params)
+    return AdamWState(torch.tensor(1000, dtype=torch.int32), m, v)
+
+
+def _warm_step(cell, params, batch, dev):
+    """One ``cell.fn`` step on ``dev`` from copies of ``params`` and of the
+    warm AdamW state: (loss, the state after, each weight's update)."""
+    warm = _warm_adamw(params)
+    p = _to(params, dev) if dev.type != "cpu" else \
+        tree_map(torch.clone, params)
+    opt = AdamWState(warm.step.to(dev), _to(warm.m, dev), _to(warm.v, dev))
+    p, opt, loss = cell.fn(p, opt, {k: v.to(dev) for k, v in batch.items()})
+    return loss, opt, [a.cpu() - b for a, b in zip(tree_leaves(p),
+                                                   tree_leaves(params))]
+
+
+def check_train_parity(dev) -> None:
+    """Phase 11 (a): the reduced config in f32 with ``remat`` and
+    ``q_block`` 16 at seq 64 (each layer checkpointed, attention in four
+    checkpointed blocks), one set of seeded weights on ``dev`` and on the
+    CPU: loss and every gradient, then one ``build_cell`` train step's
+    moments from a fresh state (lr 0: the weights keep every bit) and one
+    from a warm state (lr 1.5e-4: loss, moments, step and every weight's
+    update); and the two planted faults."""
+    small = get_config("smollm-360m", reduced=True)
+    cfg = dataclasses.replace(small.model, remat=True, q_block=16)
+    arch = dataclasses.replace(small, model=cfg, shapes={
+        "train": ShapeCell("train", "train", batch=2, seq_len=64)})
+    params = tr.init_lm_params(torch.Generator().manual_seed(0), cfg)
+    on_card = _to(params, dev)
+    batch = {k: torch.from_numpy(v) for k, v in
+             SyntheticLM(cfg.vocab, 64, 2).batch_at(0).items()}
+    card_batch = {k: v.to(dev) for k, v in batch.items()}
+    args = (batch["tokens"], batch["labels"])
+    card_args = (card_batch["tokens"], card_batch["labels"])
+    want = steps.lm_value_and_grad(params, cfg, *args)
+    got = steps.lm_value_and_grad(on_card, cfg, *card_args)
+    ok_grad, err_grad = _trees_close(got, want, TRAIN_RTOL, TRAIN_ATOL)
+    with mock.patch.object(tr, "chunked_gqa_attention", unscaled_attention):
+        fault = steps.lm_value_and_grad(on_card, cfg, *card_args)
+    fault_ok, fault_err = _trees_close(fault, want, TRAIN_RTOL, TRAIN_ATOL)
+
+    cell = steps.build_cell(arch, "train")
+    _, opt, loss = cell.fn(params, init_adamw(params), batch)
+    _, card_opt, card_loss = cell.fn(on_card, init_adamw(on_card),
+                                     card_batch)
+    ok_step, err_step = _trees_close((card_loss, card_opt.m, card_opt.v),
+                                     (loss, opt.m, opt.v), TRAIN_RTOL,
+                                     TRAIN_ATOL)
+    # the schedule's lr is 0 at step 0: the parameters keep every bit
+    same_params = all(torch.equal(a.cpu(), b) for a, b in
+                      zip(tree_leaves(on_card), tree_leaves(params)))
+
+    cpu_dev = torch.device("cpu")
+    w_loss, w_opt, w_upd = _warm_step(cell, params, batch, cpu_dev)
+    c_loss, c_opt, c_upd = _warm_step(cell, params, batch, dev)
+    want_warm = (w_loss, w_opt.step, w_opt.m, w_opt.v)
+    ok_warm, err_warm = _trees_close((c_loss, c_opt.step, c_opt.m, c_opt.v),
+                                     want_warm, TRAIN_RTOL, TRAIN_ATOL)
+    ok_upd, err_upd = _trees_close(c_upd, w_upd, TRAIN_RTOL, UPDATE_ATOL)
+    moved = min(float(u.abs().max()) for u in w_upd)
+    with mock.patch.object(steps, "adamw_update", no_weight_decay):
+        _, _, f_upd = _warm_step(cell, params, batch, dev)
+    wd_ok, wd_err = _trees_close(f_upd, w_upd, TRAIN_RTOL, UPDATE_ATOL)
+    say("train", check="parity", config=cfg.name, dtype="float32", batch=2,
+        seq=64, q_block=16, remat=True, loss_cpu=f"{float(want[0]):.6f}",
+        loss_cuda=f"{float(got[0]):.6f}",
+        loss_and_grads_max_abs_err=f"{err_grad:.3e}",
+        loss_and_grads_allclose=ok_grad,
+        step_moments_max_abs_err=f"{err_step:.3e}", step_allclose=ok_step,
+        params_unchanged_at_lr_0=same_params,
+        warm_from_step=1000, warm_state_max_abs_err=f"{err_warm:.3e}",
+        warm_state_allclose=ok_warm,
+        warm_update_max_abs_err=f"{err_upd:.3e}",
+        warm_update_allclose=ok_upd,
+        warm_least_weight_move=f"{moved:.3e}",
+        planted_unscaled_attention_max_abs_err=f"{fault_err:.3e}",
+        planted_fault_seen=not fault_ok,
+        planted_no_weight_decay_max_abs_err=f"{wd_err:.3e}",
+        planted_no_weight_decay_seen=not wd_ok,
+        rtol=TRAIN_RTOL, atol=TRAIN_ATOL, update_atol=UPDATE_ATOL)
+    if not (ok_grad and ok_step and same_params and ok_warm and ok_upd):
+        raise AssertionError("a train step differs between cuda and cpu")
+    if moved <= TRAIN_ATOL:
+        raise AssertionError(f"a warm step moved a weight tensor by at most "
+                             f"{moved:.3e}, within the atol")
+    if fault_ok:
+        raise AssertionError("the parity check cannot see attention "
+                             "without its 1/sqrt(D)")
+    if wd_ok:
+        raise AssertionError("the parity check cannot see an update "
+                             "without its weight decay")
+
+
+def _bitwise_equal(a: dict, b: dict) -> bool:
+    return a.keys() == b.keys() and all(
+        a[k].dtype == b[k].dtype and a[k].shape == b[k].shape
+        and np.array_equal(a[k].reshape(-1).view(np.uint8),
+                           b[k].reshape(-1).view(np.uint8)) for k in a)
+
+
+def train_entry(smi: str) -> None:
+    """Phase 11 (b): ``launch.train.main`` at full width with one injected
+    failure.  Wraps the checkpoint manager (the snapshot, the write and
+    the restore timed; the restored state held byte for byte against the
+    snapshot of its step), the restart loop (its restarts) and the
+    straggler monitor (each step's seconds)."""
+    tmp = tempfile.mkdtemp(prefix="repro-torch-train-")
+    snap, saves, writes, restores, runs, seen = {}, [], [], [], [], []
+    flatten = ckpt_mod._flatten_with_paths
+    save, write = ckpt_mod.CheckpointManager.save, \
+        ckpt_mod.CheckpointManager._write
+    restore, observe = ckpt_mod.CheckpointManager.restore, \
+        StragglerMonitor.observe
+    run = train.run_with_restarts
+
+    def timed_save(mgr, step, tree, blocking=False, extra=None):
+        t = time.perf_counter()
+        flat = flatten(tree)
+        snap_s = time.perf_counter() - t
+        snap.clear()
+        snap.update(step=step, flat=flat)
+        with mock.patch.object(ckpt_mod, "_flatten_with_paths",
+                               lambda _: flat):
+            out = save(mgr, step, tree, blocking, extra)
+        saves.append((step, sum(a.nbytes for a in flat.values()), snap_s,
+                       time.perf_counter() - t))
+        return out
+
+    def timed_write(mgr, step, flat, meta):
+        t = time.perf_counter()
+        write(mgr, step, flat, meta)
+        writes.append((step, time.perf_counter() - t))
+
+    def timed_restore(mgr, tree_like, step=None, device=None):
+        t = time.perf_counter()
+        tree, got = restore(mgr, tree_like, step, device)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t
+        back = flatten(tree)
+        restores.append((got, sum(a.nbytes for a in back.values()), secs,
+                         got == snap["step"]
+                         and _bitwise_equal(back, snap["flat"])))
+        return tree, got
+
+    def kept_run(*args, **kw):
+        out = run(*args, **kw)
+        runs.append(out)
+        return out
+
+    def seen_observe(mon, step, seconds):
+        seen.append((mon, step, seconds))
+        return observe(mon, step, seconds)
+
+    argv = ["--full", "--batch", str(TRAIN_BATCH), "--seq", str(TRAIN_SEQ),
+            "--steps", str(TRAIN_STEPS), "--ckpt-every", str(TRAIN_EVERY),
+            "--fail-at", str(TRAIN_FAIL), "--ckpt-dir", tmp,
+            "--log-every", "10"]
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    t0 = time.perf_counter()
+    try:
+        with mock.patch.object(ckpt_mod.CheckpointManager, "save",
+                               timed_save), \
+                mock.patch.object(ckpt_mod.CheckpointManager, "_write",
+                                  timed_write), \
+                mock.patch.object(ckpt_mod.CheckpointManager, "restore",
+                                  timed_restore), \
+                mock.patch.object(train, "run_with_restarts", kept_run), \
+                mock.patch.object(StragglerMonitor, "observe",
+                                  seen_observe):
+            losses = train.main(argv)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    wall_s = time.perf_counter() - t0
+    counts = read_counts()
+    mon = seen[-1][0]
+    step_s = statistics.median(s for _, _, s in seen)
+    resumed = TRAIN_FAIL // TRAIN_EVERY * TRAIN_EVERY
+    replayed = losses[TRAIN_FAIL] == losses[resumed]
+    restarts = runs[0][2]
+    say("train", check="entry", config="smollm-360m", params=409_007_040,
+        dtype="bfloat16", batch=TRAIN_BATCH, seq=TRAIN_SEQ,
+        steps=TRAIN_STEPS, ckpt_every=TRAIN_EVERY, fail_at=TRAIN_FAIL,
+        steps_run=len(losses), restarts=restarts,
+        stragglers_flagged=mon.stats.flagged,
+        straggler_steps="'" + ",".join(map(str, mon.stats.events)) + "'",
+        loss_first=f"{losses[0]:.4f}", loss_min=f"{min(losses):.4f}",
+        loss_last=f"{losses[-1]:.4f}",
+        loss_at_resume=f"{losses[resumed]:.6f}",
+        loss_replayed=f"{losses[TRAIN_FAIL]:.6f}", replay_equal=replayed,
+        step_s_median=f"{step_s:.4f}",
+        step_s_min_max=f"{min(s for *_, s in seen):.4f}/"
+                       f"{max(s for *_, s in seen):.4f}",
+        tokens_per_s=f"{TRAIN_BATCH * TRAIN_SEQ / step_s:.1f}",
+        peak_gib=f"{torch.cuda.max_memory_allocated() / 2**30:.3f}",
+        reserved_gib=f"{torch.cuda.max_memory_reserved() / 2**30:.3f}",
+        wall_s=f"{wall_s:.2f}",
+        launches=json.dumps(counts, separators=(",", ":")),
+        smi=f"'{smi}'")
+    # save_s: the snapshot, the wait for the previous write and the
+    # thread's start, all of which hold the training loop
+    for (step, nbytes, snap_s, save_s), (wstep, write_s) in zip(saves,
+                                                               writes):
+        say("train", check="save", step=step, bytes=nbytes,
+            snapshot_s=f"{snap_s:.3f}", save_s=f"{save_s:.3f}",
+            write_s=f"{write_s:.3f}", write_step=wstep, smi=f"'{smi}'")
+    for step, nbytes, secs, same in restores:
+        say("train", check="restore", step=step, bytes=nbytes,
+            seconds=f"{secs:.3f}", byte_equal=same, smi=f"'{smi}'")
+    losses_fell = losses[-1] < losses[0]
+    if not (restarts == 1 and len(restores) == 1 and restores[0][3]
+            and replayed and losses_fell and not any(counts.values())
+            and len(losses) == TRAIN_STEPS + TRAIN_FAIL - resumed):
+        raise AssertionError(
+            f"the trainer ran {len(losses)} steps with {restarts} restarts, "
+            f"restores {restores}, replayed loss {losses[TRAIN_FAIL]} vs "
+            f"{losses[resumed]}, loss {losses[0]} → {losses[-1]}, "
+            f"launches {counts}")
+
+
+def _train_family(ev, score_numel: int, vocab: int):
+    """The family of the kernels a profiled op launched, from the op and
+    its callers: the optimizer (inside ``adamw_update``), attention (the
+    attention block's Python frame, or an input the size of a block's
+    scores), cross-entropy (``_xent_block``'s frame, or a [rows, vocab]
+    input); ``None`` for the rest."""
+    names, shapes = [], []
+    while ev is not None:           # Python frames are callers here too
+        names += [ev.name, *(ev.stack or [])]
+        shapes += [s for s in (ev.input_shapes or [])
+                   if s and all(isinstance(d, int) for d in s)]
+        ev = ev.cpu_parent
+    if "adamw_update" in names:
+        return "optimizer"
+    if any("layers.py" in f and f.endswith(": block") for f in names) or \
+            any(len(s) >= 3 and math.prod(s) >= score_numel for s in shapes):
+        return "attention"
+    if any(f.endswith(": _xent_block") for f in names) or \
+            any(len(s) == 2 and s[-1] == vocab for s in shapes):
+        return "cross_entropy"
+    return None
+
+
+def _device_kernels(prof) -> tuple:
+    """The device events of a profile, each once, as (name, start ns, end
+    ns, the operator that launched it or ``None``); the milliseconds the
+    per-op kernel lists (``FunctionEvent.kernels``) add up to; those
+    that CPU records other than the launching operator list again, by
+    record name; and the milliseconds of the device-side annotations.
+    The lists count some device time twice: the profiler gives each CPU
+    record whose correlation id matches a kernel's link that kernel, and
+    an operator can share its id with a runtime or CUPTI record (such as
+    ``Command Buffer Full``).  So the device events are read from the
+    profiler's own records, annotations apart, each once by correlation
+    id, name and time, and linked to one record of their id, an operator
+    (a ``::`` name) before any other."""
+    from torch.autograd import DeviceType
+
+    launcher, listed_ms, holders = {}, 0.0, []
+    for ev in prof.events():
+        if ev.device_type == DeviceType.CPU and ev.kernels \
+                and not ev.is_user_annotation:
+            listed_ms += sum(k.duration for k in ev.kernels) / 1e3
+            holders.append(ev)
+            held = launcher.get(ev.id)
+            if held is None or ("::" in ev.name and "::" not in held.name):
+                launcher[ev.id] = ev
+    relisted = {}
+    for ev in holders:
+        if launcher[ev.id] is not ev:
+            relisted[ev.name] = relisted.get(ev.name, 0.0) + sum(
+                k.duration for k in ev.kernels) / 1e3
+    seen, out, annotation_ms = set(), [], 0.0
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() != DeviceType.CUDA:
+            continue
+        if e.is_user_annotation():
+            annotation_ms += e.duration_ns() / 1e6
+            continue
+        key = (e.correlation_id(), e.name(), e.start_ns(), e.end_ns())
+        if key not in seen:
+            seen.add(key)
+            out.append((e.name(), e.start_ns(), e.end_ns(),
+                        launcher.get(e.linked_correlation_id())))
+    return out, listed_ms, relisted, annotation_ms
+
+
+def _train_profile(fn, score_numel: int, vocab: int, top: int = 8) -> dict:
+    """One train step under torch.profiler: wall and busy milliseconds
+    (each device event counted once; the busy time may not exceed the
+    wall), the idle share, the kernels launched, and the busy time by
+    family (attention passes and, within them, their matrix products;
+    the other matrix products; cross-entropy; the optimizer; the rest)."""
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    update = steps.adamw_update
+
+    def ranged(*args, **kw):
+        with record_function("adamw_update"):
+            return update(*args, **kw)
+
+    torch.cuda.synchronize()
+    with mock.patch.object(steps, "adamw_update", ranged), \
+            profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                    record_shapes=True, with_stack=True) as prof:
+        t = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t) * 1e3
+    split = dict.fromkeys(("attention_ms", "attention_matmul_ms",
+                           "matmul_ms", "cross_entropy_ms", "optimizer_ms",
+                           "other_ms"), 0.0)
+    kernels, listed_ms, relisted, annotation_ms = _device_kernels(prof)
+    by_name = {}
+    for name, t0, t1, op in kernels:
+        family = None if op is None else _train_family(op, score_numel,
+                                                       vocab)
+        ms = (t1 - t0) / 1e6
+        by_name[name] = by_name.get(name, 0.0) + ms
+        gemm = any(w in name.lower() for w in GEMM_WORDS)
+        if family is None:
+            split["matmul_ms" if gemm else "other_ms"] += ms
+        else:
+            split[family + "_ms"] += ms
+            if family == "attention" and gemm:
+                split["attention_matmul_ms"] += ms
+    busy_ms = sum(v for k, v in split.items() if k != "attention_matmul_ms")
+    union_ns, end = 0, 0
+    for t0, t1 in sorted((t0, t1) for _, t0, t1, _ in kernels):
+        union_ns += max(0, t1 - max(t0, end))
+        end = max(end, t1)
+    for name, ms in sorted(by_name.items(), key=lambda kv: -kv[1])[:top]:
+        print(f"[train-profile] kernel {ms:10.3f} ms {name[:90]}", flush=True)
+    for name, ms in sorted(relisted.items(), key=lambda kv: -kv[1])[:4]:
+        print(f"[train-profile] relisted {ms:10.3f} ms by {name[:60]}",
+              flush=True)
+    out = {"wall_ms": wall_ms, "busy_ms": busy_ms,
+           "idle_share": 1 - busy_ms / wall_ms, "kernels": len(kernels),
+           **split, "overlap_ms": busy_ms - union_ns / 1e6,
+           "per_op_lists_ms": listed_ms,
+           "relisted_ms": sum(relisted.values()),
+           "annotation_ms": annotation_ms,
+           "unlinked_ms": sum(t1 - t0 for _, t0, t1, op in kernels
+                              if op is None) / 1e6}
+    if busy_ms > wall_ms:
+        raise AssertionError(f"the profile counts {busy_ms:.3f} ms of device "
+                             f"time in a {wall_ms:.3f} ms step: {out}")
+    return out
+
+
+def train_throughput(dev, smi: str) -> None:
+    """Phase 11 (c): the ``build_cell`` train step at train_4k's sequence
+    (4,096) with the batch cut to 8: two warm-up steps, five timed (host
+    clock to a synchronised loss), then one profiled."""
+    arch = get_config("smollm-360m")
+    shape = dataclasses.replace(arch.shapes["train_4k"],
+                                batch=THROUGHPUT_BATCH)
+    arch = dataclasses.replace(arch, shapes={shape.name: shape})
+    cfg = arch.model
+    cell = steps.build_cell(arch, shape.name)
+    params = tr.init_lm_params(torch.Generator(device=dev).manual_seed(0),
+                               cfg)
+    opt = init_adamw(params)
+    data = SyntheticLM(cfg.vocab, shape.seq_len, shape.batch)
+    n = THROUGHPUT_WARMUP + THROUGHPUT_STEPS
+    batches = [{k: torch.from_numpy(v).to(dev)
+                for k, v in data.batch_at(i).items()} for i in range(n + 1)]
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    times, losses = [], []
+    for i in range(n):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        params, opt, loss = cell.fn(params, opt, batches[i])
+        losses.append(float(loss))
+        times.append(time.perf_counter() - t)
+    counts = read_counts()
+    step_s = statistics.median(times[THROUGHPUT_WARMUP:])
+    tokens = shape.batch * shape.seq_len
+    peak = torch.cuda.max_memory_allocated()
+    q_block = auto_q_block(shape.batch, cfg.n_heads, shape.seq_len,
+                           cfg.q_block)
+    split = _train_profile(
+        lambda: cell.fn(params, opt, batches[n]),
+        shape.batch * cfg.n_heads * min(q_block, shape.seq_len)
+        * shape.seq_len, cfg.vocab)
+    say("train", check="throughput", config=cfg.name, batch=shape.batch,
+        seq=shape.seq_len, q_block=q_block, remat=cfg.remat,
+        step_ms_median=f"{step_s * 1e3:.1f}",
+        step_ms_timed="'" + ",".join(f"{x * 1e3:.1f}" for x in
+                                     times[THROUGHPUT_WARMUP:]) + "'",
+        step_ms_warmup="'" + ",".join(f"{x * 1e3:.1f}" for x in
+                                      times[:THROUGHPUT_WARMUP]) + "'",
+        tokens_per_s=f"{tokens / step_s:.1f}",
+        model_flops=f"{cell.model_flops:.4e}",
+        model_tflop_s=f"{cell.model_flops / step_s / 1e12:.2f}",
+        bf16_peak_share=f"{cell.model_flops / step_s / PEAK_FLOPS[torch.bfloat16]:.4f}",
+        loss_first_last=f"{losses[0]:.4f}/{losses[-1]:.4f}",
+        peak_gib=f"{peak / 2**30:.3f}",
+        reserved_gib=f"{torch.cuda.max_memory_reserved() / 2**30:.3f}",
+        launches=json.dumps(counts, separators=(",", ":")),
+        smi=f"'{smi}'")
+    say("train-profile", step="train", batch=shape.batch, seq=shape.seq_len,
+        **_fmt(split))
+    if any(counts.values()) or not all(map(math.isfinite, losses)):
+        raise AssertionError(f"training launched {counts}, losses {losses}")
+    del params, opt, batches
+    torch.cuda.empty_cache()
+
+
+def check_train(dev, smi: str) -> None:
+    """Phase 11 (module docstring)."""
+    t0 = time.perf_counter()
+    reset_counts()
+    check_train_parity(dev)
+    train_entry(smi)
+    train_throughput(dev, smi)
+    say("train", seconds=f"{time.perf_counter() - t0:.3f}")
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--scale", type=int, default=20,
@@ -2843,6 +3371,9 @@ def main(argv=None) -> int:
 
     # ---- 10. the program audit, planted faults, the first-record charge
     check_audit(smi)
+
+    # ---- 11. the LM trainer: parity, the entry point, throughput ----
+    check_train(dev, smi)
 
     print(json.dumps({"kernels": [
         {"name": name, **KERNELS[name], "launches": launches[name],

@@ -10,7 +10,7 @@ def _model(reduced=False):
     if reduced:
         return LMConfig("smollm-360m-smoke", n_layers=2, d_model=96,
                         n_heads=3, n_kv_heads=1, d_ff=256, vocab=512,
-                        d_head=32, dtype=torch.float32)
+                        d_head=32, dtype=torch.float32, remat=False)
     return LMConfig("smollm-360m", n_layers=32, d_model=960, n_heads=15,
                     n_kv_heads=5, d_ff=2560, vocab=49152)
 

@@ -1,11 +1,17 @@
 """Shared neural building blocks on plain tensors (mirrors
-``repro/models/layers.py``: ``dense_init``, ``rmsnorm``,
-``rope_frequencies``, ``apply_rope``, ``gqa_attention``).
+``repro/models/layers.py``: ``dense_init``, ``rmsnorm``, ``layernorm``,
+``swiglu``, ``rope_frequencies``, ``apply_rope``, ``gqa_attention``,
+``auto_q_block``, ``chunked_gqa_attention``, ``cross_entropy``,
+``chunked_cross_entropy``).
 
 Layouts are the reference's: activations [B, S, H, D], weight matrices
-stored [in, out] and applied as ``x @ w``.  The row-blocked
-``chunked_gqa_attention`` has no counterpart: prefill attention runs the
-K6 kernel through ``kernels.ops.flash_attention_gqa``.
+stored [in, out] and applied as ``x @ w``.  Training attends through the
+row-blocked ``chunked_gqa_attention`` and scores through
+``chunked_cross_entropy``, as the reference does; each block body goes
+through ``torch.utils.checkpoint`` (non-reentrant), the counterpart of the
+reference's ``jax.checkpoint``, so backward recomputes one block at a time.
+Serving's prefill attends through the K6 kernel instead
+(``kernels.ops.flash_attention_gqa``).
 """
 from __future__ import annotations
 
@@ -13,6 +19,7 @@ import math
 from typing import Optional
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 #: the reference's additive mask value
 MASKED = -1e30
@@ -38,6 +45,25 @@ def rmsnorm(x: torch.Tensor, weight: torch.Tensor,
     x = x.to(torch.float32)
     x = x * torch.rsqrt(torch.mean(x * x, dim=-1, keepdim=True) + eps)
     return (x * weight.to(torch.float32)).to(dt)
+
+
+def layernorm(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
+              eps: float = 1e-5) -> torch.Tensor:
+    """Layer norm over the last dim, computed in f32, cast back."""
+    dt = x.dtype
+    x = x.to(torch.float32)
+    mu = torch.mean(x, dim=-1, keepdim=True)
+    var = torch.mean((x - mu) ** 2, dim=-1, keepdim=True)
+    y = (x - mu) * torch.rsqrt(var + eps)
+    return (y * weight + bias).to(dt)
+
+
+def swiglu(x: torch.Tensor, w_gate: torch.Tensor, w_up: torch.Tensor,
+           w_down: torch.Tensor) -> torch.Tensor:
+    gate = x @ w_gate
+    # silu as the reference's jax.nn.silu, x · sigmoid(x): in bf16 each of
+    # the two ops rounds, where F.silu would round once
+    return (gate * torch.sigmoid(gate) * (x @ w_up)) @ w_down
 
 
 def rope_frequencies(d_head: int, theta: float = 10000.0,
@@ -86,3 +112,83 @@ def gqa_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     probs = torch.softmax(scores, dim=-1).to(v.dtype)
     out = torch.einsum("bhgst,bthd->bshgd", probs, v)
     return out.reshape(B, S, Hq, D)
+
+
+def auto_q_block(B: int, Hq: int, T: int, q_block_max: int,
+                 target_bytes: float = 8e9) -> int:
+    """Largest power-of-two query block, at most ``q_block_max`` and at
+    least 128, whose f32 score tensor stays under ``target_bytes``."""
+    qb = q_block_max
+    while qb > 128 and B * Hq * qb * T * 4 > target_bytes:
+        qb //= 2
+    return qb
+
+
+def chunked_gqa_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                          q_block: int = 1024,
+                          causal: bool = True) -> torch.Tensor:
+    """Row-blocked attention: q [B, S, Hq, D], k/v [B, T, Hkv, D].  The
+    score tensor exists for one block of ``auto_q_block(...)`` query rows
+    at a time, and each block is checkpointed, so backward recomputes a
+    block's probabilities instead of keeping every block's.  With
+    ``S <= q_block`` it is ``gqa_attention``."""
+    B, S, Hq, D = q.shape
+    T, Hkv = k.shape[1], k.shape[2]
+    q_block = auto_q_block(B, Hq, T, q_block)
+    if S <= q_block:
+        return gqa_attention(q, k, v, causal=causal)
+    if S % q_block:
+        raise ValueError(f"{S} query rows are not a multiple of the "
+                         f"{q_block}-row block")
+    qg = q.reshape(B, S, Hkv, Hq // Hkv, D)
+    t_idx = torch.arange(T, device=q.device)
+    scale = math.sqrt(D)
+
+    def block(qi, lo):
+        scores = torch.einsum("bshgd,bthd->bhgst", qi, k)
+        scores = scores.to(torch.float32) / scale
+        if causal:
+            s_pos = lo + torch.arange(q_block, device=qi.device)
+            keep = t_idx[None, :] <= s_pos[:, None]
+            scores = scores.masked_fill(~keep, MASKED)
+        probs = torch.softmax(scores, dim=-1).to(v.dtype)
+        return torch.einsum("bhgst,bthd->bshgd", probs, v)
+
+    outs = [checkpoint(block, qg[:, lo:lo + q_block], lo,
+                       use_reentrant=False)
+            for lo in range(0, S, q_block)]
+    return torch.cat(outs, dim=1).reshape(B, S, Hq, D)
+
+
+def cross_entropy(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    """Mean token cross-entropy in f32."""
+    logits = logits.to(torch.float32)
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, labels[..., None].long())[..., 0]
+    return torch.mean(logz - gold)
+
+
+def _xent_block(xi, head, li):
+    """Summed cross-entropy of one block of rows through the LM head."""
+    logits = (xi @ head).to(torch.float32)
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, li[:, None].long())[:, 0]
+    return torch.sum(logz - gold)
+
+
+def chunked_cross_entropy(x: torch.Tensor, head: torch.Tensor,
+                          labels: torch.Tensor,
+                          block: int = 8192) -> torch.Tensor:
+    """LM head and cross-entropy fused over row blocks: x [N, D] (the
+    flattened tokens), head [D, V], labels [N].  Only [block, V] logits
+    exist at a time, recomputed in backward (each block checkpointed);
+    ``block`` halves until it divides N.  The blocks' sums add up in f32,
+    in order, and the total is divided by N: the mean."""
+    N = x.shape[0]
+    while N % block:
+        block //= 2
+    total = torch.zeros((), dtype=torch.float32, device=x.device)
+    for lo in range(0, N, block):
+        total = total + checkpoint(_xent_block, x[lo:lo + block], head,
+                                   labels[lo:lo + block], use_reentrant=False)
+    return total / N

@@ -1,20 +1,24 @@
-"""Dense decoder-only transformer LM for serving: GQA + RoPE + SwiGLU, with
-a KV-cache decode (mirrors ``repro/models/transformer.py``: ``LMConfig``,
-``init_layer_params``, ``init_lm_params``, ``prefill_step``, ``KVCache``,
-``init_kv_cache``, ``decode_step``).
+"""Dense decoder-only transformer LM: GQA + RoPE + SwiGLU, trained and
+served (mirrors ``repro/models/transformer.py``: ``LMConfig``,
+``init_layer_params``, ``init_lm_params``, ``abstract_lm_params``,
+``lm_backbone``, ``lm_forward``, ``lm_loss``, ``prefill_step``,
+``KVCache``, ``init_kv_cache``, ``abstract_kv_cache``, ``decode_step``).
 
 Parameters are a plain dict: ``embed`` [V, D], ``layers`` (a list of one
 dict per layer, in layer order), ``ln_f`` [D] and ``lm_head`` [D, V].
 Weight matrices are stored [in, out] and applied as ``x @ w``, as in the
 reference; :func:`params_from_numpy` turns the reference's stacked
-``[L, …]`` tree into this form.
+``[L, …]`` tree into this form and :func:`params_to_numpy` back.
 
-Prefill attention runs the K6 kernel through
-``kernels.ops.flash_attention_gqa`` where the reference runs its
-row-blocked ``chunked_gqa_attention``; decode attention is plain torch
-(``gqa_attention`` with ``kv_len``), as in the reference.  Training
-(``lm_backbone``, ``lm_loss``), MoE and the sharding constraints are not
-ported yet (ROADMAP queue 1 item 8).
+Training (``lm_backbone``, ``lm_loss``) runs each layer under
+``torch.utils.checkpoint`` when ``cfg.remat`` (the reference's
+``jax.checkpoint`` with ``nothing_saveable``: only the layer's input is
+kept) and attends through the row-blocked ``chunked_gqa_attention``, as
+the reference does.  Prefill attention runs the K6 kernel through
+``kernels.ops.flash_attention_gqa`` where the reference runs
+``chunked_gqa_attention``; decode attention is plain torch
+(``gqa_attention`` with ``kv_len``), as in the reference.  MoE and the
+sharding constraints are not ported yet (ROADMAP queue 1 items 8 and 9).
 """
 from __future__ import annotations
 
@@ -23,9 +27,12 @@ from typing import Any, Dict, List, NamedTuple, Optional
 
 import numpy as np
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from ..kernels import ops
-from .layers import apply_rope, dense_init, gqa_attention, rmsnorm
+from .layers import (apply_rope, chunked_cross_entropy,
+                     chunked_gqa_attention, dense_init, gqa_attention,
+                     rmsnorm, swiglu)
 
 Params = Dict[str, Any]
 
@@ -33,9 +40,8 @@ Params = Dict[str, Any]
 @dataclasses.dataclass(frozen=True)
 class LMConfig:
     """The reference's LM config, dense only (``moe`` raises).  The
-    reference's ``tie_embeddings`` (no config sets it), ``remat``,
-    ``q_block`` and ``moe_shard_map`` (training and TPU knobs) are left
-    out."""
+    reference's ``tie_embeddings`` (no config sets it) and
+    ``moe_shard_map`` (a TPU knob) are left out."""
     name: str
     n_layers: int
     d_model: int
@@ -47,6 +53,8 @@ class LMConfig:
     moe: Optional[Any] = None
     rope_theta: float = 10000.0
     dtype: torch.dtype = torch.bfloat16
+    remat: bool = True
+    q_block: int = 1024              # row-blocked attention block size
 
     def __post_init__(self):
         if self.moe is not None:
@@ -69,26 +77,30 @@ class LMConfig:
         per_layer = attn + 3 * d * self.d_ff + 2 * d
         return self.n_layers * per_layer + 2 * self.vocab * d + d
 
+    def active_param_count(self) -> int:
+        """Parameters a token uses: all of them (dense)."""
+        return self.param_count()
+
+
+def _layer_shapes(cfg: LMConfig) -> Dict[str, tuple]:
+    """A layer's weight matrices, in the order ``init_layer_params``
+    draws them."""
+    d, dh = cfg.d_model, cfg.head_dim
+    return {"wq": (d, cfg.n_heads * dh), "wk": (d, cfg.n_kv_heads * dh),
+            "wv": (d, cfg.n_kv_heads * dh), "wo": (cfg.n_heads * dh, d),
+            "w_gate": (d, cfg.d_ff), "w_up": (d, cfg.d_ff),
+            "w_down": (cfg.d_ff, d)}
+
 
 def init_layer_params(generator: torch.Generator, cfg: LMConfig,
                       device: Optional[torch.device] = None) -> Params:
     """One decoder block's weights, drawn from ``generator`` in a fixed
     order (wq, wk, wv, wo, w_gate, w_up, w_down)."""
-    d, dh = cfg.d_model, cfg.head_dim
     device = device or generator.device
-
-    def dense(i, o):
-        return dense_init(generator, i, o, cfg.dtype, device=device)
-
-    p = {"wq": dense(d, cfg.n_heads * dh),
-         "wk": dense(d, cfg.n_kv_heads * dh),
-         "wv": dense(d, cfg.n_kv_heads * dh),
-         "wo": dense(cfg.n_heads * dh, d)}
-    p["w_gate"] = dense(d, cfg.d_ff)
-    p["w_up"] = dense(d, cfg.d_ff)
-    p["w_down"] = dense(cfg.d_ff, d)
-    p["ln1"] = torch.ones(d, dtype=cfg.dtype, device=device)
-    p["ln2"] = torch.ones(d, dtype=cfg.dtype, device=device)
+    p = {name: dense_init(generator, i, o, cfg.dtype, device=device)
+         for name, (i, o) in _layer_shapes(cfg).items()}
+    p["ln1"] = torch.ones(cfg.d_model, dtype=cfg.dtype, device=device)
+    p["ln2"] = torch.ones(cfg.d_model, dtype=cfg.dtype, device=device)
     return p
 
 
@@ -108,6 +120,19 @@ def init_lm_params(generator: torch.Generator, cfg: LMConfig,
     p["lm_head"] = dense_init(generator, cfg.d_model, cfg.vocab, cfg.dtype,
                               device=device)
     return p
+
+
+def abstract_lm_params(cfg: LMConfig) -> Params:
+    """The params' shapes and dtypes as ``meta`` tensors (no storage)."""
+    def meta(*shape):
+        return torch.empty(shape, dtype=cfg.dtype, device="meta")
+
+    layer = {name: meta(*shape) for name, shape in _layer_shapes(cfg).items()}
+    layer["ln1"] = layer["ln2"] = meta(cfg.d_model)
+    return {"embed": meta(cfg.vocab, cfg.d_model),
+            "layers": [dict(layer) for _ in range(cfg.n_layers)],
+            "ln_f": meta(cfg.d_model),
+            "lm_head": meta(cfg.d_model, cfg.vocab)}
 
 
 def _tensor(a) -> torch.Tensor:
@@ -130,6 +155,24 @@ def params_from_numpy(tree: Dict[str, Any]) -> Params:
             "lm_head": _tensor(tree["lm_head"])}
 
 
+def _array(t: torch.Tensor) -> np.ndarray:
+    t = t.detach().cpu()
+    return (t.float() if t.dtype == torch.bfloat16 else t).numpy()
+
+
+def params_to_numpy(params: Params) -> Dict[str, Any]:
+    """This module's params (or a tree of their gradients) → the
+    reference's tree of numpy arrays, ``layers`` stacked [L, …].  bf16 is
+    widened to f32, which keeps every value (numpy has no bf16)."""
+    names = params["layers"][0].keys()
+    return {"embed": _array(params["embed"]),
+            "layers": {n: np.stack([_array(layer[n])
+                                    for layer in params["layers"]])
+                       for n in names},
+            "ln_f": _array(params["ln_f"]),
+            "lm_head": _array(params["lm_head"])}
+
+
 def _qkv(cfg: LMConfig, x: torch.Tensor, layer: Params,
          positions: torch.Tensor):
     """Pre-norm projections of x [B, S, D] → rotated q [B,S,Hq,dh],
@@ -146,12 +189,52 @@ def _qkv(cfg: LMConfig, x: torch.Tensor, layer: Params,
 
 def _mlp(x: torch.Tensor, layer: Params) -> torch.Tensor:
     """x plus the SwiGLU feed-forward of its pre-norm."""
-    h = rmsnorm(x, layer["ln2"])
-    gate = h @ layer["w_gate"]
-    # silu as the reference's jax.nn.silu, x · sigmoid(x): in bf16 each of
-    # the two ops rounds, where F.silu would round once
-    y = gate * torch.sigmoid(gate) * (h @ layer["w_up"])
-    return x + y @ layer["w_down"]
+    return x + swiglu(rmsnorm(x, layer["ln2"]), layer["w_gate"],
+                      layer["w_up"], layer["w_down"])
+
+
+def _layer_fwd(cfg: LMConfig, x, layer, positions):
+    """One decoder block of the training path, x [B, S, D] → (x, the
+    layer's aux loss: a zero f32 scalar, as the dense reference's)."""
+    B, S, _ = x.shape
+    q, k, v = _qkv(cfg, x, layer, positions)
+    attn = chunked_gqa_attention(q, k, v, q_block=cfg.q_block, causal=True)
+    x = _mlp(x + attn.reshape(B, S, -1) @ layer["wo"], layer)
+    return x, torch.zeros((), dtype=torch.float32, device=x.device)
+
+
+def lm_backbone(params: Params, cfg: LMConfig, tokens: torch.Tensor):
+    """tokens [B, S] → final hidden states [B, S, D] and the aux loss.
+    With ``cfg.remat`` each layer is checkpointed: backward recomputes
+    it from its input, the only activation a layer keeps."""
+    B, S = tokens.shape
+    x = params["embed"][tokens.long()]
+    positions = torch.arange(S, device=x.device)[None].expand(B, S)
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    for layer in params["layers"]:
+        if cfg.remat:
+            x, a = checkpoint(_layer_fwd, cfg, x, layer, positions,
+                              use_reentrant=False)
+        else:
+            x, a = _layer_fwd(cfg, x, layer, positions)
+        aux = aux + a
+    return rmsnorm(x, params["ln_f"]), aux
+
+
+def lm_forward(params: Params, cfg: LMConfig, tokens: torch.Tensor):
+    """tokens [B, S] → logits [B, S, V] and the aux loss."""
+    x, aux = lm_backbone(params, cfg, tokens)
+    return x @ params["lm_head"], aux
+
+
+def lm_loss(params: Params, cfg: LMConfig, tokens: torch.Tensor,
+            labels: torch.Tensor) -> torch.Tensor:
+    """Mean next-token cross-entropy (f32) plus the aux loss."""
+    B, S = tokens.shape
+    x, aux = lm_backbone(params, cfg, tokens)
+    loss = chunked_cross_entropy(x.reshape(B * S, -1), params["lm_head"],
+                                 labels.reshape(B * S))
+    return loss + aux
 
 
 class KVCache(NamedTuple):
@@ -189,6 +272,11 @@ def init_kv_cache(cfg: LMConfig, batch: int, max_len: int, fill: int = 0,
         k=torch.zeros(shape, dtype=cfg.dtype, device=device),
         v=torch.zeros(shape, dtype=cfg.dtype, device=device),
         length=torch.full((batch,), fill, dtype=torch.int32, device=device))
+
+
+def abstract_kv_cache(cfg: LMConfig, batch: int, max_len: int) -> KVCache:
+    """A cache's shapes and dtypes as ``meta`` tensors."""
+    return init_kv_cache(cfg, batch, max_len, device=torch.device("meta"))
 
 
 def decode_step(params: Params, cfg: LMConfig, cache: KVCache,

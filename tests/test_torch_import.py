@@ -81,6 +81,31 @@ assert not bad, bad
     assert r.returncode == 0, r.stdout + r.stderr
 
 
+@pytest.mark.parametrize("module", ["repro_torch.launch.train",
+                                    "repro_torch.launch.steps",
+                                    "repro_torch.optim",
+                                    "repro_torch.data",
+                                    "repro_torch.checkpoint",
+                                    "repro_torch.ft",
+                                    "repro_torch.tree"])
+def test_training_slice_imports_with_jax_blocked(module):
+    """The trainer and what it composes (the optimizer, the data, the
+    checkpoints and the restart loop) stand alone, each imported first in
+    a fresh process."""
+    code = f"""
+import importlib, sys
+sys.modules["jax"] = None
+sys.path[:0] = [{str(Path(REPO) / "src")!r}]
+importlib.import_module({module!r})
+bad = sorted(m for m in sys.modules if m == "repro" or m.startswith("repro."))
+assert not bad, bad
+"""
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    r = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                       text=True, env=env, timeout=300)
+    assert r.returncode == 0, r.stdout + r.stderr
+
+
 def test_host_engine_imports_and_solves_with_jax_blocked():
     """The host backend stands alone: ``repro_torch.core.host_engine``
     imported first in a fresh process with JAX blocked, then a host solve
