@@ -3,7 +3,8 @@
 
     python3 chip_smoke.py                 # scale-20 RMAT graph, 8 partitions,
                                           # full-width SmolLM-360M serving
-                                          # and training
+                                          # and training, full-width
+                                          # Qwen1.5-MoE-A2.7B serving
 
 Phases, each printed on its own line; any failure raises and the script
 exits non-zero:
@@ -237,8 +238,10 @@ exits non-zero:
                 its twin at the serving prefill's shape (B 4, S = T =
                 4,096, 15 query and 5 KV heads, D 64, bf16, causal),
                 non-causal f32 at D 128, a ragged S = T = 4,097, causal
-                bf16 at D 128 (B 1, S = T = 4,096, 8/2 heads) and D 32
-                (B 2, S = T = 2,048, 6/2 heads), and a causal suffix
+                bf16 at D 128 (B 1, S = T = 4,096, 8/2 heads), at the MoE
+                slice's prefill (B 4, S = T = 4,096, 16/16 heads, D 128)
+                and D 32 (B 2, S = T = 2,048, 6/2 heads), and a causal
+                suffix
                 across tile edges (S = 1,000 queries over T = 4,097
                 keys): f32 within 2e-5, bf16 elementwise within 5e-2 of
                 |want| plus its row's RMS, a limit that a twin dropping
@@ -334,6 +337,39 @@ exits non-zero:
                 into attention passes (and their matrix products), the
                 other matrix products, cross-entropy, the optimizer and
                 the rest.
+  12. moe     — the MoE LM (``models/moe.py``, Qwen1.5-MoE-A2.7B), on a
+                drained card (``memory_allocated()`` printed first, under
+                1 GiB): (a) the reduced config in f32 (D 32), one set of
+                seeded weights on ``cuda`` and on ``cpu``, as phase 8
+                (the reduced Qwen3-MoE has D 16, which K6 does not take:
+                it runs on the CPU only); (b) one MoE FFN at full width
+                (d 2,048, 60 experts, top-4, width 1,408, 4 shared, bf16,
+                256 tokens, capacity factor 8: no pair may drop) against
+                the dense ``moe_ffn_reference`` by ``scaled_err`` within
+                3e-2, which a combine without the gate weights and a
+                slot shifted by one expert must each exceed; and the
+                share of (token, k) pairs the reference's routing drops
+                at the prefill's 16,384 tokens (capacity factor 1.25);
+                (c) ``serve_lm`` of the full config (24 layers, seeded
+                weights from a generator on the card) at phase 9's
+                shape, as phase 9: counters set to 0 before the first
+                fused serve and read after and around each recording (K6
+                24 times in the prefill graph, none in the decode graph,
+                one capture), three fused and three eager serves with the
+                same ids, the first three decode replays against eager
+                ``decode_step``s (phase 9's decode-against-a-longer-
+                prefill check does not carry over: the prefill routes
+                with C = 171 per 2,048-token group and a decode step with
+                C = 1 per 4 tokens); (d) the full width cut to 2 layers in
+                f32, B 2, P 128, 4 decode steps on the card and on the
+                CPU: every step's logits within 1e-4, the ids equal, and
+                each routing choice that differs printed with its two
+                probabilities (a gap under 1e-5 is rounding, any other a
+                fault); (e) one eager run and one replay each of the
+                prefill and the decode program under torch.profiler, the
+                device time split into routed-expert products,
+                shared-expert products, dispatch and combine, the
+                router, K6 and the rest.
 
 The last three lines are the kernel table as JSON, the ``nvidia-smi``
 line, and ``{"ok": true, "device": {...}}``.
@@ -393,6 +429,7 @@ from repro_torch.kernels import pointer_double as pd  # noqa: E402
 from repro_torch.kernels import segment_reduce as sr  # noqa: E402
 from repro_torch.launch import serve, steps, train  # noqa: E402
 from repro_torch.launch.serve import LMPrograms, serve_lm  # noqa: E402
+from repro_torch.models import moe  # noqa: E402
 from repro_torch.models import transformer as tr  # noqa: E402
 from repro_torch.models.layers import (auto_q_block,  # noqa: E402
                                        chunked_gqa_attention, gqa_attention)
@@ -510,6 +547,26 @@ TRAIN_RTOL, TRAIN_ATOL = 1e-4, 1e-5
 UPDATE_ATOL = 1e-6
 #: kernel names of the matrix products in a profile
 GEMM_WORDS = ("gemm", "xmma", "cutlass", "nvjet")
+#: phase 12: the MoE arch served at full width and depth
+MOE_ARCH = "qwen2-moe-a2.7b"
+#: phase 12 (b): one full-width MoE layer's tokens and the capacity
+#: factor at which none of them drops; ``moe_ffn`` is held to the dense
+#: ``moe_ffn_reference`` by ``scaled_err`` (both in bf16, the products
+#: rounded in other orders), and a combine without the gate weights and
+#: a slot shifted by one expert must each exceed it
+MOE_LAYER_TOKENS, MOE_LAYER_CF, MOE_BF16_TOL = 256, 8.0, 3e-2
+#: phase 12 (d): full width cut to 2 layers in f32, B 2, P 128, 4 decode
+#: steps, card against CPU by ``allclose``; a routing choice that differs
+#: between the two is rounding when its two probabilities are closer
+#: than ROUTING_GAP, and a fault otherwise
+MOE_DEPTH2 = dict(layers=2, batch=2, prompt=128, steps=4)
+MOE_F32_TOL, ROUTING_GAP = 1e-4, 1e-5
+#: phase 12 (e): the ``models/moe.py`` functions whose kernels make up
+#: each family of the MoE profile (the innermost one a kernel runs in
+#: names its family; ``moe_ffn``'s own ops are its gather and scatter)
+MOE_FAMILIES = {"moe_ffn": "dispatch_combine", "route": "router",
+                "dispatch": "dispatch_combine", "combine": "dispatch_combine",
+                "experts": "routed_expert", "shared_experts": "shared_expert"}
 
 
 def say(phase: str, **fields) -> None:
@@ -2178,6 +2235,8 @@ def check_k6(dev) -> dict:
         ("ragged_4097", 1, LM_PROMPT + 1, LM_PROMPT + 1, 15, 5, 64, True,
          torch.bfloat16),
         ("causal_d128", 1, 4096, 4096, 8, 2, 128, True, torch.bfloat16),
+        ("moe_prefill", LM_BATCH, LM_PROMPT, LM_PROMPT, 16, 16, 128, True,
+         torch.bfloat16),
         ("causal_d32", 2, 2048, 2048, 6, 2, 32, True, torch.bfloat16),
         ("suffix_1000_of_4097", 1, 1000, LM_PROMPT + 1, 15, 5, 64, True,
          torch.bfloat16),
@@ -2267,17 +2326,17 @@ def check_k6(dev) -> dict:
 
 
 def _to(params, where):
-    """``params`` with every tensor moved or cast by ``.to(where)``."""
-    return {k: ([{n: t.to(where) for n, t in layer.items()} for layer in v]
-                if k == "layers" else v.to(where))
-            for k, v in params.items()}
+    """``params`` with every tensor moved or cast by ``.to(where)`` (a MoE
+    layer's ``moe`` sub-dict included)."""
+    return tree_map(lambda t: t.to(where), params)
 
 
-def check_lm_parity(dev) -> None:
-    """Phase 8: the reduced config in f32, one set of seeded weights on
-    ``dev`` and on the CPU: prefill logits within 2e-5, greedy ids
-    equal."""
-    cfg = get_config("smollm-360m", reduced=True).model
+def check_lm_parity(dev, arch: str = "smollm-360m",
+                    phase: str = "lm-parity") -> None:
+    """Phase 8 (and 12 (a) for the MoE arch): the reduced config in f32,
+    one set of seeded weights on ``dev`` and on the CPU: prefill logits
+    within 2e-5, greedy ids equal."""
+    cfg = get_config(arch, reduced=True).model
     params = tr.init_lm_params(torch.Generator().manual_seed(0), cfg)
     on_card = _to(params, dev)
     prompts = np.random.default_rng(0).integers(
@@ -2289,9 +2348,9 @@ def check_lm_parity(dev) -> None:
     cpu = serve_lm(cfg, prompts, 8, "cpu", params=params)
     card = serve_lm(cfg, prompts, 8, dev, params=on_card)
     same = np.array_equal(cpu.ids, card.ids)
-    say("lm-parity", config=cfg.name, dtype="float32", batch=2, prompt=64,
-        gen=8, logits_max_abs_err=f"{err:.3e}", logits_allclose=ok,
-        greedy_ids_equal=same)
+    say(phase, config=cfg.name, dtype="float32", batch=2, prompt=64,
+        gen=8, head_dim=cfg.head_dim, logits_max_abs_err=f"{err:.3e}",
+        logits_allclose=ok, greedy_ids_equal=same)
     if not (ok and same):
         raise AssertionError("reduced LM differs between cuda and cpu")
 
@@ -2411,7 +2470,8 @@ def record_lm(cfg, params, prompts, dev):
     return programs, res, read_counts(), *recorded
 
 
-def serve_both_modes(cfg, params, prompts, dev, programs, smi: str):
+def serve_both_modes(cfg, params, prompts, dev, programs, smi: str,
+                     phase: str = "lm-serve"):
     """Three fused serves (replays of ``programs``: each must record
     nothing and launch no wrapper) and three eager ones (K6 once per
     layer each); prints each mode's spread and the fused serves' peak
@@ -2440,7 +2500,7 @@ def serve_both_modes(cfg, params, prompts, dev, programs, smi: str):
         memory[mode] = (torch.cuda.max_memory_allocated(),
                         torch.cuda.max_memory_reserved())
     for mode, results in runs.items():
-        say("lm-serve", mode=mode, calls=len(results),
+        say(phase, mode=mode, calls=len(results),
             decode_tok_s=_spread([r.decode_tok_s for r in results], 1),
             prefill_s=_spread([r.prefill_s for r in results], 4),
             decode_s=_spread([r.decode_s for r in results], 4),
@@ -3235,6 +3295,410 @@ def check_train(dev, smi: str) -> None:
     say("train", seconds=f"{time.perf_counter() - t0:.3f}")
 
 
+# ------------------------------------------------------------ phase 12 --
+
+def moe_drops(params, x, cfg) -> tuple:
+    """(dropped (token, k) pairs, all pairs, the capacity C) of one MoE
+    FFN's routing of x [T, D], as ``moe_ffn`` routes it."""
+    T, D = x.shape
+    G, Tg, C = moe.group_capacity(T, cfg)
+    idx = moe.route(params["router"], x.reshape(G, Tg, D), cfg)[2]
+    keep = moe.dispatch(idx, C, cfg.n_experts)[2]
+    return int((~keep).sum()), keep.numel(), C
+
+
+def check_moe_layer(dev) -> None:
+    """Phase 12 (b): one MoE FFN at full width against the dense oracle,
+    two planted faults, and the drop share at the prefill's routing."""
+    cfg = get_config(MOE_ARCH).model
+    mcfg = cfg.moe._replace(capacity_factor=MOE_LAYER_CF)
+    gen = torch.Generator(device=dev).manual_seed(1)
+    params = moe.init_moe_params(gen, cfg.d_model, mcfg, cfg.dtype)
+    x = torch.randn(MOE_LAYER_TOKENS, cfg.d_model, generator=gen,
+                    device=dev).to(cfg.dtype)
+    dropped, pairs, C = moe_drops(params, x, mcfg)
+    want = moe.moe_ffn_reference(params, x, mcfg)
+    err = scaled_err(moe.moe_ffn(params, x, mcfg)[0], want)
+    dispatch, combine = moe.dispatch, moe.combine
+
+    def shifted_slot(expert_idx, C, E):
+        order, st, keep, slot = dispatch(expert_idx, C, E)
+        return order, st, keep, torch.where(keep, (slot + C) % (E * C), slot)
+
+    def ungated_combine(y, order, keep, slot, gates, dtype):
+        return combine(y, order, keep, slot, torch.ones_like(gates), dtype)
+
+    faults = {}
+    for name, fn in (("combine", ungated_combine),
+                     ("dispatch", shifted_slot)):
+        with mock.patch.object(moe, name, fn):
+            faults[fn.__name__] = scaled_err(moe.moe_ffn(params, x, mcfg)[0],
+                                             want)
+    # the prefill's routing at the serving shape, the default capacity
+    big = torch.randn(LM_BATCH * LM_PROMPT, cfg.d_model, generator=gen,
+                      device=dev).to(cfg.dtype)
+    big_dropped, big_pairs, big_C = moe_drops(params, big, cfg.moe)
+    G = moe.group_capacity(big.shape[0], cfg.moe)[0]
+    say("moe-slice", check="moe_layer", d_model=cfg.d_model,
+        experts=mcfg.n_experts, top_k=mcfg.top_k, d_expert=mcfg.d_expert,
+        shared=mcfg.n_shared, dtype="bfloat16", tokens=MOE_LAYER_TOKENS,
+        capacity_factor=mcfg.capacity_factor, capacity=C,
+        dropped_pairs=dropped, scaled_err=f"{err:.3e}",
+        tol=MOE_BF16_TOL, within_tol=err <= MOE_BF16_TOL,
+        **{f"planted_{k}_scaled_err": f"{v:.3e}" for k, v in faults.items()},
+        prefill_tokens=big.shape[0], prefill_groups=G,
+        prefill_capacity=big_C,
+        prefill_capacity_factor=cfg.moe.capacity_factor,
+        prefill_dropped_pairs=f"{big_dropped}/{big_pairs}",
+        prefill_drop_share=f"{big_dropped / big_pairs:.4f}")
+    if dropped or not err <= MOE_BF16_TOL:
+        raise AssertionError(f"moe_ffn differs from moe_ffn_reference: "
+                             f"scaled err {err}, {dropped} pairs dropped")
+    missed = [k for k, v in faults.items() if not v > MOE_BF16_TOL]
+    if missed:
+        raise AssertionError(f"the MoE check cannot see the planted faults "
+                             f"{missed}: {faults}")
+    del params, x, big, want
+    torch.cuda.empty_cache()
+
+
+def _profiled_kernels(fn) -> tuple:
+    """One call of ``fn`` under torch.profiler: its wall milliseconds and
+    its device events in start order (``_device_kernels``)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t) * 1e3
+    return wall_ms, sorted(_device_kernels(prof)[0], key=lambda k: k[1])
+
+
+@contextlib.contextmanager
+def moe_ranges():
+    """Each function of ``MOE_FAMILIES`` run inside a ``record_function``
+    range named ``moe:<family>`` (``moe_ffn`` also where the transformer
+    calls it), so that a kernel's family is the innermost such range
+    around the op that launched it."""
+    from torch.profiler import record_function
+
+    def ranged(fn, family):
+        def inner(*args, **kw):
+            with record_function(f"moe:{family}"):
+                return fn(*args, **kw)
+        return inner
+
+    with contextlib.ExitStack() as stack:
+        for name, family in MOE_FAMILIES.items():
+            stack.enter_context(mock.patch.object(
+                moe, name, ranged(getattr(moe, name), family)))
+        stack.enter_context(mock.patch.object(tr, "moe_ffn", moe.moe_ffn))
+        yield
+
+
+def _moe_family(name: str, op) -> str:
+    """K6 by its kernel's name; else the innermost ``moe:`` range around
+    the op that launched it (``moe_ranges``); else ``other``."""
+    if "flash_bf16_kernel" in name or "flash_f32_kernel" in name:
+        return "flash_attention"
+    while op is not None:
+        if op.name.startswith("moe:"):
+            return op.name[4:]
+        op = op.cpu_parent
+    return "other"
+
+
+MOE_SPLIT = ("routed_expert", "shared_expert", "dispatch_combine", "router",
+             "flash_attention", "other")
+
+
+def _split_line(step, mode, wall_ms, kernels, families, **fields) -> dict:
+    split = {f"{f}_ms": 0.0 for f in MOE_SPLIT}
+    for (_, t0, t1, _), family in zip(kernels, families):
+        split[f"{family}_ms"] += (t1 - t0) / 1e6
+    busy = sum(split.values())
+    say("moe-profile", step=step, mode=mode, batch=LM_BATCH,
+        wall_ms=f"{wall_ms:.3f}", busy_ms=f"{busy:.3f}",
+        idle_share=f"{max(0.0, 1 - busy / wall_ms):.3f}",
+        kernels=len(kernels), **fields,
+        **{k: f"{v:.3f}" for k, v in split.items()})
+    return split
+
+
+def align_kernels(a: list, b: list) -> list:
+    """For each kernel name of ``b``, the index of the name of ``a``
+    aligned with it by a least-edit alignment (a substitution or a
+    kernel in one list only costs 1), searched in a band around the
+    diagonal as wide as the lengths differ plus 16; ``None`` where ``b``
+    has a kernel that ``a`` lacks."""
+    n, m = len(a), len(b)
+    w = abs(n - m) + 16
+    cost, move = {(0, 0): 0}, {}
+    for i in range(n + 1):
+        c = i * m // max(n, 1)
+        for j in range(max(0, c - w), min(m, c + w) + 1):
+            options = []
+            if i and j and (i - 1, j - 1) in cost:
+                options.append((cost[i - 1, j - 1] + (a[i - 1] != b[j - 1]),
+                                0, 1, 1))
+            if i and (i - 1, j) in cost:
+                options.append((cost[i - 1, j] + 1, 1, 1, 0))
+            if j and (i, j - 1) in cost:
+                options.append((cost[i, j - 1] + 1, 2, 0, 1))
+            if options:
+                cost[i, j], _, di, dj = min(options)
+                move[i, j] = (di, dj)
+    out = [None] * m
+    i, j = n, m
+    while (i or j) and (i, j) in move:
+        di, dj = move[i, j]
+        if di and dj:
+            out[j - 1] = i - 1
+        i, j = i - di, j - dj
+    return out
+
+
+def moe_profile(step: str, eager_fn, replay_fn) -> None:
+    """Phase 12 (e): one eager run of a program's body under the profiler
+    (in ``moe_ranges``), each kernel's family from its op; then one
+    replay of the program, whose kernels carry no op: each takes the
+    family of the eager kernel aligned with it in start order
+    (``align_kernels``: the graph holds the body's launches in their
+    order, but cuBLAS may pick other products under capture and the two
+    traces can differ by a few events), else the family its name has
+    most in the eager run."""
+    with moe_ranges():
+        wall, eager = _profiled_kernels(eager_fn)
+    families = [_moe_family(name, op) for name, _, _, op in eager]
+    _split_line(step, "eager", wall, eager, families)
+    top = {}
+    for (name, t0, t1, op), family in zip(eager, families):
+        key = (family, op.name if op is not None else "-", name)
+        top[key] = top.get(key, 0.0) + (t1 - t0) / 1e6
+    for (family, op, name), ms in sorted(top.items(),
+                                         key=lambda kv: -kv[1])[:8]:
+        print(f"[moe-profile] eager {ms:9.3f} ms {family:16s} {op[:24]:24s} "
+              f"{name[:60]}", flush=True)
+    wall, replay = _profiled_kernels(replay_fn)
+    at = align_kernels([k[0] for k in eager], [k[0] for k in replay])
+    by_name = {}
+    for (name, t0, t1, _), family in zip(eager, families):
+        ms = by_name.setdefault(name, {})
+        ms[family] = ms.get(family, 0) + t1 - t0
+    replay_families = [
+        families[i] if i is not None else
+        max(by_name[name], key=by_name[name].get) if name in by_name
+        else "other" for (name, *_), i in zip(replay, at)]
+    _split_line(step, "replay", wall, replay, replay_families,
+                aligned=f"{sum(i is not None for i in at)}/{len(replay)}",
+                same_name=sum(i is not None and eager[i][0] == name
+                              for (name, *_), i in zip(replay, at)))
+    top = {}
+    for (name, t0, t1, _), family in zip(replay, replay_families):
+        key = (family, name)
+        top[key] = top.get(key, 0.0) + (t1 - t0) / 1e6
+    for (family, name), ms in sorted(top.items(), key=lambda kv: -kv[1])[:6]:
+        print(f"[moe-profile] replay {ms:9.3f} ms {family:16s} {name[:70]}",
+              flush=True)
+
+
+def check_moe_slice(dev, smi: str) -> dict:
+    """Phase 12 (c) and (e): Qwen1.5-MoE-A2.7B at full width and depth
+    served at phase 9's shape, fused and eager, then profiled.  Returns
+    the launch counts of its path: K6's is the prefill graph's."""
+    cfg = get_config(MOE_ARCH).model
+    t = time.perf_counter()
+    params = tr.init_lm_params(torch.Generator(device=dev).manual_seed(0), cfg)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t
+    weights = sum(p.numel() * p.element_size() for p in tree_leaves(params))
+    prompts = np.random.default_rng(0).integers(
+        0, cfg.vocab, (LM_BATCH, LM_PROMPT)).astype(np.int32)
+    torch.cuda.reset_peak_memory_stats()
+    programs, res, counts, rec_prefill, rec_decode = record_lm(
+        cfg, params, prompts, dev)
+    peak = torch.cuda.max_memory_allocated()
+    cache = sum(x.numel() * x.element_size() for x in programs.cache[:2])
+    say("moe-slice", check="serve", config=cfg.name, layers=cfg.n_layers,
+        d_model=cfg.d_model, heads=f"{cfg.n_heads}/{cfg.n_kv_heads}",
+        head_dim=cfg.head_dim, experts=cfg.moe.n_experts,
+        top_k=cfg.moe.top_k, shared=cfg.moe.n_shared,
+        params=cfg.param_count(), active_params=cfg.active_param_count(),
+        weights_gib=f"{weights / 2**30:.3f}",
+        kv_cache_gib=f"{cache / 2**30:.3f}", dtype="bfloat16",
+        batch=LM_BATCH, prompt=LM_PROMPT, gen=LM_GEN, fused=True,
+        init_s=f"{init_s:.3f}", warmup_s=f"{res.warmup_s:.4f}",
+        capture_s=f"{res.capture_s:.4f}", captures=res.captures,
+        prefill_s=f"{res.prefill_s:.4f}", decode_s=f"{res.decode_s:.4f}",
+        decode_tok_s=f"{res.decode_tok_s:.1f}",
+        peak_gib=f"{peak / 2**30:.3f}",
+        reserved_gib=f"{torch.cuda.max_memory_reserved() / 2**30:.3f}",
+        ids_shape="x".join(map(str, res.ids.shape)),
+        launches=json.dumps(counts, separators=(",", ":")),
+        recorded_prefill=json.dumps(rec_prefill, separators=(",", ":")),
+        recorded_decode=json.dumps(rec_decode, separators=(",", ":")),
+        smi=f"'{smi}'")
+    want_decode = {name: 0 for name in KERNELS}
+    want_prefill = dict(want_decode, flash_attention=cfg.n_layers)
+    want_serve = dict(want_decode, flash_attention=2 * cfg.n_layers)
+    if (res.ids.shape != (LM_BATCH, LM_GEN) or res.captures != 1
+            or rec_prefill != want_prefill or rec_decode != want_decode
+            or counts != want_serve):
+        raise AssertionError(
+            f"MoE serving ran {res.ids.shape}, {res.captures} captures, "
+            f"recorded {rec_prefill} / {rec_decode}, launches {counts}; "
+            f"expected {want_prefill} / {want_decode}, {want_serve}")
+
+    serve_lm(cfg, prompts, 2, dev, params=params, fused=False)   # warm-up
+    fused, eager = serve_both_modes(cfg, params, prompts, dev, programs, smi,
+                                    phase="moe-serve")
+    same_ids = all(np.array_equal(r.ids, eager[0].ids)
+                   for r in (res, *fused, *eager))
+    last = float((fused[0].logits.float() - eager[0].logits.float())
+                 .abs().max())
+    tokens = torch.from_numpy(prompts).to(dev)
+    diffs, same_tokens = decode_replays_vs_eager(params, cfg, programs,
+                                                 tokens)
+    say("moe-slice", check="fused_vs_eager", ids_equal=same_ids,
+        last_logits_max_abs_diff=f"{last:.3e}",
+        decode_replays_vs_eager_decode_step_max_abs_diff=
+        "/".join(f"{d:.3e}" for d in diffs),
+        decode_replay_tokens_equal=same_tokens)
+    if not (same_ids and same_tokens):
+        raise AssertionError("the fused MoE serve's ids differ from the "
+                             "eager loop's")
+    del fused, eager
+
+    programs.load(tokens)
+    moe_profile("prefill", programs._prefill_body, programs.prefill)
+    moe_profile("decode", programs._decode_body, programs.decode)
+    del programs, params
+    torch.cuda.empty_cache()
+    return dict(counts, flash_attention=rec_prefill["flash_attention"])
+
+
+def greedy_logits(params, cfg, tokens, steps: int):
+    """Prefill ``tokens`` [B, P], widen the cache by ``steps``, then
+    ``steps`` greedy decode steps from the device's own tokens: each
+    step's logits (f32, on the CPU) and the ids [B, steps + 1]."""
+    P = tokens.shape[1]
+    logits, part = tr.prefill_step(params, cfg, tokens)
+    cache = tr.init_kv_cache(cfg, tokens.shape[0], P + steps,
+                             device=tokens.device)
+    cache.k[:, :, :P] = part.k
+    cache.v[:, :, :P] = part.v
+    cache = cache._replace(length=part.length)
+    out, ids = [logits.float().cpu()], []
+    for _ in range(steps):
+        tok = torch.argmax(logits, -1).to(torch.int32)
+        ids.append(tok.cpu())
+        logits, cache = tr.decode_step(params, cfg, cache, tok)
+        out.append(logits.float().cpu())
+    ids.append(torch.argmax(logits, -1).to(torch.int32).cpu())
+    return out, torch.stack(ids, 1)
+
+
+def routed_greedy(params, cfg, tokens, steps: int) -> tuple:
+    """``greedy_logits`` with each ``moe.route`` call's probabilities and
+    experts logged on the CPU: (logits, ids, the log, seconds)."""
+    route, log = moe.route, []
+
+    def logged(router, xg, c):
+        out = route(router, xg, c)
+        log.append((out[0].detach().float().cpu(), out[2].cpu()))
+        return out
+
+    t = time.perf_counter()
+    with mock.patch.object(moe, "route", logged):
+        logits, ids = greedy_logits(params, cfg, tokens, steps)
+    return logits, ids, log, time.perf_counter() - t
+
+
+def routing_flips(card: list, cpu: list) -> list:
+    """Each (token, k) choice that differs between two logs of
+    ``moe.route`` calls (probs, experts): (call, token, the card's
+    expert, the CPU's, their CPU probabilities, the gap, whether an
+    earlier call differed already)."""
+    flips, differed = [], False
+    for call, ((_, e_card), (probs, e_cpu)) in enumerate(zip(card, cpu)):
+        a = e_card.reshape(-1, e_card.shape[-1]).sort(-1).values
+        b = e_cpu.reshape(-1, e_cpu.shape[-1]).sort(-1).values
+        p = probs.reshape(-1, probs.shape[-1])
+        rows = (a != b).any(-1).nonzero().flatten().tolist()
+        for tok in rows:
+            mine = sorted(set(a[tok].tolist()) - set(b[tok].tolist()))
+            theirs = sorted(set(b[tok].tolist()) - set(a[tok].tolist()))
+            for x, y in zip(mine, theirs):
+                px, py = float(p[tok, x]), float(p[tok, y])
+                flips.append((call, tok, x, y, px, py, abs(px - py),
+                              differed))
+        differed = differed or bool(rows)
+    return flips
+
+
+def check_moe_depth2(dev) -> None:
+    """Phase 12 (d): full width, depth cut to 2 layers, f32, one set of
+    seeded weights on the card and on the CPU: B 2, P 128 and 4 decode
+    steps, every step's logits ``allclose`` at MOE_F32_TOL, the ids
+    equal, and every routing choice that differs printed."""
+    d2 = MOE_DEPTH2
+    cfg = dataclasses.replace(get_config(MOE_ARCH).model,
+                              n_layers=d2["layers"], dtype=torch.float32)
+    params = tr.init_lm_params(torch.Generator(device=dev).manual_seed(2),
+                               cfg)
+    tokens = torch.from_numpy(np.random.default_rng(2).integers(
+        0, cfg.vocab, (d2["batch"], d2["prompt"])).astype(np.int32))
+    lc, ic, rc, sc = routed_greedy(params, cfg, tokens.to(dev), d2["steps"])
+    params = _to(params, "cpu")
+    torch.cuda.empty_cache()
+    lp, ip, rp, sp = routed_greedy(params, cfg, tokens, d2["steps"])
+    errs = [float((a - b).abs().max()) for a, b in zip(lc, lp)]
+    ok = all(torch.allclose(a, b, rtol=MOE_F32_TOL, atol=MOE_F32_TOL)
+             for a, b in zip(lc, lp))
+    same = torch.equal(ic, ip)
+    flips = routing_flips(rc, rp)
+    for call, tok, x, y, px, py, gap, after in flips[:8]:
+        say("moe-slice", check="routing_flip", call=call, token=tok,
+            card_expert=x, cpu_expert=y, p_card_expert=f"{px:.9f}",
+            p_cpu_expert=f"{py:.9f}", gap=f"{gap:.3e}",
+            downstream_of_an_earlier_flip=after,
+            rounding=gap < ROUTING_GAP)
+    faults = [f for f in flips if not f[7] and f[6] >= ROUTING_GAP]
+    say("moe-slice", check="card_vs_cpu_2_layers", dtype="float32",
+        layers=cfg.n_layers, batch=d2["batch"], prompt=d2["prompt"],
+        decode_steps=d2["steps"], route_calls=f"{len(rc)}/{len(rp)}",
+        logits_max_abs_err="/".join(f"{e:.3e}" for e in errs),
+        logits_allclose=ok, ids_equal=same, routing_flips=len(flips),
+        routing_faults=len(faults), card_s=f"{sc:.3f}", cpu_s=f"{sp:.3f}")
+    if not (ok and same and not faults and len(rc) == len(rp)):
+        raise AssertionError("the 2-layer full-width MoE differs between "
+                             "the card and the CPU")
+
+
+def check_moe(dev, smi: str) -> dict:
+    """Phase 12 (module docstring).  Returns the launch counts of the MoE
+    serving path."""
+    t0 = time.perf_counter()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    allocated = torch.cuda.memory_allocated()
+    say("moe-slice", check="start", allocated_bytes=allocated,
+        allocated_gib=f"{allocated / 2**30:.3f}")
+    if allocated >= 2**30:
+        raise AssertionError(f"phase 12 starts with {allocated} bytes "
+                             f"allocated on the card")
+    check_lm_parity(dev, MOE_ARCH, "moe-parity")
+    check_moe_layer(dev)
+    counts = check_moe_slice(dev, smi)
+    check_moe_depth2(dev)
+    say("moe-slice", seconds=f"{time.perf_counter() - t0:.3f}",
+        launches=json.dumps(counts, separators=(",", ":")))
+    return counts
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--scale", type=int, default=20,
@@ -3374,6 +3838,9 @@ def main(argv=None) -> int:
 
     # ---- 11. the LM trainer: parity, the entry point, throughput ----
     check_train(dev, smi)
+
+    # ---- 12. the MoE LM: parity, one layer, the slice, 2 layers in f32 --
+    check_moe(dev, smi)
 
     print(json.dumps({"kernels": [
         {"name": name, **KERNELS[name], "launches": launches[name],

@@ -43,7 +43,9 @@ can drive with any config, prompts and weights:
         --arch smollm-360m --batch 4 --prompt-len 64 --gen 32 [--device cpu]
 
 Like the reference, that CLI serves the reduced config with seeded
-random weights.  Two execution modes, as for the Euler solver.
+random weights; ``--arch`` takes any id of
+``configs.registry.ARCH_IDS``, the MoE ones (``qwen2-moe-a2.7b``,
+``qwen3-moe-235b-a22b``) included.  Two execution modes, as for the Euler solver.
 ``fused=True`` (the default) is the reference's: ``main_lm`` jits the
 prefill and the decode step (the decode donating its cache); here each
 becomes one CUDA graph (:class:`LMPrograms`), recorded once per serving

@@ -41,8 +41,11 @@ print(len(names))
 @pytest.mark.parametrize("module", ["repro_torch.launch.serve",
                                     "repro_torch.euler.autotune",
                                     "repro_torch.models.transformer",
+                                    "repro_torch.models.moe",
                                     "repro_torch.kernels.ops",
-                                    "repro_torch.configs.registry"])
+                                    "repro_torch.configs.registry",
+                                    "repro_torch.configs.qwen2_moe_a2_7b",
+                                    "repro_torch.configs.qwen3_moe_235b_a22b"])
 def test_serving_slice_imports_with_jax_blocked(module):
     """The serving slices' entry points (LM and Euler) stand alone, each
     imported first in a fresh process."""

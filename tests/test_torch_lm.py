@@ -143,30 +143,37 @@ def test_params_from_numpy_keeps_bf16_bits():
                                   f32(tree["embed"]))
 
 
-def test_configs_match_the_reference():
+@pytest.mark.parametrize("arch", ["smollm-360m", "qwen2-moe-a2.7b",
+                                  "qwen3-moe-235b-a22b"])
+def test_configs_match_the_reference(arch):
     from repro.configs.registry import get_config as j_get
 
     for reduced in (False, True):
-        mine = registry.get_config("smollm-360m", reduced=reduced).model
-        want = j_get("smollm-360m", reduced=reduced).model
+        mine = registry.get_config(arch, reduced=reduced).model
+        want = j_get(arch, reduced=reduced).model
         for f in ("name", "n_layers", "d_model", "n_heads", "n_kv_heads",
-                  "d_ff", "vocab", "head_dim", "rope_theta"):
+                  "d_ff", "vocab", "head_dim", "rope_theta", "remat",
+                  "q_block"):
             assert getattr(mine, f) == getattr(want, f), f
         assert str(mine.dtype).split(".")[-1] == want.dtype.__name__
-        assert not want.tie_embeddings and want.moe is None
+        assert not want.tie_embeddings
+        assert (mine.moe is None) == (want.moe is None)
+        if want.moe is not None:
+            assert mine.moe._asdict() == want.moe._asdict()
         assert mine.param_count() == want.param_count()
-    full = registry.get_config("smollm-360m").model
-    assert (full.n_layers, full.d_model, full.head_dim) == (32, 960, 64)
-    assert full.param_count() == 409_007_040
-    assert registry.get_config("smollm-360m").shapes["prefill_32k"] \
-        .seq_len == 32768
+        assert mine.active_param_count() == want.active_param_count()
+        assert registry.get_config(arch, reduced=reduced).source == \
+            j_get(arch, reduced=reduced).source
+    if arch == "smollm-360m":
+        full = registry.get_config(arch).model
+        assert (full.n_layers, full.d_model, full.head_dim) == (32, 960, 64)
+        assert full.param_count() == 409_007_040
+    assert registry.get_config(arch).shapes["prefill_32k"].seq_len == 32768
 
 
 def test_registry_and_config_refuse_what_is_not_ported():
     with pytest.raises(KeyError, match="ROADMAP"):
-        registry.get_config("qwen3-moe-235b-a22b")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        dataclasses.replace(port_cfg(), moe=object())
+        registry.get_config("starcoder2-7b")
 
 
 # ----------------------------------------------------------- the slice --
