@@ -4,7 +4,8 @@
     python3 chip_smoke.py                 # scale-20 RMAT graph, 8 partitions,
                                           # full-width SmolLM-360M serving
                                           # and training, full-width
-                                          # Qwen1.5-MoE-A2.7B serving
+                                          # Qwen1.5-MoE-A2.7B serving,
+                                          # GCN/GAT/PNA training
 
 Phases, each printed on its own line; any failure raises and the script
 exits non-zero:
@@ -370,6 +371,36 @@ exits non-zero:
                 device time split into routed-expert products,
                 shared-expert products, dispatch and combine, the
                 router, K6 and the rest.
+  13. gnn     — the GNN family (``models/gnn.py``: GCN, GAT, PNA; the
+                ``build_cell`` train step: ``gnn_loss`` under autograd,
+                AdamW, the warm-up/cosine schedule; the
+                ``NeighborSampler``) on a drained card, every launch
+                counter set to 0 before and read after: no kernel of the
+                port may launch.  (a) Each reduced config in f32 at the
+                reference smoke's shapes (64 nodes / 256 edges, and 4
+                molecules of 8 / 16, padded to 512 / 512), a seeded
+                graph with padded nodes, masked edges, an isolated node
+                and a duplicate edge, one set of seeded weights on
+                ``cuda`` and on ``cpu``: logits, loss and every gradient
+                within ``GNN_TOL``, then one step from a warm AdamW state:
+                loss and moments within ``GNN_TOL``, every weight's update
+                within ``GNN_UPDATE_ATOL``; a segment maximum over a zero
+                buffer that takes part (planted) must exceed both in PNA.
+                (b) Each full config (GCN 2 × 16, GAT 2 layers of 8 heads
+                × 8, PNA 4 × 75 with 4 aggregators × 3 scalers) at Cora's
+                full_graph_sm (2,708 nodes, 10,556 edges, 1,433 features,
+                7 classes, padded to 3,072 / 10,752) on the example's
+                planted-partition graph: ``GNN_STEPS`` steps, the first,
+                least and last loss, the train accuracy (above 0.5), the
+                median step ms and the peak memory.  (c) minibatch_lg:
+                blocks of 1,024 seeds (fanouts 15, 10; 169,984 padded
+                nodes and edges) from ``NeighborSampler`` over a seeded
+                uniform random graph with Reddit's 232,965 nodes and a
+                tenth of its edges (the cut printed as ``reduced=``), a
+                602-wide f32 feature table on the card gathered by node
+                id (pad rows zero), 41 classes; each arch at full width
+                ``GNN_BLOCK_STEPS`` steps on fresh blocks: the seconds to
+                sample a block, the median step ms and the peak memory.
 
 The last three lines are the kernel table as JSON, the ``nvidia-smi``
 line, and ``{"ok": true, "device": {...}}``.
@@ -382,6 +413,7 @@ import ctypes
 import dataclasses
 import json
 import re
+import runpy
 import shutil
 import statistics
 import subprocess
@@ -429,6 +461,8 @@ from repro_torch.kernels import pointer_double as pd  # noqa: E402
 from repro_torch.kernels import segment_reduce as sr  # noqa: E402
 from repro_torch.launch import serve, steps, train  # noqa: E402
 from repro_torch.launch.serve import LMPrograms, serve_lm  # noqa: E402
+from repro_torch.graphgen.sampler import NeighborSampler  # noqa: E402
+from repro_torch.models import gnn  # noqa: E402
 from repro_torch.models import moe  # noqa: E402
 from repro_torch.models import transformer as tr  # noqa: E402
 from repro_torch.models.layers import (auto_q_block,  # noqa: E402
@@ -567,6 +601,34 @@ MOE_F32_TOL, ROUTING_GAP = 1e-4, 1e-5
 MOE_FAMILIES = {"moe_ffn": "dispatch_combine", "route": "router",
                 "dispatch": "dispatch_combine", "combine": "dispatch_combine",
                 "experts": "routed_expert", "shared_experts": "shared_expert"}
+#: phase 13: the GNN archs, trained at full width
+GNN_ARCHS = ("gcn-cora", "gat-cora", "pna")
+#: phase 13 (a): card against CPU at the reference smoke's shapes
+#: (tests/test_configs_smoke.py): logits, loss and every gradient by
+#: ``allclose`` at GNN_TOL (rtol and atol; the card's scatters add in the
+#: order of their atomics, PNA's logits reach 300), and one warm step's
+#: parameter updates within GNN_UPDATE_ATOL.  At step 1000 the schedule's
+#: lr is 9.8e-4 and the clipped gradients are at most ~0.1 an element, so
+#: an update is ~1e-4–1e-3; a gradient off by 1e-4 of itself moves an
+#: update by under 1e-7, the f32 rounding of a weight near 1 by 6e-8.  A
+#: segment maximum reduced into a zero buffer that takes part (planted)
+#: turns every PNA ``min`` into 0 and must exceed both
+GNN_SMOKE = {
+    "full_graph_sm": ShapeCell("full_graph_sm", "graph_train", n_nodes=64,
+                               n_edges=256, d_feat=64, n_classes=7),
+    "molecule": ShapeCell("molecule", "graph_train", n_nodes=8, n_edges=16,
+                          batch=4, d_feat=64, n_classes=4),
+}
+GNN_TOL, GNN_UPDATE_ATOL = 1e-4, 1e-6
+#: phase 13 (b): train steps at Cora's full width; the train accuracy
+#: must pass 0.5 (the reference example's bar)
+GNN_STEPS, GNN_MIN_ACC = 200, 0.5
+#: phase 13 (c): minibatch_lg from the NeighborSampler over a seeded
+#: uniform random graph with Reddit's nodes and a tenth of its edges,
+#: fresh blocks of 1,024 seeds, GNN_BLOCK_STEPS steps an arch
+REDDIT_NODES, REDDIT_EDGES = 232_965, 114_615_892
+REDDIT_CUT = 10
+GNN_BLOCK_STEPS = 5
 
 
 def say(phase: str, **fields) -> None:
@@ -2883,7 +2945,7 @@ def _warm_step(cell, params, batch, dev):
     p = _to(params, dev) if dev.type != "cpu" else \
         tree_map(torch.clone, params)
     opt = AdamWState(warm.step.to(dev), _to(warm.m, dev), _to(warm.v, dev))
-    p, opt, loss = cell.fn(p, opt, {k: v.to(dev) for k, v in batch.items()})
+    p, opt, loss = cell.fn(p, opt, tree_map(lambda x: x.to(dev), batch))
     return loss, opt, [a.cpu() - b for a, b in zip(tree_leaves(p),
                                                    tree_leaves(params))]
 
@@ -3699,6 +3761,329 @@ def check_moe(dev, smi: str) -> dict:
     return counts
 
 
+# ------------------------------------------------------------ phase 13 --
+
+def gnn_smoke_graph(cell: ShapeCell, seed: int) -> gnn.GraphBatch:
+    """A seeded graph at ``cell``'s padded shape on the CPU: the last
+    eighth of the nodes padding (zero features, masked), a tenth of the
+    edges masked (half of them at the pad row N - 1), the last real node
+    isolated and edges 4 and 5 one edge twice."""
+    g_abs = steps._graph_abstract(cell, cell.d_feat)
+    n, e = g_abs.node_feat.shape[0], g_abs.edge_src.shape[0]
+    rng = np.random.default_rng(seed)
+    n_real = n - n // 8
+    feat = rng.normal(size=(n, cell.d_feat)).astype(np.float32)
+    feat[n_real:] = 0
+    src = rng.integers(0, n_real - 1, e).astype(np.int32)
+    dst = rng.integers(0, n_real - 1, e).astype(np.int32)
+    src[5], dst[5] = src[4], dst[4]
+    mask = np.ones(e, bool)
+    masked = rng.permutation(np.arange(6, e))[: e // 10]
+    mask[masked] = False
+    src[masked[::2]] = dst[masked[::2]] = n - 1
+    labels = rng.integers(0, cell.n_classes, n).astype(np.int32)
+    return gnn.GraphBatch(*map(torch.from_numpy, (
+        feat, src, dst, mask, np.arange(n) < n_real, labels)))
+
+
+def self_inclusive_max(data, seg_ids, num_segments):
+    """A planted fault: ``gnn._segment_max`` reduced into a zero buffer
+    that takes part (``include_self=True``)."""
+    idx = seg_ids.long().view((-1,) + (1,) * (data.dim() - 1))
+    out = data.new_zeros((num_segments,) + tuple(data.shape[1:]))
+    return out.scatter_reduce(0, idx.expand_as(data), data, "amax",
+                              include_self=True)
+
+
+def _gnn_grads(params, cfg, g):
+    """(logits, loss, gradients) of one GNN on one graph."""
+    loss, grads = steps.gnn_value_and_grad(params, cfg, g)
+    with torch.no_grad():
+        logits = gnn.FORWARDS[cfg.kind](params, cfg, g)
+    return logits, loss, grads
+
+
+def check_gnn_parity(dev) -> None:
+    """Phase 13 (a): each reduced GNN config in f32 at the reference
+    smoke's two shapes, one set of seeded weights on ``dev`` and on the
+    CPU: logits, loss and every gradient, then one ``build_cell`` step
+    from a warm AdamW state (step 1000, seeded moments): loss and moments
+    at GNN_TOL, every weight's update within GNN_UPDATE_ATOL; and, for
+    PNA, the planted self-inclusive segment maximum."""
+    cpu = torch.device("cpu")
+    for arch_id in GNN_ARCHS:
+        arch = dataclasses.replace(get_config(arch_id, reduced=True),
+                                   shapes=GNN_SMOKE)
+        for shape, cell_shape in GNN_SMOKE.items():
+            cfg = dataclasses.replace(
+                arch.model, n_classes=max(cell_shape.n_classes, 2))
+            params = gnn.INITS[cfg.kind](torch.Generator().manual_seed(0),
+                                         cfg)
+            g = gnn_smoke_graph(cell_shape, seed=1)
+            on_card = _to(params, dev)
+            card_g = tree_map(lambda x: x.to(dev), g)
+            want = _gnn_grads(params, cfg, g)
+            ok_grad, err_grad = _trees_close(
+                _gnn_grads(on_card, cfg, card_g), want, GNN_TOL, GNN_TOL)
+            cell = steps.build_cell(arch, shape)
+            w_loss, w_opt, w_upd = _warm_step(cell, params, g, cpu)
+            c_loss, c_opt, c_upd = _warm_step(cell, params, g, dev)
+            ok_state, err_state = _trees_close(
+                (c_loss, c_opt.step, c_opt.m, c_opt.v),
+                (w_loss, w_opt.step, w_opt.m, w_opt.v), GNN_TOL, GNN_TOL)
+            ok_upd, err_upd = _trees_close(c_upd, w_upd, 0.0,
+                                           GNN_UPDATE_ATOL)
+            moved = min(float(u.abs().max()) for u in w_upd)
+            fault = {}
+            if cfg.kind == "pna":
+                with mock.patch.object(gnn, "_segment_max",
+                                       self_inclusive_max):
+                    f_ok, f_err = _trees_close(
+                        _gnn_grads(on_card, cfg, card_g), want, GNN_TOL,
+                        GNN_TOL)
+                    _, _, f_upd = _warm_step(cell, params, g, dev)
+                fu_ok, fu_err = _trees_close(f_upd, w_upd, 0.0,
+                                             GNN_UPDATE_ATOL)
+                fault = dict(
+                    planted_self_max_grads_max_abs_err=f"{f_err:.3e}",
+                    planted_self_max_update_max_abs_err=f"{fu_err:.3e}",
+                    planted_fault_seen=not (f_ok or fu_ok))
+                if f_ok or fu_ok:
+                    raise AssertionError(
+                        "the GNN parity check cannot see a segment maximum "
+                        "over a zero buffer that takes part")
+            say("gnn", check="parity", arch=arch_id, shape=shape,
+                nodes=g.node_feat.shape[0], edges=g.edge_src.shape[0],
+                dtype="float32", loss_cpu=f"{float(want[1]):.6f}",
+                grads_max_abs_err=f"{err_grad:.3e}", grads_allclose=ok_grad,
+                warm_from_step=1000, warm_state_max_abs_err=f"{err_state:.3e}",
+                warm_state_allclose=ok_state,
+                warm_update_max_abs_err=f"{err_upd:.3e}",
+                warm_update_within=ok_upd,
+                warm_least_weight_move=f"{moved:.3e}", **fault,
+                tol=GNN_TOL, update_atol=GNN_UPDATE_ATOL)
+            if not (ok_grad and ok_state and ok_upd):
+                raise AssertionError(f"{arch_id} at {shape} differs between "
+                                     f"cuda and cpu")
+            if moved <= GNN_UPDATE_ATOL:
+                raise AssertionError(f"a warm step moved a weight tensor by "
+                                     f"at most {moved:.3e}, within the atol")
+
+
+def gnn_cell(arch_id: str, shape: str):
+    """(the shape cell, the model config it trains, the ``build_cell``
+    cell) of a full GNN arch: the config's d_in and classes replaced by
+    the cell's where its features differ, as ``build_cell`` does."""
+    arch = get_config(arch_id)
+    cell_shape, cfg = arch.shapes[shape], arch.model
+    if cell_shape.d_feat and cfg.d_in != cell_shape.d_feat:
+        cfg = dataclasses.replace(cfg, d_in=cell_shape.d_feat,
+                                  n_classes=max(cell_shape.n_classes, 2))
+    return cell_shape, cfg, steps.build_cell(arch, shape)
+
+
+def _median_ms(seconds: list) -> str:
+    return f"{statistics.median(seconds) * 1e3:.3f}"
+
+
+def _timed_step(cell, params, opt, g):
+    """One train step, synchronised: (params, opt, loss, seconds)."""
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    params, opt, loss = cell.fn(params, opt, g)
+    torch.cuda.synchronize()
+    return params, opt, loss, time.perf_counter() - t
+
+
+def check_gnn_full(dev, smi: str) -> None:
+    """Phase 13 (b): each GNN arch at full width on Cora's shape, on the
+    reference example's planted-partition graph at Cora's size (2,708
+    nodes, 10,556 edges, 1,433 features, 7 classes) padded as
+    ``build_cell`` pads it: GNN_STEPS steps, the train accuracy over the
+    real nodes above GNN_MIN_ACC."""
+    example = ROOT / "examples" / "torch_gnn_fullbatch.py"
+    planted = runpy.run_path(str(example))["planted_partition"]
+    cora = gnn_cell(GNN_ARCHS[0], "full_graph_sm")[0]
+    t = time.perf_counter()
+    feat, src, dst, labels = planted(np.random.default_rng(0), cora.n_nodes,
+                                     cora.n_edges, cora.d_feat,
+                                     cora.n_classes)
+    graph_s = time.perf_counter() - t
+    for arch_id in GNN_ARCHS:
+        _, cfg, cell = gnn_cell(arch_id, "full_graph_sm")
+        g_abs = cell.abstract_inputs[2]
+        n, e = g_abs.node_feat.shape[0], g_abs.edge_src.shape[0]
+        node_feat = torch.zeros(n, cora.d_feat, dtype=torch.float32)
+        node_feat[:cora.n_nodes] = torch.from_numpy(feat)
+        edge_src = torch.full((e,), n - 1, dtype=torch.int32)
+        edge_dst = edge_src.clone()
+        edge_src[:cora.n_edges] = torch.from_numpy(src)
+        edge_dst[:cora.n_edges] = torch.from_numpy(dst)
+        node_label = torch.zeros(n, dtype=torch.int32)
+        node_label[:cora.n_nodes] = torch.from_numpy(labels)
+        g = gnn.GraphBatch(node_feat, edge_src, edge_dst,
+                           torch.arange(e) < cora.n_edges,
+                           torch.arange(n) < cora.n_nodes, node_label)
+        g = tree_map(lambda x: x.to(dev), g)
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        params = gnn.INITS[cfg.kind](
+            torch.Generator(device=dev).manual_seed(0), cfg)
+        opt = init_adamw(params)
+        losses, secs = [], []
+        for _ in range(GNN_STEPS):
+            params, opt, loss, s = _timed_step(cell, params, opt, g)
+            losses.append(loss)
+            secs.append(s)
+        losses = [float(x) for x in losses]
+        with torch.no_grad():
+            pred = torch.argmax(gnn.FORWARDS[cfg.kind](params, cfg, g), -1)
+        acc = float((pred == g.labels)[g.node_mask].float().mean())
+        peak = torch.cuda.max_memory_allocated()
+        step_s = statistics.median(secs)
+        say("gnn", check="full_width", arch=arch_id, shape="full_graph_sm",
+            nodes=cora.n_nodes, edges=cora.n_edges, padded_nodes=n,
+            padded_edges=e, d_in=cfg.d_in, d_hidden=cfg.d_hidden,
+            heads=cfg.n_heads, layers=cfg.n_layers, classes=cfg.n_classes,
+            steps=GNN_STEPS, graphgen_s=f"{graph_s:.3f}",
+            loss_first=f"{losses[0]:.4f}", loss_least=f"{min(losses):.4f}",
+            loss_last=f"{losses[-1]:.4f}", train_acc=f"{acc:.4f}",
+            step_ms_median=_median_ms(secs),
+            step_ms_first=f"{secs[0] * 1e3:.3f}",
+            model_flops=f"{cell.model_flops:.6e}",
+            model_tflops_per_s=f"{cell.model_flops / step_s / 1e12:.4f}",
+            peak_gib=f"{peak / 2**30:.3f}", smi=f"'{smi}'")
+        if not all(math.isfinite(x) for x in losses):
+            raise AssertionError(f"{arch_id}: a loss is not finite")
+        if acc <= GNN_MIN_ACC:
+            raise AssertionError(f"{arch_id}: train accuracy {acc:.4f} "
+                                 f"after {GNN_STEPS} steps")
+        del params, opt, g
+
+
+def block_batch(block, feat_table, label_table, n: int, e: int,
+                dev) -> gnn.GraphBatch:
+    """One sampled block as a ``GraphBatch`` of ``n`` nodes and ``e``
+    edges on ``dev`` (the cell's padded shape; minibatch_lg's blocks
+    already have it): each node's features and label gathered from the
+    tables on the card by its global id, pad rows (id -1) zero, added pad
+    edges masked at the last row."""
+    ids = np.full(n, -1, np.int64)
+    ids[:len(block.node_ids)] = block.node_ids
+    src, dst = np.full(e, n - 1, np.int32), np.full(e, n - 1, np.int32)
+    mask = np.zeros(e, bool)
+    k = len(block.edge_src)
+    src[:k], dst[:k], mask[:k] = block.edge_src, block.edge_dst, \
+        block.edge_mask
+    ids = torch.from_numpy(ids).to(dev)
+    real = ids >= 0
+    rows = ids.clamp(min=0)
+    return gnn.GraphBatch(
+        node_feat=torch.where(real[:, None], feat_table[rows], 0.0),
+        edge_src=torch.from_numpy(src).to(dev),
+        edge_dst=torch.from_numpy(dst).to(dev),
+        edge_mask=torch.from_numpy(mask).to(dev),
+        node_mask=real,
+        labels=torch.where(real, label_table[rows], 0))
+
+
+def check_gnn_sampled(dev, smi: str) -> None:
+    """Phase 13 (c): minibatch_lg from the port's ``NeighborSampler``
+    (fanouts 15 and 10, 1,024 seeds a block) over a seeded uniform random
+    graph with Reddit's nodes and a tenth of its edges, the feature table
+    on the card; each arch at full width trains GNN_BLOCK_STEPS steps on
+    fresh blocks."""
+    shape = gnn_cell(GNN_ARCHS[0], "minibatch_lg")[0]
+    edges = REDDIT_EDGES // REDDIT_CUT
+    rng = np.random.default_rng(0)
+    t = time.perf_counter()
+    graph = Graph(num_vertices=REDDIT_NODES,
+                  edge_u=rng.integers(0, REDDIT_NODES, edges),
+                  edge_v=rng.integers(0, REDDIT_NODES, edges))
+    graph_s = time.perf_counter() - t
+    t = time.perf_counter()
+    sampler = NeighborSampler(graph, shape.fanout, seed=0)
+    csr_s = time.perf_counter() - t
+    gen = torch.Generator(device=dev).manual_seed(0)
+    feat_table = torch.randn(REDDIT_NODES, shape.d_feat, generator=gen,
+                             device=dev)
+    label_table = torch.randint(0, shape.n_classes, (REDDIT_NODES,),
+                                generator=gen, device=dev,
+                                dtype=torch.int32)
+    say("gnn", check="sampled_graph", shape="minibatch_lg",
+        nodes=REDDIT_NODES, edges=edges,
+        reduced=f"'edges {edges} of Reddit's {REDDIT_EDGES} (1/{REDDIT_CUT}),"
+                f" so that the host CSR build stays short'",
+        fanouts=",".join(map(str, shape.fanout)), seeds=shape.batch_nodes,
+        graphgen_s=f"{graph_s:.3f}", csr_build_s=f"{csr_s:.3f}",
+        feature_table_mb=f"{feat_table.numel() * 4 / 1e6:.1f}")
+    for arch_id in GNN_ARCHS:
+        _, cfg, cell = gnn_cell(arch_id, "minibatch_lg")
+        g_abs = cell.abstract_inputs[2]
+        n_e = g_abs.node_feat.shape[0], g_abs.edge_src.shape[0]
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        params = gnn.INITS[cfg.kind](
+            torch.Generator(device=dev).manual_seed(0), cfg)
+        opt = init_adamw(params)
+        losses, secs, sample_secs, real = [], [], [], []
+        for _ in range(GNN_BLOCK_STEPS):
+            seeds = rng.choice(REDDIT_NODES, shape.batch_nodes, replace=False)
+            t = time.perf_counter()
+            block = sampler.sample(seeds)
+            sample_secs.append(time.perf_counter() - t)
+            g = block_batch(block, feat_table, label_table, *n_e, dev)
+            if bool(g.node_feat[~g.node_mask].any()):
+                raise AssertionError("a pad row of the block read features")
+            real.append((int(block.node_mask.sum()),
+                         int(block.edge_mask.sum())))
+            params, opt, loss, s = _timed_step(cell, params, opt, g)
+            losses.append(float(loss))
+            secs.append(s)
+        say("gnn", check="sampled", arch=arch_id, shape="minibatch_lg",
+            block_nodes=len(block.node_ids), padded_nodes=n_e[0],
+            padded_edges=n_e[1], d_in=cfg.d_in,
+            classes=cfg.n_classes, steps=GNN_BLOCK_STEPS,
+            real_nodes="'" + ",".join(str(n) for n, _ in real) + "'",
+            real_edges="'" + ",".join(str(e) for _, e in real) + "'",
+            sample_s_median=f"{statistics.median(sample_secs):.3f}",
+            step_ms_median=_median_ms(secs),
+            step_ms_first=f"{secs[0] * 1e3:.3f}",
+            losses="'" + ",".join(f"{x:.4f}" for x in losses) + "'",
+            model_flops=f"{cell.model_flops:.6e}",
+            peak_gib=f"{torch.cuda.max_memory_allocated() / 2**30:.3f}",
+            smi=f"'{smi}'")
+        if not all(math.isfinite(x) for x in losses):
+            raise AssertionError(f"{arch_id}: a loss is not finite")
+        del params, opt, g
+
+
+def check_gnn(dev, smi: str) -> None:
+    """Phase 13 (module docstring): on a drained card, every launch
+    counter set to 0 before and read after; no kernel of the port may
+    launch."""
+    t0 = time.perf_counter()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    allocated = torch.cuda.memory_allocated()
+    say("gnn", check="start", allocated_bytes=allocated,
+        allocated_gib=f"{allocated / 2**30:.3f}")
+    if allocated >= 2**30:
+        raise AssertionError(f"phase 13 starts with {allocated} bytes "
+                             f"allocated on the card")
+    reset_counts()
+    check_gnn_parity(dev)
+    check_gnn_full(dev, smi)
+    check_gnn_sampled(dev, smi)
+    counts = read_counts()
+    say("gnn", seconds=f"{time.perf_counter() - t0:.3f}",
+        launches=json.dumps(counts, separators=(",", ":")))
+    if any(counts.values()):
+        raise AssertionError(f"the GNN phase launched kernels: {counts}")
+    torch.cuda.empty_cache()
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--scale", type=int, default=20,
@@ -3841,6 +4226,9 @@ def main(argv=None) -> int:
 
     # ---- 12. the MoE LM: parity, one layer, the slice, 2 layers in f32 --
     check_moe(dev, smi)
+
+    # ---- 13. the GNN family: parity, Cora at full width, sampled blocks --
+    check_gnn(dev, smi)
 
     print(json.dumps({"kernels": [
         {"name": name, **KERNELS[name], "launches": launches[name],

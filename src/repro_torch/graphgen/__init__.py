@@ -1,5 +1,5 @@
-"""Graph data substrate: generators, eulerizer, partitioner (numpy copies
-of ``repro/graphgen``)."""
+"""Graph data substrate: generators, eulerizer, partitioner, sampler (numpy
+copies of ``repro/graphgen``)."""
 from .rmat import rmat_graph
 from .eulerize import eulerize, eulerian_rmat, largest_component
 from .partition import partition_vertices

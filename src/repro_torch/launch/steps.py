@@ -1,27 +1,31 @@
 """Resolve (arch × shape) → step function and abstract inputs (mirrors
-the LM half of ``repro/launch/steps.py``).
+the LM and GNN halves of ``repro/launch/steps.py``).
 
 :func:`build_cell` is the one entry point, as in the reference: the
 trainer runs its ``train`` cell, and its ``prefill`` and ``decode`` cells
-are the port's serving steps.  The port runs on one device, so there is
-no mesh and no sharding: abstract inputs are ``meta`` tensors, and a
-``mesh`` raises (ROADMAP queue 1 item 9), as does every family but the
-LM (item 8).  Steps run eagerly; the train step updates the parameters
-and the optimizer state in place (the reference donates them).
+are the port's serving steps; a GNN arch's cells each train on one
+padded graph.  The port runs on one device, so there is no mesh and no
+sharding: abstract inputs are ``meta`` tensors, and a ``mesh`` raises
+(ROADMAP queue 1 item 9), as does every family but the LM and the GNN
+(item 8).  Steps run eagerly; a train step updates the parameters and
+the optimizer state in place (the reference donates them).
 """
 from __future__ import annotations
 
+import dataclasses
 from typing import Callable, NamedTuple, Tuple
 
 import torch
 
 from ..configs.base import ArchConfig, ShapeCell
+from ..models import gnn as gnn_mod
+from ..models.gnn import GNNConfig, GraphBatch, gnn_loss
 from ..models.transformer import (LMConfig, abstract_kv_cache,
                                   abstract_lm_params, decode_step, lm_loss,
                                   prefill_step)
 from ..optim.adamw import adamw_update, init_adamw
 from ..optim.schedule import warmup_cosine
-from ..tree import tree_leaves, tree_unflatten
+from ..tree import tree_leaves, tree_map, tree_unflatten
 
 
 class Cell(NamedTuple):
@@ -98,6 +102,96 @@ def build_lm_cell(arch: ArchConfig, cell: ShapeCell) -> Cell:
     raise ValueError(cell.kind)
 
 
+# ---------------------------------------------------------------------------
+# GNN cells (gcn / gat / pna)
+# ---------------------------------------------------------------------------
+
+def _pad512(x: int) -> int:
+    """Round up to the reference's shardable size (512 = lcm of every
+    mesh-axis layout); kept so the port's cells have its shapes."""
+    return (x + 511) // 512 * 512
+
+
+def _graph_abstract(cell: ShapeCell, d_in: int) -> GraphBatch:
+    if cell.name == "minibatch_lg":
+        acc, tot = 1, 1
+        for f in cell.fanout:
+            acc *= f
+            tot += acc
+        n = cell.batch_nodes * tot
+        e = n  # one in-edge per sampled node
+    elif cell.name == "molecule":
+        n = cell.n_nodes * cell.batch
+        e = cell.n_edges * cell.batch
+    else:
+        n = cell.n_nodes
+        e = cell.n_edges
+    n, e = _pad512(n), _pad512(e)
+
+    def meta(shape, dtype):
+        return torch.empty(shape, dtype=dtype, device="meta")
+
+    return GraphBatch(
+        node_feat=meta((n, d_in), torch.float32),
+        edge_src=meta((e,), torch.int32),
+        edge_dst=meta((e,), torch.int32),
+        edge_mask=meta((e,), torch.bool),
+        node_mask=meta((n,), torch.bool),
+        labels=meta((n,), torch.int32),
+    )
+
+
+def _gnn_flops(cfg: GNNConfig, n: int, e: int) -> float:
+    # per layer: edge messages (≈2 dirs) + node transform
+    d = cfg.d_hidden
+    per_edge = 2 * 2 * d * len(cfg.aggregators)
+    per_node = 2 * cfg.d_in * d + 2 * d * d * (cfg.n_layers - 1)
+    return float(cfg.n_layers * e * per_edge + n * per_node) * 3  # fwd+bwd
+
+
+def gnn_value_and_grad(params, cfg: GNNConfig, g: GraphBatch):
+    """``gnn_loss`` and its gradient with respect to every parameter (a
+    tree shaped as ``params``), by autograd: the reference's
+    ``jax.value_and_grad(gnn_loss)``."""
+    leaves = tree_leaves(params)
+    with torch.enable_grad():
+        for p in leaves:
+            p.requires_grad_(True)
+        try:
+            loss = gnn_loss(params, cfg, g)
+            grads = torch.autograd.grad(loss, leaves)
+        finally:
+            for p in leaves:
+                p.requires_grad_(False)
+    return loss.detach(), tree_unflatten(params, grads)
+
+
+def build_gnn_cell(arch: ArchConfig, cell: ShapeCell) -> Cell:
+    cfg: GNNConfig = arch.model
+    if cell.d_feat and cfg.d_in != cell.d_feat:
+        cfg = dataclasses.replace(cfg, d_in=cell.d_feat,
+                                  n_classes=max(cell.n_classes, 2))
+    g_abs = _graph_abstract(cell, cfg.d_in)
+    # the params' shapes from one CPU init (a few hundred kB at most; the
+    # reference traces its init with ``jax.eval_shape``)
+    params_abs = tree_map(
+        lambda p: torch.empty_like(p, device="meta"),
+        gnn_mod.INITS[cfg.kind](torch.Generator().manual_seed(0), cfg))
+    opt_abs = init_adamw(params_abs)
+
+    def step(params, opt, g):
+        lr = warmup_cosine(opt.step, 1e-3, 100, 10_000)
+        loss, grads = gnn_value_and_grad(params, cfg, g)
+        params, opt = adamw_update(params, grads, opt, lr)
+        return params, opt, loss
+
+    n, e = g_abs.node_feat.shape[0], g_abs.edge_src.shape[0]
+    return Cell(step, (params_abs, opt_abs, g_abs), _gnn_flops(cfg, n, e))
+
+
+BUILDERS = {"lm": build_lm_cell, "gnn": build_gnn_cell}
+
+
 class SkippedCell(Exception):
     pass
 
@@ -109,7 +203,7 @@ def build_cell(arch: ArchConfig, shape_name: str, mesh=None) -> Cell:
     if mesh is not None:
         raise NotImplementedError("the port runs on one device; a mesh "
                                   "waits for ROADMAP queue 1 item 9")
-    if arch.family != "lm":
+    if arch.family not in BUILDERS:
         raise NotImplementedError(f"{arch.family} cells are not ported yet "
                                   f"(ROADMAP queue 1 item 8)")
-    return build_lm_cell(arch, cell)
+    return BUILDERS[arch.family](arch, cell)

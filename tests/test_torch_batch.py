@@ -40,6 +40,11 @@ MODES = {"replicated": {"sharded_phase3": False}, "sharded": {},
          "nogather": {"gather_circuit": False}}
 MODAL_WIDTHS = [3, 8]
 P3_PARTS = [2, 4]
+#: the time limit of the live JAX reference run in this file, about five
+#: times the 30 s it took in the suite's parallel run on an 8-core CPU:
+#: a stalled subprocess fails the tests that read it instead of holding
+#: its worker for run_with_devices' default 900 s
+LIVE_TIMEOUT = 150
 
 _REFERENCE = '''
 import sys
@@ -81,7 +86,7 @@ np.savez_compressed({out!r}, **rec)
 
 
 def jax_reference(out, modal=True, widths=MODAL_WIDTHS, parts=P3_PARTS,
-                  p3_modes=tuple(MODES), devices=8) -> None:
+                  p3_modes=tuple(MODES), devices=8, timeout=1800) -> None:
     """The JAX package's ``solve_batch`` circuits and mates of the modal
     bucket (``modal``, at each of ``widths``) and of the B = 4 batch at
     each of ``parts`` in each of ``p3_modes``, into the ``.npz`` file
@@ -89,7 +94,7 @@ def jax_reference(out, modal=True, widths=MODAL_WIDTHS, parts=P3_PARTS,
     run_with_devices(_REFERENCE.format(
         tests=str(TESTS), modes=MODES, modal=modal, widths=list(widths),
         parts=list(parts), p3_modes=list(p3_modes), out=str(out)),
-        n=devices, timeout=1800)
+        n=devices, timeout=timeout)
 
 
 def random_eulerian(n_vertices, n_trails, trail_len, seed) -> Graph:
@@ -163,7 +168,7 @@ def test_batch_golden_is_the_jax_output(reference, tmp_path):
     by the JAX package's ``solve_batch``."""
     out = tmp_path / "live.npz"
     jax_reference(out, modal=False, parts=[2], p3_modes=["sharded"],
-                  devices=2)
+                  devices=2, timeout=LIVE_TIMEOUT)
     with np.load(out) as z:
         live = dict(z)
     assert set(live) == {"p3_2/gb_seed"} | {

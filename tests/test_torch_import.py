@@ -90,11 +90,16 @@ assert not bad, bad
                                     "repro_torch.data",
                                     "repro_torch.checkpoint",
                                     "repro_torch.ft",
-                                    "repro_torch.tree"])
+                                    "repro_torch.tree",
+                                    "repro_torch.models.gnn",
+                                    "repro_torch.graphgen.sampler",
+                                    "repro_torch.configs.gcn_cora",
+                                    "repro_torch.configs.gat_cora",
+                                    "repro_torch.configs.pna"])
 def test_training_slice_imports_with_jax_blocked(module):
-    """The trainer and what it composes (the optimizer, the data, the
-    checkpoints and the restart loop) stand alone, each imported first in
-    a fresh process."""
+    """The trainers and what they compose (the optimizer, the data, the
+    checkpoints, the restart loop, and the GNN models, their sampler and
+    configs) stand alone, each imported first in a fresh process."""
     code = f"""
 import importlib, sys
 sys.modules["jax"] = None

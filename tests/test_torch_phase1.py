@@ -26,6 +26,11 @@ from repro_torch.core.phase1 import (NewEdges, OpenTable, Phase1Caps,
 
 SCALE, SEED, PARTS = 6, 2, 8
 N_LEVELS = 4                      # the bucket's (ladder-rounded) supersteps
+#: the time limit of the live JAX reference run in this file, about five
+#: times the 55 s it took in the suite's parallel run on an 8-core CPU:
+#: a stalled subprocess fails the tests that read it instead of holding
+#: its worker for run_with_devices' default 900 s
+LIVE_TIMEOUT = 300
 
 _CAPTURE = '''
 import dataclasses
@@ -74,7 +79,8 @@ print("records", len(rec))
 def captured(tmp_path_factory):
     out = str(tmp_path_factory.mktemp("phase1") / "phase1.npz")
     run_with_devices(_CAPTURE.format(out=out, scale=SCALE, seed=SEED,
-                                     parts=PARTS), n=PARTS)
+                                     parts=PARTS), n=PARTS,
+                     timeout=LIVE_TIMEOUT)
     with np.load(out) as z:
         return dict(z)
 

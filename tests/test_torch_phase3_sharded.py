@@ -41,6 +41,11 @@ TRIALS = range(4)
 PARTS = [1, 2, 4, 8]
 SOLVE_PARTS = [2, 8]
 SOLVE_SCALES = [5, 6]
+#: the time limit of the live JAX reference run in this file, about four
+#: times the 91 s it took in the suite's parallel run on an 8-core CPU:
+#: a stalled subprocess fails the tests that read it instead of holding
+#: its worker for run_with_devices' default 900 s
+LIVE_TIMEOUT = 360
 
 # tests/test_sharded_phase3.py::test_phase3_sharded_function_parity's
 # generator and draws (seed 0, four trials)
@@ -130,7 +135,7 @@ def reference(tmp_path_factory):
     out = str(tmp_path_factory.mktemp("sharded") / "ref.npz")
     run_with_devices(_REFERENCE.format(parts=PARTS, solve_parts=SOLVE_PARTS,
                                        solve_scales=SOLVE_SCALES, out=out),
-                     n=8)
+                     n=8, timeout=LIVE_TIMEOUT)
     with np.load(out) as z:
         return dict(z)
 

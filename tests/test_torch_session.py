@@ -40,6 +40,11 @@ OPTION_SETS = {
     "bucket1024": {"min_bucket_edges": 1024},
 }
 GOLDEN_PARTS = [2, 8]
+#: the time limit of the live JAX reference run in this file, about five
+#: times the 30 s it took in the suite's parallel run on an 8-core CPU:
+#: a stalled subprocess fails the tests that read it instead of holding
+#: its worker for run_with_devices' default 900 s
+LIVE_TIMEOUT = 150
 #: the CPU solve of bucket1024 at P = 8 takes about a minute (2,048-edge
 #: tables a partition); it runs on the card (gpu test) instead
 CARD_ONLY = [("bucket1024", 8)]
@@ -80,14 +85,15 @@ np.savez_compressed({out!r}, **rec)
 
 
 def jax_reference(out, opts=OPTION_SETS, parts=GOLDEN_PARTS, many=True,
-                  dedup=False, devices=8) -> None:
+                  dedup=False, devices=8, timeout=900) -> None:
     """The JAX package's circuits and mates under each option set (and,
     with ``many``, the ``solve_many`` scenario), into the ``.npz`` file
     ``out``.  The references run the replicated Phase 3; the port's
     default sharded one is held to them."""
     run_with_devices(_REFERENCE.format(opts=opts, parts=list(parts),
                                        many=many, dedup=dedup,
-                                       out=str(out)), n=devices)
+                                       out=str(out)), n=devices,
+                     timeout=timeout)
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -189,7 +195,7 @@ def test_golden_is_the_jax_output(reference, tmp_path):
     that option and never reads it, so its bytes are the same."""
     out = tmp_path / "live.npz"
     jax_reference(out, opts={"seed3": OPTION_SETS["seed3"]}, parts=[2],
-                  many=False, dedup=True, devices=2)
+                  many=False, dedup=True, devices=2, timeout=LIVE_TIMEOUT)
     with np.load(out) as z:
         live = dict(z)
     for k in ("circuit", "mate"):

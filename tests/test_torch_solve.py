@@ -39,6 +39,11 @@ from repro_torch.graphgen.eulerize import eulerian_rmat
 
 PARTS = [1, 2, 8]
 SCALES = [5, 6, 7]
+#: the time limit of the live JAX reference run in this file, about six
+#: times the 20 s it took in the suite's parallel run on an 8-core CPU:
+#: a stalled subprocess fails the tests that read it instead of holding
+#: its worker for run_with_devices' default 900 s
+LIVE_TIMEOUT = 120
 #: the three Phase 3 modes, named so that P = 1 runs them all
 MODES = {"sharded": {"sharded_phase3": True},
          "replicated": {"sharded_phase3": False},
@@ -65,12 +70,13 @@ np.savez_compressed({out!r}, **rec)
 '''
 
 
-def jax_reference(out, parts=PARTS, scales=SCALES, devices=8) -> None:
+def jax_reference(out, parts=PARTS, scales=SCALES, devices=8,
+                  timeout=900) -> None:
     """The JAX package's circuits and mates for every (P, scale), into
     the ``.npz`` file ``out``."""
     run_with_devices(_REFERENCE.format(parts=list(parts),
                                        scales=list(scales), out=str(out)),
-                     n=devices)
+                     n=devices, timeout=timeout)
 
 
 @pytest.fixture(scope="module")
@@ -82,7 +88,8 @@ def reference():
 def test_golden_is_the_jax_output(reference, tmp_path):
     """One case of the golden file solved again by the JAX package."""
     out = tmp_path / "live.npz"
-    jax_reference(out, parts=[2], scales=[5], devices=2)
+    jax_reference(out, parts=[2], scales=[5], devices=2,
+                  timeout=LIVE_TIMEOUT)
     with np.load(out) as z:
         assert set(z) == {"2_5/circuit", "2_5/mate"}
         for key in z:
