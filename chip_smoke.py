@@ -5,7 +5,8 @@
                                           # full-width SmolLM-360M serving
                                           # and training, full-width
                                           # Qwen1.5-MoE-A2.7B serving,
-                                          # GCN/GAT/PNA training
+                                          # GCN/GAT/PNA training, AutoInt
+                                          # training, serving, retrieval
 
 Phases, each printed on its own line; any failure raises and the script
 exits non-zero:
@@ -401,6 +402,43 @@ exits non-zero:
                 id (pad rows zero), 41 classes; each arch at full width
                 ``GNN_BLOCK_STEPS`` steps on fresh blocks: the seconds to
                 sample a block, the median step ms and the peak memory.
+  14. recsys  — AutoInt (``models/recsys.py``; ``build_cell``'s train,
+                serve and retrieval cells; ``SyntheticCTR``) on a drained
+                card, every launch counter set to 0 before and read after:
+                no kernel of the port may launch.  (a) The reduced config
+                at the reference smoke's batch of 16, and the full widths
+                (39 fields, d 16, 3 layers of 2 × 32 heads, MLP 400-400)
+                with the vocabulary cut to 4,096 at a batch of 256: one
+                set of seeded weights on ``cuda`` and on ``cpu``, logits,
+                loss and every gradient within ``REC_TOL``, one step from
+                a warm AdamW state: loss and moments within ``REC_TOL``,
+                every weight's update within ``REC_UPDATE_ATOL``; an
+                ``embedding_bag`` that ignores the bag mask (planted) must
+                exceed both.  The host draws every later batch from
+                ``SyntheticCTR`` in ``REC_DRAW_THREADS`` threads first (each
+                draw's seconds printed).  (b) train_batch at the full
+                config: the 39,000,000 × 16 f32 table (2.496 GB) drawn on
+                the card, ``REC_STEPS`` steps at 65,536 on batches uploaded
+                before the clock, each loss finite and in the reference
+                smoke's (0, 10): median step ms, examples/s, model
+                TFLOP/s by ``_rec_flops`` and its share of 67 TFLOP/s f32
+                (TF32 is off), the loss first/least/last, peak memory;
+                one more step under torch.profiler, its device time split
+                into the embedding bag, attention (its products apart),
+                the MLP, the optimizer and the rest; then the first
+                ``REC_LOGIT_ROWS`` examples' logits at the full table
+                against the CPU.  (c) serve_p99 (512) over
+                ``REC_P99_CALLS`` synchronised calls: p50, p99,
+                examples/s; serve_bulk (262,144): median ms, examples/s;
+                each with its peak memory and one profiled call; the bulk
+                batch's first 512 logits against a 512-batch forward.  (d)
+                retrieval_cand: one query against a seeded [1,000,000, 16]
+                f32 candidate matrix, the best row copied into four more
+                rows and the 50th into two (exact ties): the tied rows in
+                ascending index order, the top 100's median ms, values
+                and indices against the CPU (indices may differ only
+                between candidates whose scores are within
+                ``REC_TIE_ATOL``).
 
 The last three lines are the kernel table as JSON, the ``nvidia-smi``
 line, and ``{"ok": true, "device": {...}}``.
@@ -422,6 +460,7 @@ import math
 import tempfile
 import threading
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 from unittest import mock
 
@@ -446,6 +485,8 @@ from repro_torch.core.engine import Engine, FusedRun  # noqa: E402
 from repro_torch.core.graph import Graph  # noqa: E402
 from repro_torch.core.phase3 import circuit_from_mate_np  # noqa: E402
 from repro_torch.data.lm import SyntheticLM  # noqa: E402
+from repro_torch.data.recsys import (SyntheticCTR,  # noqa: E402
+                                     batch_to_device)
 from repro_torch.euler import EulerSolver, solve  # noqa: E402
 from repro_torch.euler.autotune import (CompileService,  # noqa: E402
                                         TunerParams)
@@ -464,6 +505,7 @@ from repro_torch.launch.serve import LMPrograms, serve_lm  # noqa: E402
 from repro_torch.graphgen.sampler import NeighborSampler  # noqa: E402
 from repro_torch.models import gnn  # noqa: E402
 from repro_torch.models import moe  # noqa: E402
+from repro_torch.models import recsys  # noqa: E402
 from repro_torch.models import transformer as tr  # noqa: E402
 from repro_torch.models.layers import (auto_q_block,  # noqa: E402
                                        chunked_gqa_attention, gqa_attention)
@@ -629,6 +671,34 @@ GNN_STEPS, GNN_MIN_ACC = 200, 0.5
 REDDIT_NODES, REDDIT_EDGES = 232_965, 114_615_892
 REDDIT_CUT = 10
 GNN_BLOCK_STEPS = 5
+#: phase 14: the recsys arch, AutoInt at its full config (39 fields ×
+#: 1,000,000 rows × 16 f32, a 2.496 GB table) and its four cells
+REC_ARCH = "autoint"
+#: phase 14 (a): card against CPU at the reduced config and the reference
+#: smoke's batch of 16, and at the full widths with the vocabulary cut to
+#: 4,096 a field and a batch of 256: logits, loss and every gradient by
+#: ``allclose`` at REC_TOL (rtol and atol; the card adds the table's
+#: gradient rows by atomics), and one warm step's updates within
+#: REC_UPDATE_ATOL.  At step 1000 the schedule's lr is 1e-3 and the
+#: seeded √v̂ about 1e-3, so an update is about 1e-3 and a gradient error
+#: ε moves it by about 0.1·ε; a ReLU pre-activation within rounding of 0
+#: can land on either side on the two devices, which moves one example's
+#: path by 3e-5 on the CPU test's table rows (tests/test_torch_recsys.py),
+#: 7e-6 divided over a batch of 256.  An ``embedding_bag`` that ignores
+#: the bag mask (planted) must exceed both
+REC_PARITY = (("reduced", 16, None), ("full_width", 256, 4096))
+REC_TOL, REC_UPDATE_ATOL = 1e-4, 1e-5
+#: phase 14 (b): train steps at train_batch (65,536), the reference smoke
+#: test's loss bounds, and the rows whose logits are held against the CPU
+REC_STEPS, REC_LOSS_BOUNDS, REC_LOGIT_ROWS = 20, (0.0, 10.0), 64
+#: phase 14 (b)–(d): host threads drawing the SyntheticCTR batches
+REC_DRAW_THREADS = 8
+#: phase 14 (c), (d): timed calls of serve_p99, serve_bulk, retrieval
+REC_P99_CALLS, REC_BULK_CALLS, REC_RETRIEVAL_CALLS = 200, 5, 20
+#: phase 14 (d): the top-k of the retrieval cell, and the gap within which
+#: two candidates' CPU scores count as tied (the scores are about 1e-2,
+#: their f32 rounding about 1e-9)
+REC_TOP_K, REC_TIE_ATOL = 100, 1e-6
 
 
 def say(phase: str, **fields) -> None:
@@ -3223,12 +3293,10 @@ def _device_kernels(prof) -> tuple:
     return out, listed_ms, relisted, annotation_ms
 
 
-def _train_profile(fn, score_numel: int, vocab: int, top: int = 8) -> dict:
-    """One train step under torch.profiler: wall and busy milliseconds
-    (each device event counted once; the busy time may not exceed the
-    wall), the idle share, the kernels launched, and the busy time by
-    family (attention passes and, within them, their matrix products;
-    the other matrix products; cross-entropy; the optimizer; the rest)."""
+def _profiled_step(fn, **kw):
+    """One call of ``fn`` under torch.profiler (CPU and CUDA, shapes
+    recorded, ``kw`` passed on), ``adamw_update`` inside a range of its
+    name: (the profile, the call's wall milliseconds)."""
     from torch.profiler import ProfilerActivity, profile, record_function
 
     update = steps.adamw_update
@@ -3240,11 +3308,21 @@ def _train_profile(fn, score_numel: int, vocab: int, top: int = 8) -> dict:
     torch.cuda.synchronize()
     with mock.patch.object(steps, "adamw_update", ranged), \
             profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
-                    record_shapes=True, with_stack=True) as prof:
+                    record_shapes=True, **kw) as prof:
         t = time.perf_counter()
         fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t) * 1e3
+    return prof, wall_ms
+
+
+def _train_profile(fn, score_numel: int, vocab: int, top: int = 8) -> dict:
+    """One train step under torch.profiler: wall and busy milliseconds
+    (each device event counted once; the busy time may not exceed the
+    wall), the idle share, the kernels launched, and the busy time by
+    family (attention passes and, within them, their matrix products;
+    the other matrix products; cross-entropy; the optimizer; the rest)."""
+    prof, wall_ms = _profiled_step(fn, with_stack=True)
     split = dict.fromkeys(("attention_ms", "attention_matmul_ms",
                            "matmul_ms", "cross_entropy_ms", "optimizer_ms",
                            "other_ms"), 0.0)
@@ -4084,6 +4162,408 @@ def check_gnn(dev, smi: str) -> None:
     torch.cuda.empty_cache()
 
 
+# ------------------------------------------------------------ phase 14 --
+
+def unmasked_bag(table, ids, bag_mask, field_offsets):
+    """A planted fault: ``recsys.embedding_bag`` summing every slot of a
+    bag, the masked ones too."""
+    B, F, G = ids.shape
+    rows = (ids + field_offsets[None, :, None]).reshape(-1)
+    return torch.index_select(table, 0, rows).reshape(B, F, G, -1).sum(2)
+
+
+def _rec_grads(params, cfg, batch):
+    """(logits, loss, gradients) of AutoInt on one batch."""
+    loss, grads = steps.recsys_value_and_grad(params, cfg, batch)
+    with torch.no_grad():
+        logits = recsys.autoint_forward(params, cfg, batch)
+    return logits, loss, grads
+
+
+def check_recsys_parity(dev) -> None:
+    """Phase 14 (a): the reduced config at batch 16 and the full widths
+    with a cut vocabulary at batch 256, one set of seeded weights and one
+    SyntheticCTR batch on ``dev`` and on the CPU: logits, loss and every
+    gradient, then one ``build_cell`` step from a warm AdamW state (step
+    1000, seeded moments): loss and moments at REC_TOL, every weight's
+    update within REC_UPDATE_ATOL; and the planted unmasked bag."""
+    cpu = torch.device("cpu")
+    for label, batch_size, vocab in REC_PARITY:
+        arch = get_config(REC_ARCH, reduced=vocab is None)
+        cfg = arch.model if vocab is None else \
+            dataclasses.replace(arch.model, vocab_per_field=vocab)
+        arch = dataclasses.replace(arch, model=cfg)
+        params = recsys.init_autoint_params(torch.Generator().manual_seed(0),
+                                            cfg)
+        batch = batch_to_device(
+            SyntheticCTR(cfg, batch_size, seed=1).batch_at(0), cpu)
+        on_card = _to(params, dev)
+        card_b = _to(batch, dev)
+        want = _rec_grads(params, cfg, batch)
+        ok_grad, err_grad = _trees_close(_rec_grads(on_card, cfg, card_b),
+                                         want, REC_TOL, REC_TOL)
+        cell = steps.build_cell(arch, "train_batch")
+        w_loss, w_opt, w_upd = _warm_step(cell, params, batch, cpu)
+        c_loss, c_opt, c_upd = _warm_step(cell, params, batch, dev)
+        ok_state, err_state = _trees_close(
+            (c_loss, c_opt.step, c_opt.m, c_opt.v),
+            (w_loss, w_opt.step, w_opt.m, w_opt.v), REC_TOL, REC_TOL)
+        ok_upd, err_upd = _trees_close(c_upd, w_upd, 0.0, REC_UPDATE_ATOL)
+        moved = min(float(u.abs().max()) for u in w_upd)
+        with mock.patch.object(recsys, "embedding_bag", unmasked_bag):
+            f_ok, f_err = _trees_close(_rec_grads(on_card, cfg, card_b),
+                                       want, REC_TOL, REC_TOL)
+            _, _, f_upd = _warm_step(cell, params, batch, dev)
+        fu_ok, fu_err = _trees_close(f_upd, w_upd, 0.0, REC_UPDATE_ATOL)
+        say("recsys", check="parity", config=label, fields=cfg.n_fields,
+            vocab_per_field=cfg.vocab_per_field, d=cfg.embed_dim,
+            layers=cfg.n_attn_layers, heads=cfg.n_heads, d_attn=cfg.d_attn,
+            mlp=",".join(map(str, cfg.mlp_dims)), batch=batch_size,
+            dtype="float32", loss_cpu=f"{float(want[1]):.6f}",
+            grads_max_abs_err=f"{err_grad:.3e}", grads_allclose=ok_grad,
+            warm_from_step=1000, warm_state_max_abs_err=f"{err_state:.3e}",
+            warm_state_allclose=ok_state,
+            warm_update_max_abs_err=f"{err_upd:.3e}",
+            warm_update_within=ok_upd,
+            warm_least_weight_move=f"{moved:.3e}",
+            planted_unmasked_bag_grads_max_abs_err=f"{f_err:.3e}",
+            planted_unmasked_bag_update_max_abs_err=f"{fu_err:.3e}",
+            planted_fault_seen=not (f_ok or fu_ok),
+            tol=REC_TOL, update_atol=REC_UPDATE_ATOL)
+        if not (ok_grad and ok_state and ok_upd):
+            raise AssertionError(f"AutoInt ({label}) differs between cuda "
+                                 f"and cpu")
+        if moved <= REC_UPDATE_ATOL:
+            raise AssertionError(f"a warm step moved a weight tensor by at "
+                                 f"most {moved:.3e}, within the atol")
+        if f_ok or fu_ok:
+            raise AssertionError("the recsys parity check cannot see an "
+                                 "embedding bag that ignores its mask")
+
+
+def draw_recsys_batches(arch) -> dict:
+    """The host batches of phase 14 from SyntheticCTR, drawn by
+    REC_DRAW_THREADS threads (numpy's draws release the interpreter
+    lock): REC_STEPS train_batch steps (seed 0), serve_p99 (seed 1),
+    serve_bulk (seed 2) and the retrieval query (seed 3), each cell at
+    its shape's batch.  Prints each draw's seconds and the wall."""
+    cfg, shapes = arch.model, arch.shapes
+    jobs = [("serve_bulk", 2, 0)] + \
+        [("train_batch", 0, step) for step in range(REC_STEPS)] + \
+        [("serve_p99", 1, 0), ("retrieval_cand", 3, 0)]
+
+    def draw(job):
+        name, seed, step = job
+        t = time.perf_counter()
+        b = SyntheticCTR(cfg, shapes[name].batch, seed=seed).batch_at(step)
+        return name, b, time.perf_counter() - t
+
+    t = time.perf_counter()
+    with ThreadPoolExecutor(REC_DRAW_THREADS) as pool:
+        drawn = list(pool.map(draw, jobs))
+    wall = time.perf_counter() - t
+    out = {name: [] for name in shapes}
+    secs = {name: [] for name in shapes}
+    for name, b, sec in drawn:
+        out[name].append(b)
+        secs[name].append(sec)
+    say("recsys", check="draw", threads=REC_DRAW_THREADS, wall_s=f"{wall:.3f}",
+        **{f"{name}_draw_s": f"{statistics.median(v):.3f}"
+           for name, v in secs.items()},
+        train_draws=len(out["train_batch"]))
+    return out
+
+
+def _rec_family(ev, cfg) -> str:
+    """The family of the kernels a profiled op launched, from the op, its
+    callers and their input shapes: the optimizer (inside
+    ``adamw_update``); the embedding bag (the gather, the table
+    gradient's ``index_add`` and zero fill, and the bag's masked sum on
+    ``[B, F, G, d]``); attention (its ``einsum``s and softmax, the passes
+    over ``[B, F, ·]``, ``[B, F, H, D]`` and ``[B, H, F, ·]``, and the
+    q/k/v/wres products); the MLP (ops with an ``F·H·D``- or MLP-wide
+    2-D operand); the rest (the loss)."""
+    names, shapes = [], []
+    while ev is not None:
+        names.append(ev.name)
+        shapes += [tuple(s) for s in (ev.input_shapes or [])
+                   if s and all(isinstance(d, int) for d in s)]
+        ev = ev.cpu_parent
+    text = " ".join(names).lower()
+    bag = (cfg.max_bag, cfg.embed_dim)
+    wide = {cfg.n_fields * cfg.n_heads * cfg.d_attn, *cfg.mlp_dims}
+    if "adamw_update" in text:
+        return "optimizer"
+    if "index_select" in text or "index_add" in text or \
+            any(len(s) == 4 and s[2:] == bag for s in shapes):
+        return "embedding_bag"
+    if any(w in text for w in ("bmm", "softmax", "einsum")) or \
+            any(len(s) >= 3 and cfg.n_fields in s[1:3] for s in shapes):
+        return "attention"
+    if any(len(s) == 2 and (s[0] in wide or s[1] in wide) for s in shapes):
+        return "mlp"
+    return "attention" if "mm" in text else "other"
+
+
+def _rec_profile(what: str, fn, cfg, top: int = 6) -> dict:
+    """One call of ``fn`` under torch.profiler: wall and busy milliseconds
+    (each device event once), the idle share, the kernels, and the busy
+    time by ``_rec_family``, attention's products apart."""
+    prof, wall_ms = _profiled_step(fn)
+    split = dict.fromkeys(("embedding_bag_ms", "attention_ms",
+                           "attention_matmul_ms", "mlp_ms", "optimizer_ms",
+                           "other_ms"), 0.0)
+    kernels = _device_kernels(prof)[0]
+    by_name = {}
+    for name, t0, t1, op in kernels:
+        family = "other" if op is None else _rec_family(op, cfg)
+        ms = (t1 - t0) / 1e6
+        by_name[name] = by_name.get(name, 0.0) + ms
+        split[family + "_ms"] += ms
+        if family == "attention" and any(w in name.lower()
+                                         for w in GEMM_WORDS):
+            split["attention_matmul_ms"] += ms
+    busy_ms = sum(v for k, v in split.items() if k != "attention_matmul_ms")
+    for name, ms in sorted(by_name.items(), key=lambda kv: -kv[1])[:top]:
+        print(f"[recsys-profile] {what} kernel {ms:9.3f} ms {name[:80]}",
+              flush=True)
+    out = {"wall_ms": wall_ms, "busy_ms": busy_ms,
+           "idle_share": max(0.0, 1 - busy_ms / wall_ms),
+           "kernels": len(kernels), **split}
+    say("recsys-profile", call=what, **_fmt(out))
+    return out
+
+
+def _percentile_ms(seconds: list, q: float) -> str:
+    return f"{float(np.percentile(seconds, q)) * 1e3:.4f}"
+
+
+def check_recsys_train(dev, smi: str, arch, host: list):
+    """Phase 14 (b): train_batch at the full config: the 2.496 GB table
+    drawn on the card, REC_STEPS ``build_cell`` steps on SyntheticCTR
+    batches uploaded before the timed loop, each loss finite within
+    REC_LOSS_BOUNDS; then the first REC_LOGIT_ROWS examples' logits
+    against the same weights on the CPU.  Returns the trained weights on
+    the card and their CPU copy."""
+    cfg, shape = arch.model, arch.shapes["train_batch"]
+    cell = steps.build_cell(arch, "train_batch")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t = time.perf_counter()
+    params = recsys.init_autoint_params(
+        torch.Generator(device=dev).manual_seed(0), cfg)
+    opt = init_adamw(params)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t
+    held = sum(x.numel() * x.element_size()
+               for x in tree_leaves((params, opt.m, opt.v)))
+    t = time.perf_counter()
+    batches = [batch_to_device(b, dev) for b in host]
+    torch.cuda.synchronize()
+    upload_s = time.perf_counter() - t
+    losses, secs = [], []
+    for b in batches:
+        params, opt, loss, s = _timed_step(cell, params, opt, b)
+        losses.append(float(loss))
+        secs.append(s)
+    peak = torch.cuda.max_memory_allocated()
+    reserved = torch.cuda.max_memory_reserved()
+    step_s = statistics.median(secs)
+    flops_s = cell.model_flops / step_s
+    say("recsys", check="train", shape="train_batch", batch=shape.batch,
+        table_rows=cfg.n_fields * cfg.vocab_per_field,
+        table_gb=f"{params['table'].numel() * 4 / 1e9:.3f}",
+        params_and_moments_gb=f"{held / 1e9:.3f}", init_s=f"{init_s:.3f}",
+        upload_s=f"{upload_s:.3f}", steps=REC_STEPS,
+        step_ms_median=_median_ms(secs), step_ms_first=f"{secs[0] * 1e3:.3f}",
+        step_ms_max=f"{max(secs[1:]) * 1e3:.3f}",
+        examples_per_s=f"{shape.batch / step_s:.1f}",
+        model_flops=f"{cell.model_flops:.6e}",
+        model_tflops_per_s=f"{flops_s / 1e12:.4f}",
+        share_of_peak=f"{flops_s / PEAK_FLOPS[torch.float32]:.4f}",
+        peak="'67 TFLOP/s f32 on the CUDA cores (TF32 off); the count "
+             "takes every layer at d = embed_dim and leaves out wres'",
+        loss_first=f"{losses[0]:.6f}", loss_least=f"{min(losses):.6f}",
+        loss_last=f"{losses[-1]:.6f}",
+        peak_allocated_gib=f"{peak / 2**30:.3f}",
+        peak_reserved_gib=f"{reserved / 2**30:.3f}", smi=f"'{smi}'")
+    lo, hi = REC_LOSS_BOUNDS
+    if not all(math.isfinite(x) and lo < x < hi for x in losses):
+        raise AssertionError(f"a train loss is outside ({lo}, {hi}): "
+                             f"{losses}")
+    state = [params, opt]
+
+    def one_step():
+        state[0], state[1], _ = cell.fn(state[0], state[1], batches[-1])
+
+    _rec_profile("train_batch", one_step, cfg)
+    params = state[0]
+    del opt, batches, state
+    rows = tree_map(lambda a: a[:REC_LOGIT_ROWS], host[0])
+    t = time.perf_counter()
+    cpu_params = _to(params, torch.device("cpu"))
+    copy_s = time.perf_counter() - t
+    with torch.no_grad():
+        got = recsys.autoint_forward(params, cfg,
+                                     batch_to_device(rows, dev)).cpu()
+        want = recsys.autoint_forward(cpu_params, cfg,
+                                      batch_to_device(rows, "cpu"))
+    ok, err = _trees_close(got, want, REC_TOL, REC_TOL)
+    say("recsys", check="train_logits", rows=REC_LOGIT_ROWS,
+        table_rows=cfg.n_fields * cfg.vocab_per_field,
+        copy_to_cpu_s=f"{copy_s:.3f}", max_abs_err=f"{err:.3e}",
+        allclose=ok, tol=REC_TOL)
+    if not ok:
+        raise AssertionError("AutoInt's logits at the full table differ "
+                             "between cuda and cpu")
+    return params, cpu_params
+
+
+def _timed_calls(fn, n: int) -> list:
+    """``n`` synchronised calls of ``fn`` after one warm-up: seconds each."""
+    fn()
+    secs = []
+    for _ in range(n):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t)
+    return secs
+
+
+@torch.no_grad()
+def check_recsys_serve(dev, smi: str, arch, params, host: dict) -> None:
+    """Phase 14 (c): serve_p99 (512) over REC_P99_CALLS synchronised
+    calls and serve_bulk (262,144) over REC_BULK_CALLS, each batch on the
+    card before the clock starts; the bulk batch's first 512 logits
+    against a 512-batch forward of the same rows."""
+    for name, calls in (("serve_p99", REC_P99_CALLS),
+                        ("serve_bulk", REC_BULK_CALLS)):
+        shape = arch.shapes[name]
+        cell = steps.build_cell(arch, name)
+        batch = batch_to_device(host[name][0], dev)
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        secs = _timed_calls(lambda: cell.fn(params, batch), calls)
+        peak = torch.cuda.max_memory_allocated()
+        reserved = torch.cuda.max_memory_reserved()
+        _rec_profile(name, lambda: cell.fn(params, batch), arch.model)
+        extra = {}
+        if name == "serve_bulk":
+            first = tree_map(lambda a: a[:512], host[name][0])
+            ok, err = _trees_close(
+                cell.fn(params, batch)[:512],
+                cell.fn(params, batch_to_device(first, dev)), REC_TOL,
+                REC_TOL)
+            extra = dict(first_512_vs_512_batch_max_abs_err=f"{err:.3e}",
+                         first_512_allclose=ok)
+            if not ok:
+                raise AssertionError("the bulk batch's first 512 logits "
+                                     "differ from a 512-batch forward")
+        say("recsys", check="serve", shape=name, batch=shape.batch,
+            calls=calls, ms_p50=_percentile_ms(secs, 50),
+            ms_p99=_percentile_ms(secs, 99), ms_max=f"{max(secs) * 1e3:.4f}",
+            examples_per_s=f"{shape.batch / statistics.median(secs):.1f}",
+            model_flops=f"{cell.model_flops:.6e}",
+            peak_allocated_gib=f"{peak / 2**30:.3f}",
+            transient_gib=f"{(peak - base) / 2**30:.3f}",
+            peak_reserved_gib=f"{reserved / 2**30:.3f}", **extra,
+            smi=f"'{smi}'")
+        del batch
+
+
+@torch.no_grad()
+def check_recsys_retrieval(dev, smi: str, arch, params, cpu_params,
+                           host: dict) -> None:
+    """Phase 14 (d): retrieval_cand: one query against a seeded
+    [1,000,000, 16] f32 candidate matrix on the card, where the best
+    row is copied into four others and the 50th into two (exact ties):
+    the tied rows in ascending index order, the top REC_TOP_K timed and
+    held against the CPU, indices differing only between candidates
+    whose CPU scores are within REC_TIE_ATOL."""
+    cfg, shape = arch.model, arch.shapes["retrieval_cand"]
+    cell = steps.build_cell(arch, "retrieval_cand")
+    n = shape.n_candidates
+    cand = torch.randn(n, cfg.embed_dim, device=dev,
+                       generator=torch.Generator(device=dev).manual_seed(1))
+    query = batch_to_device(host["retrieval_cand"][0], dev)
+    _, idx = cell.fn(params, query, cand)
+    best, mid = int(idx[0, 0]), int(idx[0, 49])
+    tied_best = sorted({3, best // 2, (best + n) // 2, n - 1} - {best, mid})
+    tied_mid = sorted({1, n - 2} - {best, mid} - set(tied_best))
+    cand[tied_best] = cand[best].clone()
+    cand[tied_mid] = cand[mid].clone()
+    secs = _timed_calls(lambda: cell.fn(params, query, cand),
+                        REC_RETRIEVAL_CALLS)
+    vals, idx = (x.cpu() for x in cell.fn(params, query, cand))
+    k = len(tied_best) + 1
+    order_ok = (idx[0, :k].tolist() == sorted(tied_best + [best])
+                and bool((vals[0, :k] == vals[0, 0]).all())
+                and bool(vals[0, k] < vals[0, 0]))
+    mid_rows = sorted(tied_mid + [mid])
+    top = idx[0].tolist()
+    at = top.index(mid_rows[0]) if mid_rows[0] in top else -1
+    mid_ok = at >= 0 and top[at:at + len(mid_rows)] == mid_rows
+    cand_cpu = cand.cpu()
+    query_cpu = batch_to_device(host["retrieval_cand"][0], "cpu")
+    want_v, want_i = recsys.retrieval_score(cpu_params, cfg, query_cpu,
+                                            cand_cpu, top_k=REC_TOP_K)
+    u = torch.mean(recsys._embed(cpu_params, cfg, query_cpu), dim=1)
+    scores = (u @ cand_cpu.T)[0]
+    ok_v, err_v = _trees_close(vals, want_v, REC_TOL, REC_TOL)
+    differ = (idx != want_i)[0].nonzero().flatten().tolist()
+    gaps = [abs(float(scores[idx[0, i]] - scores[want_i[0, i]]))
+            for i in differ]
+    say("recsys", check="retrieval", shape="retrieval_cand", candidates=n,
+        top_k=REC_TOP_K, ms_median=_median_ms(secs),
+        ms_p99=_percentile_ms(secs, 99), calls=REC_RETRIEVAL_CALLS,
+        model_flops=f"{cell.model_flops:.6e}",
+        tied_rows=",".join(map(str, sorted(tied_best + [best]))),
+        tied_mid_rows=",".join(map(str, mid_rows)), tie_order_ok=order_ok,
+        mid_tie_order_ok=mid_ok, values_max_abs_err=f"{err_v:.3e}",
+        values_allclose=ok_v, index_mismatches=len(differ),
+        mismatch_score_gap_max=f"{max(gaps, default=0.0):.3e}",
+        tie_atol=REC_TIE_ATOL, smi=f"'{smi}'")
+    if not (order_ok and mid_ok):
+        raise AssertionError("exact ties in the retrieval top-k are not in "
+                             "ascending index order")
+    if not ok_v or any(g > REC_TIE_ATOL for g in gaps):
+        raise AssertionError("the retrieval top-k differs from the CPU's")
+
+
+def check_recsys(dev, smi: str) -> None:
+    """Phase 14 (module docstring): on a drained card, every launch
+    counter set to 0 before and read after; no kernel of the port may
+    launch."""
+    t0 = time.perf_counter()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    allocated = torch.cuda.memory_allocated()
+    say("recsys", check="start", allocated_bytes=allocated,
+        allocated_gib=f"{allocated / 2**30:.3f}")
+    if allocated >= 2**30:
+        raise AssertionError(f"phase 14 starts with {allocated} bytes "
+                             f"allocated on the card")
+    reset_counts()
+    check_recsys_parity(dev)
+    arch = get_config(REC_ARCH)
+    host = draw_recsys_batches(arch)
+    params, cpu_params = check_recsys_train(dev, smi, arch,
+                                            host["train_batch"])
+    check_recsys_serve(dev, smi, arch, params, host)
+    check_recsys_retrieval(dev, smi, arch, params, cpu_params, host)
+    counts = read_counts()
+    say("recsys", seconds=f"{time.perf_counter() - t0:.3f}",
+        launches=json.dumps(counts, separators=(",", ":")))
+    if any(counts.values()):
+        raise AssertionError(f"the recsys phase launched kernels: {counts}")
+    del params, cpu_params
+    torch.cuda.empty_cache()
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--scale", type=int, default=20,
@@ -4229,6 +4709,9 @@ def main(argv=None) -> int:
 
     # ---- 13. the GNN family: parity, Cora at full width, sampled blocks --
     check_gnn(dev, smi)
+
+    # ---- 14. AutoInt: parity, train, serve and retrieve at full config --
+    check_recsys(dev, smi)
 
     print(json.dumps({"kernels": [
         {"name": name, **KERNELS[name], "launches": launches[name],

@@ -1,7 +1,7 @@
 """Config system: architectures × shape cells (a copy of
-``repro/configs/base.py``'s ``ShapeCell``, ``ArchConfig``, ``lm_shapes``
-and ``gnn_shapes``; that module imports no JAX, but the port imports
-nothing of the reference package).
+``repro/configs/base.py``'s ``ShapeCell``, ``ArchConfig``, ``lm_shapes``,
+``gnn_shapes`` and ``recsys_shapes``; that module imports no JAX, but the
+port imports nothing of the reference package).
 
 Each ``configs/<arch>.py`` exposes ``CONFIG: ArchConfig``.  A shape cell
 names a workload (train / prefill / decode / graph / serve / retrieval)
@@ -70,4 +70,14 @@ def gnn_shapes() -> Dict[str, ShapeCell]:
                                   d_feat=100, n_classes=47),
         "molecule": ShapeCell("molecule", "graph_train", n_nodes=30,
                               n_edges=64, batch=128, d_feat=16, n_classes=4),
+    }
+
+
+def recsys_shapes() -> Dict[str, ShapeCell]:
+    return {
+        "train_batch": ShapeCell("train_batch", "train", batch=65536),
+        "serve_p99": ShapeCell("serve_p99", "serve", batch=512),
+        "serve_bulk": ShapeCell("serve_bulk", "serve", batch=262144),
+        "retrieval_cand": ShapeCell("retrieval_cand", "retrieval", batch=1,
+                                    n_candidates=1_000_000),
     }

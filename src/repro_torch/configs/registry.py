@@ -4,14 +4,15 @@ has)."""
 from importlib import import_module
 
 ARCH_IDS = ["smollm-360m", "qwen2-moe-a2.7b", "qwen3-moe-235b-a22b",
-            "gat-cora", "pna", "gcn-cora"]
+            "gat-cora", "pna", "gcn-cora", "autoint"]
 
 _MODULES = {"smollm-360m": "smollm_360m",
             "qwen2-moe-a2.7b": "qwen2_moe_a2_7b",
             "qwen3-moe-235b-a22b": "qwen3_moe_235b_a22b",
             "gat-cora": "gat_cora",
             "pna": "pna",
-            "gcn-cora": "gcn_cora"}
+            "gcn-cora": "gcn_cora",
+            "autoint": "autoint"}
 
 
 def get_config(arch_id: str, reduced: bool = False):

@@ -1,14 +1,15 @@
 """Resolve (arch × shape) → step function and abstract inputs (mirrors
-the LM and GNN halves of ``repro/launch/steps.py``).
+the LM, GNN and recsys halves of ``repro/launch/steps.py``).
 
 :func:`build_cell` is the one entry point, as in the reference: the
 trainer runs its ``train`` cell, and its ``prefill`` and ``decode`` cells
 are the port's serving steps; a GNN arch's cells each train on one
-padded graph.  The port runs on one device, so there is no mesh and no
-sharding: abstract inputs are ``meta`` tensors, and a ``mesh`` raises
-(ROADMAP queue 1 item 9), as does every family but the LM and the GNN
-(item 8).  Steps run eagerly; a train step updates the parameters and
-the optimizer state in place (the reference donates them).
+padded graph; the recsys arch's cells train, serve or retrieve.  The
+port runs on one device, so there is no mesh and no sharding: abstract
+inputs are ``meta`` tensors, and a ``mesh`` raises (ROADMAP queue 1 item
+9), as does NequIP (item 8).  Steps run eagerly; a train step updates
+the parameters and the optimizer state in place (the reference donates
+them).
 """
 from __future__ import annotations
 
@@ -20,6 +21,9 @@ import torch
 from ..configs.base import ArchConfig, ShapeCell
 from ..models import gnn as gnn_mod
 from ..models.gnn import GNNConfig, GraphBatch, gnn_loss
+from ..models.recsys import (AutoIntConfig, RecsysBatch,
+                             abstract_autoint_params, autoint_forward,
+                             autoint_loss, retrieval_score)
 from ..models.transformer import (LMConfig, abstract_kv_cache,
                                   abstract_lm_params, decode_step, lm_loss,
                                   prefill_step)
@@ -41,17 +45,16 @@ def _lm_train_flops(cfg: LMConfig, cell: ShapeCell) -> float:
     return 6.0 * cfg.active_param_count() * cell.batch * cell.seq_len
 
 
-def lm_value_and_grad(params, cfg: LMConfig, tokens: torch.Tensor,
-                      labels: torch.Tensor):
-    """``lm_loss`` and its gradient with respect to every parameter (a
-    tree shaped as ``params``), by autograd: the reference's
-    ``jax.value_and_grad(lm_loss)``."""
+def _value_and_grad(loss_fn: Callable, params, *args):
+    """``loss_fn(params, *args)`` and its gradient with respect to every
+    parameter (a tree shaped as ``params``), by autograd: the
+    reference's ``jax.value_and_grad(loss_fn)``."""
     leaves = tree_leaves(params)
     with torch.enable_grad():
         for p in leaves:
             p.requires_grad_(True)
         try:
-            loss = lm_loss(params, cfg, tokens, labels)
+            loss = loss_fn(params, *args)
             grads = torch.autograd.grad(loss, leaves)
         finally:
             for p in leaves:
@@ -59,8 +62,18 @@ def lm_value_and_grad(params, cfg: LMConfig, tokens: torch.Tensor,
     return loss.detach(), tree_unflatten(params, grads)
 
 
+def lm_value_and_grad(params, cfg: LMConfig, tokens: torch.Tensor,
+                      labels: torch.Tensor):
+    """``lm_loss`` and its gradient with respect to every parameter."""
+    return _value_and_grad(lm_loss, params, cfg, tokens, labels)
+
+
+def _meta(shape, dtype) -> torch.Tensor:
+    return torch.empty(shape, dtype=dtype, device="meta")
+
+
 def _tokens_meta(*shape) -> torch.Tensor:
-    return torch.empty(shape, dtype=torch.int32, device="meta")
+    return _meta(shape, torch.int32)
 
 
 def build_lm_cell(arch: ArchConfig, cell: ShapeCell) -> Cell:
@@ -127,17 +140,13 @@ def _graph_abstract(cell: ShapeCell, d_in: int) -> GraphBatch:
         n = cell.n_nodes
         e = cell.n_edges
     n, e = _pad512(n), _pad512(e)
-
-    def meta(shape, dtype):
-        return torch.empty(shape, dtype=dtype, device="meta")
-
     return GraphBatch(
-        node_feat=meta((n, d_in), torch.float32),
-        edge_src=meta((e,), torch.int32),
-        edge_dst=meta((e,), torch.int32),
-        edge_mask=meta((e,), torch.bool),
-        node_mask=meta((n,), torch.bool),
-        labels=meta((n,), torch.int32),
+        node_feat=_meta((n, d_in), torch.float32),
+        edge_src=_meta((e,), torch.int32),
+        edge_dst=_meta((e,), torch.int32),
+        edge_mask=_meta((e,), torch.bool),
+        node_mask=_meta((n,), torch.bool),
+        labels=_meta((n,), torch.int32),
     )
 
 
@@ -150,20 +159,8 @@ def _gnn_flops(cfg: GNNConfig, n: int, e: int) -> float:
 
 
 def gnn_value_and_grad(params, cfg: GNNConfig, g: GraphBatch):
-    """``gnn_loss`` and its gradient with respect to every parameter (a
-    tree shaped as ``params``), by autograd: the reference's
-    ``jax.value_and_grad(gnn_loss)``."""
-    leaves = tree_leaves(params)
-    with torch.enable_grad():
-        for p in leaves:
-            p.requires_grad_(True)
-        try:
-            loss = gnn_loss(params, cfg, g)
-            grads = torch.autograd.grad(loss, leaves)
-        finally:
-            for p in leaves:
-                p.requires_grad_(False)
-    return loss.detach(), tree_unflatten(params, grads)
+    """``gnn_loss`` and its gradient with respect to every parameter."""
+    return _value_and_grad(gnn_loss, params, cfg, g)
 
 
 def build_gnn_cell(arch: ArchConfig, cell: ShapeCell) -> Cell:
@@ -189,7 +186,68 @@ def build_gnn_cell(arch: ArchConfig, cell: ShapeCell) -> Cell:
     return Cell(step, (params_abs, opt_abs, g_abs), _gnn_flops(cfg, n, e))
 
 
-BUILDERS = {"lm": build_lm_cell, "gnn": build_gnn_cell}
+# ---------------------------------------------------------------------------
+# Recsys cells (autoint)
+# ---------------------------------------------------------------------------
+
+def _rec_abstract(cfg: AutoIntConfig, batch: int) -> RecsysBatch:
+    return RecsysBatch(
+        ids=_meta((batch, cfg.n_fields, cfg.max_bag), torch.int32),
+        bag_mask=_meta((batch, cfg.n_fields, cfg.max_bag), torch.float32),
+        labels=_meta((batch,), torch.float32),
+    )
+
+
+def _rec_flops(cfg: AutoIntConfig, batch: int, train: bool) -> float:
+    F, d, H, D = cfg.n_fields, cfg.embed_dim, cfg.n_heads, cfg.d_attn
+    attn = cfg.n_attn_layers * (3 * 2 * F * d * H * D + 2 * F * F * H * D * 2)
+    dims = (F * H * D,) + tuple(cfg.mlp_dims)
+    mlp = sum(2 * a * b for a, b in zip(dims[:-1], dims[1:]))
+    return float(batch * (attn + mlp)) * (3 if train else 1)
+
+
+def recsys_value_and_grad(params, cfg: AutoIntConfig, batch: RecsysBatch):
+    """``autoint_loss`` and its gradient with respect to every parameter,
+    the table's dense, as the reference's is."""
+    return _value_and_grad(autoint_loss, params, cfg, batch)
+
+
+def build_recsys_cell(arch: ArchConfig, cell: ShapeCell) -> Cell:
+    cfg: AutoIntConfig = arch.model
+    params_abs = abstract_autoint_params(cfg)
+    batch_abs = _rec_abstract(cfg, cell.batch)
+
+    if cell.kind == "train":
+        def step(params, opt, batch):
+            lr = warmup_cosine(opt.step, 1e-3, 1000, 300_000)
+            loss, grads = recsys_value_and_grad(params, cfg, batch)
+            params, opt = adamw_update(params, grads, opt, lr)
+            return params, opt, loss
+
+        return Cell(step, (params_abs, init_adamw(params_abs), batch_abs),
+                    _rec_flops(cfg, cell.batch, True))
+
+    if cell.kind == "serve":
+        def step(params, batch):
+            return autoint_forward(params, cfg, batch)
+
+        return Cell(step, (params_abs, batch_abs),
+                    _rec_flops(cfg, cell.batch, False))
+
+    if cell.kind == "retrieval":
+        cand_abs = _meta((cell.n_candidates, cfg.embed_dim), torch.float32)
+
+        def step(params, batch, cand):
+            return retrieval_score(params, cfg, batch, cand, top_k=100)
+
+        flops = float(2 * cell.n_candidates * cfg.embed_dim * cell.batch)
+        return Cell(step, (params_abs, batch_abs, cand_abs), flops)
+
+    raise ValueError(cell.kind)
+
+
+BUILDERS = {"lm": build_lm_cell, "gnn": build_gnn_cell,
+            "recsys": build_recsys_cell}
 
 
 class SkippedCell(Exception):

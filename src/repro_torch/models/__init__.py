@@ -1,2 +1,2 @@
 """Model code of the port (mirrors ``repro/models``): the dense and MoE
-decoder LMs and the GNNs."""
+decoder LMs, the GNNs and the AutoInt recommender."""

@@ -95,11 +95,15 @@ assert not bad, bad
                                     "repro_torch.graphgen.sampler",
                                     "repro_torch.configs.gcn_cora",
                                     "repro_torch.configs.gat_cora",
-                                    "repro_torch.configs.pna"])
+                                    "repro_torch.configs.pna",
+                                    "repro_torch.models.recsys",
+                                    "repro_torch.data.recsys",
+                                    "repro_torch.configs.autoint"])
 def test_training_slice_imports_with_jax_blocked(module):
     """The trainers and what they compose (the optimizer, the data, the
-    checkpoints, the restart loop, and the GNN models, their sampler and
-    configs) stand alone, each imported first in a fresh process."""
+    checkpoints, the restart loop, the GNN models, their sampler and
+    configs, and the AutoInt model, its data and config) stand alone,
+    each imported first in a fresh process."""
     code = f"""
 import importlib, sys
 sys.modules["jax"] = None
