@@ -6,7 +6,8 @@
                                           # and training, full-width
                                           # Qwen1.5-MoE-A2.7B serving,
                                           # GCN/GAT/PNA training, AutoInt
-                                          # training, serving, retrieval
+                                          # training, serving, retrieval,
+                                          # NequIP training
 
 Phases, each printed on its own line; any failure raises and the script
 exits non-zero:
@@ -439,6 +440,38 @@ exits non-zero:
                 and indices against the CPU (indices may differ only
                 between candidates whose scores are within
                 ``REC_TIE_ATOL``).
+  15. nequip  — NequIP (``models/equivariant.py``; ``build_cell``'s
+                NequIP cells) on a drained card, every launch counter set
+                to 0 before and read after: no kernel of the port may
+                launch.  (a) The reduced config (2 layers, 8 channels, 4
+                RBF) and the full one (5 layers, 32 channels, 8 RBF) on
+                a seeded batch of 4 molecules of 12 atoms with pads, one
+                set of seeded weights carried across as numpy: energies,
+                forces, the energy loss and the force loss with every
+                gradient (second order) within ``NEQ_TOL``, the largest
+                error printed; an l = 2 part that keeps its trace
+                (planted) must exceed it.  (b) At full width on
+                ``molecule``'s batch: under a seeded rotation and a
+                translation the summed energy within 1e-4 relative and
+                ``F(Rx + b)`` within rtol 2e-3, atol 2e-4 of ``R F(x)``
+                (the reference property test's tolerances), each
+                molecule's energy too; a term fixed in the lab frame
+                (planted) must break it.  (c) ``NEQ_STEPS`` train steps
+                at full width and size from seeded weights on seeded
+                point clouds (jittered lattice sites; species in [0, 8);
+                ``molecule`` 128 molecules of 30 atoms, each with its 64
+                shortest directed pairs, 4,096 / 8,192 padded, on
+                energies and forces; ``full_graph_sm`` 2,708 atoms and
+                10,556 nearest-neighbour edges padded to 3,072 / 10,752;
+                ``minibatch_lg`` 169,984 atoms and edges), Morse-well
+                targets: ms a step, peak memory, model TFLOP/s by
+                ``Cell.model_flops``, the loss first/least/last, each loss
+                finite and falling on ``molecule`` and ``full_graph_sm``;
+                one more step of ``molecule`` and of ``minibatch_lg``
+                under torch.profiler, its device time split into
+                gathers, scatters, products, the rest and the optimizer.
+                (d) ``ogb_products``: its abstract cell only, and the 71.26
+                GB one layer's gathered ``t_j`` would hold.
 
 The last three lines are the kernel table as JSON, the ``nvidia-smi``
 line, and ``{"ok": true, "device": {...}}``.
@@ -505,6 +538,7 @@ from repro_torch.launch.serve import LMPrograms, serve_lm  # noqa: E402
 from repro_torch.graphgen.sampler import NeighborSampler  # noqa: E402
 from repro_torch.models import gnn  # noqa: E402
 from repro_torch.models import moe  # noqa: E402
+from repro_torch.models import equivariant  # noqa: E402
 from repro_torch.models import recsys  # noqa: E402
 from repro_torch.models import transformer as tr  # noqa: E402
 from repro_torch.models.layers import (auto_q_block,  # noqa: E402
@@ -699,6 +733,31 @@ REC_P99_CALLS, REC_BULK_CALLS, REC_RETRIEVAL_CALLS = 200, 5, 20
 #: two candidates' CPU scores count as tied (the scores are about 1e-2,
 #: their f32 rounding about 1e-9)
 REC_TOP_K, REC_TIE_ATOL = 100, 1e-6
+#: phase 15: NequIP (arXiv:2101.03164) at its full config (5 layers, 32
+#: channels, l_max 2, 8 RBF, cutoff 5 Å) and its cells
+NEQ_ARCH = "nequip"
+#: phase 15 (a): card against CPU on a seeded batch of (molecules, atoms
+#: each, edges each), energies, forces and every gradient of both losses
+#: by ``allclose`` at NEQ_TOL (rtol and atol: the card adds messages by
+#: atomics and takes other GEMM orders; gradients reach 0.2)
+NEQ_PARITY_GRAPHS = (4, 12, 24)
+NEQ_TOL = 1e-4
+#: phase 15 (b): the reference property test's tolerances
+#: (tests/test_models.py:98)
+NEQ_ROT_E_RTOL, NEQ_ROT_F_RTOL, NEQ_ROT_F_ATOL = 1e-4, 2e-3, 2e-4
+#: phase 15 (c): train steps of each cell, the cells whose loss must fall
+#: over them, and the synthetic point clouds: species; jittered lattice
+#: sites (spacing and jitter in Å: atoms at least 0.9 Å apart, as bonded
+#: atoms are), a molecule's lattice side (30 atoms on 64 sites), the
+#: share of a cloud's sites taken (0.148 atoms/Å³, a liquid's density);
+#: the Morse targets' well (Å)
+NEQ_STEPS = {"molecule": 30, "full_graph_sm": 30, "minibatch_lg": 8}
+NEQ_MUST_FALL = ("molecule", "full_graph_sm")
+NEQ_PROFILED = ("molecule", "minibatch_lg")
+NEQ_SPECIES = 8
+NEQ_SPACING, NEQ_JITTER = 1.5, 0.3
+NEQ_MOLECULE_SIDE, NEQ_CLOUD_FILL = 4, 0.5
+NEQ_MORSE_R0 = 1.5
 
 
 def say(phase: str, **fields) -> None:
@@ -4564,6 +4623,394 @@ def check_recsys(dev, smi: str) -> None:
     torch.cuda.empty_cache()
 
 
+# ------------------------------------------------------------ phase 15 --
+
+NEQ_TRACELESS = equivariant._traceless
+
+
+def fixed_frame_traceless(t):
+    """A planted fault: the l = 2 part with a term fixed in the lab frame
+    (0.05 e_x e_xᵀ), which no rotation carries along."""
+    ex = torch.zeros(3, 3, dtype=t.dtype, device=t.device)
+    ex[0, 0] = 0.05
+    return NEQ_TRACELESS(t) + ex
+
+
+def untraced_traceless(t):
+    """A planted fault: the l = 2 part keeping its trace."""
+    return 0.5 * (t + t.transpose(-1, -2))
+
+
+def morse(r: np.ndarray) -> np.ndarray:
+    """The pair energy of the synthetic targets: a Morse well (depth 1,
+    width 1 Å⁻¹, minimum at NEQ_MORSE_R0)."""
+    x = np.exp(-(r - NEQ_MORSE_R0))
+    return x * x - 2 * x
+
+
+def lattice_sites(rng, groups: int, count: int, side: int) -> np.ndarray:
+    """``[groups, count, 3]`` positions: in each group ``count`` distinct
+    sites of a ``side``³ cubic lattice of NEQ_SPACING Å, each moved by a
+    uniform jitter of up to NEQ_JITTER Å a coordinate, so no two atoms
+    come closer than NEQ_SPACING − 2·NEQ_JITTER."""
+    picks = np.argsort(rng.random((groups, side ** 3)), axis=1)[:, :count]
+    ijk = np.stack(np.unravel_index(picks, (side,) * 3), axis=-1)
+    return ijk * NEQ_SPACING + rng.uniform(-NEQ_JITTER, NEQ_JITTER,
+                                           size=ijk.shape)
+
+
+def molecule_cloud(rng, graphs: int, per: int, pairs: int, n: int, e: int):
+    """``graphs`` molecules of ``per`` atoms (``lattice_sites`` of a
+    NEQ_MOLECULE_SIDE³ lattice, each molecule in its own frame), each
+    with its ``pairs`` shortest directed pairs i ≠ j as edges (src →
+    dst), padded to ``n`` atoms and ``e`` edges: pad atoms masked with
+    graph id -1, pad edges masked self-loops at the last row.  Targets:
+    each molecule's Morse energy over its edges, standardised over the
+    batch."""
+    pos = lattice_sites(rng, graphs, per, NEQ_MOLECULE_SIDE)
+    d = np.linalg.norm(pos[:, :, None] - pos[:, None, :], axis=-1)
+    d[:, np.arange(per), np.arange(per)] = np.inf
+    order = np.argsort(d.reshape(graphs, -1), axis=1, kind="stable")
+    flat = order[:, :pairs]
+    src = (flat // per + np.arange(graphs)[:, None] * per).reshape(-1)
+    dst = (flat % per + np.arange(graphs)[:, None] * per).reshape(-1)
+    r = np.take_along_axis(d.reshape(graphs, -1), flat, 1)
+    energy = morse(r).sum(1)
+    targets = (energy - energy.mean()) / energy.std()
+    return _padded_atoms(rng, pos.reshape(-1, 3), src, dst,
+                         np.repeat(np.arange(graphs), per), n, e), targets
+
+
+def point_cloud(rng, atoms: int, edges: int, n: int, e: int):
+    """``atoms`` ``lattice_sites`` filling NEQ_CLOUD_FILL of a cube's
+    lattice, each taking its nearest neighbours in rank order (every
+    atom's first, then every atom's second, …) as edges neighbour → atom
+    until ``edges`` are taken (``scipy.spatial.cKDTree``), padded as
+    ``molecule_cloud`` pads; one graph, whose target is 0.01 × its Morse
+    energy."""
+    from scipy.spatial import cKDTree
+
+    side = math.ceil((atoms / NEQ_CLOUD_FILL) ** (1 / 3))
+    pos = lattice_sites(rng, 1, atoms, side)[0]
+    k = -(-edges // atoms)
+    dist, nbr = cKDTree(pos).query(pos, k=k + 1)
+    src = nbr[:, 1:].T.reshape(-1)[:edges]
+    dst = np.tile(np.arange(atoms), k)[:edges]
+    r = dist[:, 1:].T.reshape(-1)[:edges]
+    targets = np.array([0.01 * morse(r).sum()])
+    return _padded_atoms(rng, pos, src, dst, np.zeros(atoms, np.int64), n,
+                         e), targets
+
+
+def _padded_atoms(rng, pos, src, dst, graph_id, n: int,
+                  e: int) -> equivariant.AtomsBatch:
+    real_n, real_e = len(pos), len(src)
+    if real_n > n or real_e > e:
+        raise ValueError(f"{real_n} atoms / {real_e} edges over the cell's "
+                         f"{n} / {e}")
+    p = np.zeros((n, 3), np.float32)
+    p[:real_n] = pos
+    gid = np.full(n, -1, np.int32)
+    gid[:real_n] = graph_id
+    s = np.full(e, n - 1, np.int32)
+    d = np.full(e, n - 1, np.int32)
+    s[:real_e], d[:real_e] = src, dst
+    species = rng.integers(0, NEQ_SPECIES, n).astype(np.int32)
+    return equivariant.AtomsBatch(
+        *(torch.from_numpy(a) for a in (
+            species, p, s, d, np.arange(e) < real_e, np.arange(n) < real_n,
+            gid)))
+
+
+def _neq_all(params, cfg, batch, e_t, f_t, n_graphs: int):
+    """(energies, forces, the energy loss and its gradients, the force
+    loss and its second-order gradients)."""
+    e, forces = equivariant.energies_and_forces(params, cfg, batch, n_graphs,
+                                                create_graph=False)
+    le = steps._value_and_grad(lambda p: equivariant.nequip_energy_loss(
+        p, cfg, batch, e_t, n_graphs), params)
+    lf = steps._value_and_grad(lambda p: equivariant.nequip_force_loss(
+        p, cfg, batch, e_t, f_t, 1.0, n_graphs), params)
+    return e.detach(), forces, le, lf
+
+
+def check_nequip_parity(dev) -> None:
+    """Phase 15 (a): the reduced and the full config, one set of seeded
+    weights carried across as numpy (``params_to_numpy`` →
+    ``params_from_numpy``) and one seeded batch of NEQ_PARITY_GRAPHS
+    molecules on ``dev`` and on the CPU: energies, forces, the energy
+    loss and the force loss with every gradient (the force loss's second
+    order) within NEQ_TOL; the planted trace-keeping l = 2 part must
+    exceed it."""
+    cpu = torch.device("cpu")
+    graphs, per, pairs = NEQ_PARITY_GRAPHS
+    for label in ("reduced", "full"):
+        cfg = get_config(NEQ_ARCH, reduced=label == "reduced").model
+        rng = np.random.default_rng(1)
+        batch, e_t = molecule_cloud(rng, graphs, per, pairs,
+                                    graphs * per + 8, graphs * pairs + 16)
+        e_t = torch.from_numpy(e_t.astype(np.float32))
+        f_t = torch.from_numpy(
+            (rng.normal(size=tuple(batch.pos.shape)) * 0.1).astype(np.float32))
+        weights = equivariant.params_to_numpy(equivariant.init_nequip_params(
+            torch.Generator().manual_seed(0), cfg))
+        params = equivariant.params_from_numpy(weights)
+        card = _to(equivariant.params_from_numpy(weights), dev)
+        card_in = [_to(x, dev) for x in (batch, e_t, f_t)]
+        want = _neq_all(params, cfg, batch, e_t, f_t, graphs)
+        got = _neq_all(card, cfg, *card_in, graphs)
+        ok, err = _trees_close(got, want, NEQ_TOL, NEQ_TOL)
+        errs = {part: _trees_close(g, w, NEQ_TOL, NEQ_TOL)[1]
+                for part, g, w in zip(("energies", "forces", "energy_loss",
+                                       "force_loss"), got, want)}
+        with mock.patch.object(equivariant, "_traceless", untraced_traceless):
+            f_ok, f_err = _trees_close(_neq_all(card, cfg, *card_in, graphs),
+                                       want, NEQ_TOL, NEQ_TOL)
+        say("nequip", check="parity", config=cfg.name, layers=cfg.n_layers,
+            channels=cfg.channels, n_rbf=cfg.n_rbf, atoms=batch.pos.shape[0],
+            edges=batch.edge_src.shape[0], graphs=graphs, dtype="float32",
+            max_abs_err=f"{err:.3e}",
+            **{f"{k}_max_abs_err": f"{v:.3e}" for k, v in errs.items()},
+            force_loss_cpu=f"{float(want[3][0]):.6f}", allclose=ok,
+            planted_trace_kept_max_abs_err=f"{f_err:.3e}",
+            planted_fault_seen=not f_ok, tol=NEQ_TOL)
+        if not ok:
+            raise AssertionError(f"NequIP ({label}) differs between cuda "
+                                 f"and cpu: {errs}")
+        if f_ok:
+            raise AssertionError("the NequIP parity check cannot see an l=2 "
+                                 "part that keeps its trace")
+
+
+def symmetry_check(params, cfg, batch, n_graphs: int) -> dict:
+    """Energies and forces before and after a seeded rotation R
+    (``Rotation.random(random_state=1)``) and a translation, held as the
+    reference property test holds them: the summed energy within
+    NEQ_ROT_E_RTOL, ``F(Rx + b)`` within NEQ_ROT_F_RTOL/ATOL of ``R F(x)``.
+    Each molecule's energy is held within NEQ_ROT_E_RTOL of itself plus
+    that share of the median |E| (a molecule's energy can cancel to
+    within 1e-3 of 0, where the f32 rounding of its 30 atoms' terms
+    is the whole difference)."""
+    from scipy.spatial.transform import Rotation
+
+    R = torch.from_numpy(Rotation.random(random_state=1).as_matrix()
+                         .astype(np.float32)).to(batch.pos.device)
+    shift = batch.pos.new_tensor([0.7, -1.3, 2.1])
+    e0, f0 = equivariant.energies_and_forces(params, cfg, batch, n_graphs,
+                                             create_graph=False)
+    e1, f1 = equivariant.energies_and_forces(
+        params, cfg, batch._replace(pos=batch.pos @ R.T + shift), n_graphs,
+        create_graph=False)
+    e0, e1, f0, f1 = (x.detach().cpu() for x in (e0, e1, f0, f1))
+    want_f = f0 @ R.cpu().T
+    scale = NEQ_ROT_E_RTOL * float(e0.abs().median())
+    out = {"energy_invariant": bool(torch.allclose(
+               e1.sum(), e0.sum(), rtol=NEQ_ROT_E_RTOL, atol=0.0)),
+           "energies_invariant": bool(torch.allclose(
+               e1, e0, rtol=NEQ_ROT_E_RTOL, atol=scale)),
+           "forces_rotate": bool(torch.allclose(
+               f1, want_f, rtol=NEQ_ROT_F_RTOL, atol=NEQ_ROT_F_ATOL))}
+    return {"holds": all(out.values()), **out,
+            "energy_sum_rel_change": float((e1.sum() - e0.sum()).abs()
+                                           / e0.sum().abs()),
+            "energy_max_rel_change": float(((e1 - e0).abs() / e0.abs()).max()),
+            "energy_max_abs_change": float((e1 - e0).abs().max()),
+            "energy_atol": scale,
+            "force_max_abs_err": float((f1 - want_f).abs().max()),
+            "force_max": float(f0.abs().max())}
+
+
+def check_nequip_symmetry(dev, cfg, batch, n_graphs: int) -> None:
+    """Phase 15 (b): the property at full width on ``molecule``'s batch
+    on the card, with the seeded weights; the planted fixed-frame term
+    must break it."""
+    params = equivariant.init_nequip_params(
+        torch.Generator(device=dev).manual_seed(0), cfg)
+    batch = _to(batch, dev)
+    got = symmetry_check(params, cfg, batch, n_graphs)
+    with mock.patch.object(equivariant, "_traceless", fixed_frame_traceless):
+        fault = symmetry_check(params, cfg, batch, n_graphs)
+    say("nequip", check="rotation", config=cfg.name, atoms=batch.pos.shape[0],
+        edges=batch.edge_src.shape[0], graphs=n_graphs,
+        **{k: (f"{v:.3e}" if isinstance(v, float) else v)
+           for k, v in got.items()},
+        planted_fixed_frame_energy_max_rel_change=
+        f"{fault['energy_max_rel_change']:.3e}",
+        planted_fault_seen=not fault["holds"],
+        e_rtol=NEQ_ROT_E_RTOL, f_rtol=NEQ_ROT_F_RTOL, f_atol=NEQ_ROT_F_ATOL)
+    if not got["holds"]:
+        raise AssertionError(f"NequIP is not E(3)-equivariant on the card: "
+                             f"{got}")
+    if fault["holds"]:
+        raise AssertionError("the rotation check cannot see a fixed-frame "
+                             "term")
+
+
+def nequip_batch(shape: str, cell) -> tuple:
+    """(the host batch, the energy targets, graphs, real atoms, real
+    edges) of a NequIP cell at its full size (module docstring)."""
+    b_abs, t_abs = cell.abstract_inputs[2:]
+    n, e = b_abs.pos.shape[0], b_abs.edge_src.shape[0]
+    spec = gnn_shapes()[shape]
+    rng = np.random.default_rng(0)
+    if shape == "molecule":
+        batch, targets = molecule_cloud(rng, spec.batch, spec.n_nodes,
+                                        spec.n_edges, n, e)
+        real = (spec.batch * spec.n_nodes, spec.batch * spec.n_edges)
+    else:
+        atoms = spec.n_nodes if shape == "full_graph_sm" else n
+        edges = spec.n_edges if shape == "full_graph_sm" else e
+        batch, targets = point_cloud(rng, atoms, edges, n, e)
+        real = (atoms, edges)
+    return batch, torch.from_numpy(targets.astype(np.float32)), \
+        t_abs.shape[0], *real
+
+
+def _neq_family(name: str, op) -> str:
+    """The family of a kernel of a NequIP step: the optimizer (inside
+    ``adamw_update``), the gathers (``index_select``'s
+    ``vectorized_gather_kernel``), the scatters (``index_add``'s
+    ``indexFunc…``), the products (GEMMs and cuBLAS's ``gemv``), the rest
+    (elementwise passes and reductions)."""
+    chain = []
+    while op is not None:
+        chain.append(op.name)
+        op = op.cpu_parent
+    low = name.lower()
+    if any("adamw_update" in c for c in chain):
+        return "optimizer"
+    if "gather" in low or "indexselect" in low:
+        return "gather"
+    if "indexfunc" in low or "scatter" in low:
+        return "scatter"
+    if any(w in low for w in GEMM_WORDS + ("gemv",)):
+        return "product"
+    return "elementwise"
+
+
+def _neq_profile(shape: str, fn, top: int = 8) -> dict:
+    """One step under torch.profiler: wall and busy ms (each device event
+    once), the idle share, the kernels and the busy ms by family."""
+    prof, wall_ms = _profiled_step(fn)
+    split = dict.fromkeys(("gather_ms", "scatter_ms", "product_ms",
+                           "elementwise_ms", "optimizer_ms"), 0.0)
+    kernels = _device_kernels(prof)[0]
+    by_name = {}
+    for name, t0, t1, op in kernels:
+        ms = (t1 - t0) / 1e6
+        split[_neq_family(name, op) + "_ms"] += ms
+        by_name[name] = by_name.get(name, 0.0) + ms
+    busy_ms = sum(split.values())
+    for name, ms in sorted(by_name.items(), key=lambda kv: -kv[1])[:top]:
+        print(f"[nequip-profile] {shape} kernel {ms:9.3f} ms {name[:80]}",
+              flush=True)
+    out = {"wall_ms": wall_ms, "busy_ms": busy_ms,
+           "idle_share": max(0.0, 1 - busy_ms / wall_ms),
+           "kernels": len(kernels), **split}
+    say("nequip-profile", step=shape, **_fmt(out))
+    return out
+
+
+def check_nequip_train(dev, smi: str, arch, shape: str, cell, host) -> None:
+    """Phase 15 (c): NEQ_STEPS[shape] ``build_cell`` steps at full width
+    and size on the card from seeded weights, on one batch uploaded before
+    the clock: ms a step, peak memory, model TFLOP/s, the loss at the
+    first and the last step; each loss finite, and falling where
+    NEQ_MUST_FALL says so; then one more step under torch.profiler in
+    the NEQ_PROFILED cells."""
+    batch, targets, graphs, atoms, edges = host
+    batch, targets = _to(batch, dev), targets.to(dev)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    params = equivariant.init_nequip_params(
+        torch.Generator(device=dev).manual_seed(0), arch.model)
+    opt = init_adamw(params)
+    losses, secs = [], []
+    for _ in range(NEQ_STEPS[shape]):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        params, opt, loss = cell.fn(params, opt, batch, targets)
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t)
+        losses.append(loss)
+    losses = [float(x) for x in losses]
+    peak = torch.cuda.max_memory_allocated()
+    step_s = statistics.median(secs)
+    say("nequip", check="train", shape=shape, note=f"'{cell.note}'",
+        layers=arch.model.n_layers, channels=arch.model.channels,
+        atoms=atoms, edges=edges, padded_atoms=batch.pos.shape[0],
+        padded_edges=batch.edge_src.shape[0], graphs=graphs,
+        steps=len(secs), loss_first=f"{losses[0]:.6f}",
+        loss_least=f"{min(losses):.6f}", loss_last=f"{losses[-1]:.6f}",
+        step_ms_median=_median_ms(secs), step_ms_first=f"{secs[0] * 1e3:.3f}",
+        step_ms_min=f"{min(secs) * 1e3:.3f}",
+        model_flops=f"{cell.model_flops:.6e}",
+        model_tflops_per_s=f"{cell.model_flops / step_s / 1e12:.4f}",
+        peak_gib=f"{peak / 2**30:.3f}",
+        reserved_gib=f"{torch.cuda.max_memory_reserved() / 2**30:.3f}",
+        smi=f"'{smi}'")
+    if not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"nequip {shape}: a loss is not finite")
+    if shape in NEQ_MUST_FALL and not losses[-1] < losses[0]:
+        raise AssertionError(f"nequip {shape}: the loss went from "
+                             f"{losses[0]} to {losses[-1]}")
+    if shape in NEQ_PROFILED:
+        _neq_profile(shape, lambda: cell.fn(params, opt, batch, targets))
+    del params, opt, batch
+
+
+def check_nequip_products(arch) -> None:
+    """Phase 15 (d): ogb_products's abstract cell only, and the bytes of
+    one layer's gathered ``t_j`` (f32 [E, C, 3, 3]) before autograd's
+    saves."""
+    cell = steps.build_cell(arch, "ogb_products")
+    b_abs = cell.abstract_inputs[2]
+    n, e = b_abs.pos.shape[0], b_abs.edge_src.shape[0]
+    t_j = e * arch.model.channels * 9 * 4
+    say("nequip", check="ogb_products", run=False, padded_atoms=n,
+        padded_edges=e, model_flops=f"{cell.model_flops:.6e}",
+        t_j_bytes=t_j, t_j_gb=f"{t_j / 1e9:.2f}",
+        waits_for="'ROADMAP item 9 (a mesh), and edge chunking, which the "
+                  "reference lacks'")
+
+
+def check_nequip(dev, smi: str) -> None:
+    """Phase 15 (module docstring): on a drained card, every launch
+    counter set to 0 before and read after; no kernel of the port may
+    launch."""
+    t0 = time.perf_counter()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    allocated = torch.cuda.memory_allocated()
+    say("nequip", check="start", allocated_bytes=allocated,
+        allocated_gib=f"{allocated / 2**30:.3f}")
+    if allocated >= 2**30:
+        raise AssertionError(f"phase 15 starts with {allocated} bytes "
+                             f"allocated on the card")
+    reset_counts()
+    check_nequip_parity(dev)
+    arch = get_config(NEQ_ARCH)
+    cells, host = {}, {}
+    for shape in NEQ_STEPS:
+        cells[shape] = steps.build_cell(arch, shape)
+        t = time.perf_counter()
+        host[shape] = nequip_batch(shape, cells[shape])
+        say("nequip", check="batch", shape=shape,
+            host_s=f"{time.perf_counter() - t:.3f}")
+    mol = host["molecule"]
+    check_nequip_symmetry(dev, arch.model, mol[0], mol[2])
+    for shape in NEQ_STEPS:
+        check_nequip_train(dev, smi, arch, shape, cells[shape], host[shape])
+    check_nequip_products(arch)
+    counts = read_counts()
+    say("nequip", seconds=f"{time.perf_counter() - t0:.3f}",
+        launches=json.dumps(counts, separators=(",", ":")))
+    if any(counts.values()):
+        raise AssertionError(f"the NequIP phase launched kernels: {counts}")
+    torch.cuda.empty_cache()
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--scale", type=int, default=20,
@@ -4712,6 +5159,9 @@ def main(argv=None) -> int:
 
     # ---- 14. AutoInt: parity, train, serve and retrieve at full config --
     check_recsys(dev, smi)
+
+    # ---- 15. NequIP: parity, the symmetry, the cells at full size ----
+    check_nequip(dev, smi)
 
     print(json.dumps({"kernels": [
         {"name": name, **KERNELS[name], "launches": launches[name],

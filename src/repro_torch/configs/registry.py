@@ -4,7 +4,7 @@ has)."""
 from importlib import import_module
 
 ARCH_IDS = ["smollm-360m", "qwen2-moe-a2.7b", "qwen3-moe-235b-a22b",
-            "gat-cora", "pna", "gcn-cora", "autoint"]
+            "gat-cora", "pna", "gcn-cora", "nequip", "autoint"]
 
 _MODULES = {"smollm-360m": "smollm_360m",
             "qwen2-moe-a2.7b": "qwen2_moe_a2_7b",
@@ -12,6 +12,7 @@ _MODULES = {"smollm-360m": "smollm_360m",
             "gat-cora": "gat_cora",
             "pna": "pna",
             "gcn-cora": "gcn_cora",
+            "nequip": "nequip",
             "autoint": "autoint"}
 
 

@@ -1,15 +1,16 @@
 """Resolve (arch × shape) → step function and abstract inputs (mirrors
-the LM, GNN and recsys halves of ``repro/launch/steps.py``).
+the LM, GNN, NequIP and recsys halves of ``repro/launch/steps.py``).
 
 :func:`build_cell` is the one entry point, as in the reference: the
 trainer runs its ``train`` cell, and its ``prefill`` and ``decode`` cells
 are the port's serving steps; a GNN arch's cells each train on one
-padded graph; the recsys arch's cells train, serve or retrieve.  The
-port runs on one device, so there is no mesh and no sharding: abstract
-inputs are ``meta`` tensors, and a ``mesh`` raises (ROADMAP queue 1 item
-9), as does NequIP (item 8).  Steps run eagerly; a train step updates
-the parameters and the optimizer state in place (the reference donates
-them).
+padded graph; NequIP's train on padded point clouds (``molecule`` on
+energies and forces, by a second-order gradient); the recsys arch's
+cells train, serve or retrieve.  The port runs on one device, so there
+is no mesh and no sharding: abstract inputs are ``meta`` tensors, and a
+``mesh`` raises (ROADMAP queue 1 item 9), as does the Euler family (item
+8).  Steps run eagerly; a train step updates the parameters and the
+optimizer state in place (the reference donates them).
 """
 from __future__ import annotations
 
@@ -20,6 +21,9 @@ import torch
 
 from ..configs.base import ArchConfig, ShapeCell
 from ..models import gnn as gnn_mod
+from ..models.equivariant import (AtomsBatch, NequIPConfig,
+                                  abstract_nequip_params,
+                                  nequip_energy_loss, nequip_force_loss)
 from ..models.gnn import GNNConfig, GraphBatch, gnn_loss
 from ..models.recsys import (AutoIntConfig, RecsysBatch,
                              abstract_autoint_params, autoint_forward,
@@ -187,6 +191,73 @@ def build_gnn_cell(arch: ArchConfig, cell: ShapeCell) -> Cell:
 
 
 # ---------------------------------------------------------------------------
+# NequIP cells
+# ---------------------------------------------------------------------------
+
+def _atoms_abstract(cell: ShapeCell) -> Tuple[AtomsBatch, torch.Tensor,
+                                              int, int]:
+    """(the padded batch, the energy targets, padded edges, graphs) of a
+    cell, sized as the reference sizes them."""
+    if cell.name == "molecule":
+        n = cell.n_nodes * cell.batch
+        e = cell.n_edges * cell.batch
+        ng = cell.batch
+    elif cell.name == "minibatch_lg":
+        acc, tot = 1, 1
+        for f in cell.fanout:
+            acc *= f
+            tot += acc
+        n = cell.batch_nodes * tot
+        e = n
+        ng = 1
+    else:
+        n, e, ng = cell.n_nodes, cell.n_edges, 1
+    n, e = _pad512(n), _pad512(e)
+    batch = AtomsBatch(
+        species=_meta((n,), torch.int32),
+        pos=_meta((n, 3), torch.float32),
+        edge_src=_meta((e,), torch.int32),
+        edge_dst=_meta((e,), torch.int32),
+        edge_mask=_meta((e,), torch.bool),
+        node_mask=_meta((n,), torch.bool),
+        graph_id=_meta((n,), torch.int32),
+    )
+    return batch, _meta((ng,), torch.float32), e, ng
+
+
+def _nequip_flops(cfg: NequIPConfig, e: int, use_forces: bool) -> float:
+    C = cfg.channels
+    return float(cfg.n_layers * e * (8 * C * 15 + 2 * cfg.n_rbf * 32
+                                     + 2 * 32 * 8 * C)) * \
+        (4 if use_forces else 3)
+
+
+def build_nequip_cell(arch: ArchConfig, cell: ShapeCell) -> Cell:
+    cfg: NequIPConfig = arch.model
+    batch_abs, e_abs, e, ng = _atoms_abstract(cell)
+    params_abs = abstract_nequip_params(cfg)
+    use_forces = cell.name == "molecule"
+
+    def step(params, opt, batch, targets):
+        lr = warmup_cosine(opt.step, 5e-3, 100, 10_000)
+        if use_forces:
+            f_t = torch.zeros_like(batch.pos)
+            loss, grads = _value_and_grad(
+                lambda p: nequip_force_loss(p, cfg, batch, targets, f_t,
+                                            n_graphs=ng), params)
+        else:
+            loss, grads = _value_and_grad(
+                lambda p: nequip_energy_loss(p, cfg, batch, targets,
+                                             n_graphs=ng), params)
+        params, opt = adamw_update(params, grads, opt, lr)
+        return params, opt, loss
+
+    return Cell(step, (params_abs, init_adamw(params_abs), batch_abs, e_abs),
+                _nequip_flops(cfg, e, use_forces),
+                note="energies and forces" if use_forces else "energies")
+
+
+# ---------------------------------------------------------------------------
 # Recsys cells (autoint)
 # ---------------------------------------------------------------------------
 
@@ -247,7 +318,7 @@ def build_recsys_cell(arch: ArchConfig, cell: ShapeCell) -> Cell:
 
 
 BUILDERS = {"lm": build_lm_cell, "gnn": build_gnn_cell,
-            "recsys": build_recsys_cell}
+            "nequip": build_nequip_cell, "recsys": build_recsys_cell}
 
 
 class SkippedCell(Exception):

@@ -422,11 +422,11 @@ def test_build_cell_refuses_the_other_families_and_a_mesh():
     arch = registry.get_config("pna", reduced=True)
     with pytest.raises(NotImplementedError, match="item 9"):
         steps.build_cell(arch, "molecule", mesh=object())
-    for family in ("nequip",):
+    for family in ("euler",):
         with pytest.raises(NotImplementedError, match="item 8"):
             steps.build_cell(dataclasses.replace(arch, family=family),
                              "molecule")
-    for arch_id in ("nequip",):
+    for arch_id in ("euler-rmat", "granite-20b"):
         with pytest.raises(KeyError, match="item 8"):
             registry.get_config(arch_id)
 

@@ -98,12 +98,14 @@ assert not bad, bad
                                     "repro_torch.configs.pna",
                                     "repro_torch.models.recsys",
                                     "repro_torch.data.recsys",
-                                    "repro_torch.configs.autoint"])
+                                    "repro_torch.configs.autoint",
+                                    "repro_torch.models.equivariant",
+                                    "repro_torch.configs.nequip"])
 def test_training_slice_imports_with_jax_blocked(module):
     """The trainers and what they compose (the optimizer, the data, the
     checkpoints, the restart loop, the GNN models, their sampler and
-    configs, and the AutoInt model, its data and config) stand alone,
-    each imported first in a fresh process."""
+    configs, the AutoInt model, its data and config, and the NequIP model
+    and config) stand alone, each imported first in a fresh process."""
     code = f"""
 import importlib, sys
 sys.modules["jax"] = None

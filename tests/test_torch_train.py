@@ -388,9 +388,9 @@ def test_build_cell_abstract_inputs_and_other_cells():
         steps.build_cell(arch, "long_500k")
     with pytest.raises(NotImplementedError, match="item 9"):
         steps.build_cell(arch, "train_4k", mesh=object())
-    nequip = dataclasses.replace(arch, family="nequip")
+    euler = dataclasses.replace(arch, family="euler")
     with pytest.raises(NotImplementedError, match="item 8"):
-        steps.build_cell(nequip, "train_4k")
+        steps.build_cell(euler, "train_4k")
 
 
 def test_prefill_and_decode_cells_run_the_serving_steps():
