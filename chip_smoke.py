@@ -7,7 +7,9 @@
                                           # Qwen1.5-MoE-A2.7B serving,
                                           # GCN/GAT/PNA training, AutoInt
                                           # training, serving, retrieval,
-                                          # NequIP training
+                                          # NequIP training, full-width
+                                          # StarCoder2-7B and Granite-20B
+                                          # serving
 
 Phases, each printed on its own line; any failure raises and the script
 exits non-zero:
@@ -243,12 +245,15 @@ exits non-zero:
                 non-causal f32 at D 128, a ragged S = T = 4,097, causal
                 bf16 at D 128 (B 1, S = T = 4,096, 8/2 heads), at the MoE
                 slice's prefill (B 4, S = T = 4,096, 16/16 heads, D 128)
-                and D 32 (B 2, S = T = 2,048, 6/2 heads), and a causal
-                suffix
-                across tile edges (S = 1,000 queries over T = 4,097
-                keys): f32 within 2e-5, bf16 elementwise within 5e-2 of
-                |want| plus its row's RMS, a limit that a twin dropping
-                one KV tile or mapping the heads wrongly must exceed;
+                and D 32 (B 2, S = T = 2,048, 6/2 heads), a causal
+                suffix across tile edges (S = 1,000 queries over T =
+                4,097 keys), and f32 at D 16 (``flash_f32_kernel<16>``)
+                at ``main_lm``'s prefill of the reduced Granite-20B (B 4,
+                S = T = 64, 8/1 heads) and Qwen3-MoE (8/2) and at B 4,
+                S = T = 4,096, 8/2: f32 within 2e-5, bf16 elementwise
+                within 5e-2 of |want| plus its row's RMS, a limit that a
+                twin dropping one KV tile or mapping the heads wrongly
+                must exceed;
                 kernel, twin and ``scaled_dot_product_attention`` times
                 beside the bound; then the kernel alone at prefill_32k's
                 sequence (B 1, S = T = 32,768);
@@ -344,10 +349,10 @@ exits non-zero:
                 drained card (``memory_allocated()`` printed first, under
                 1 GiB): (a) the reduced config in f32 (D 32), one set of
                 seeded weights on ``cuda`` and on ``cpu``, as phase 8
-                (the reduced Qwen3-MoE has D 16, which K6 does not take:
-                it runs on the CPU only); (b) one MoE FFN at full width
-                (d 2,048, 60 experts, top-4, width 1,408, 4 shared, bf16,
-                256 tokens, capacity factor 8: no pair may drop) against
+                (the reduced Qwen3-MoE, D 16, runs in phase 16 (a)); (b)
+                one MoE FFN at full width (d 2,048, 60 experts, top-4,
+                width 1,408, 4 shared, bf16, 256 tokens, capacity factor
+                8: no pair may drop) against
                 the dense ``moe_ffn_reference`` by ``scaled_err`` within
                 3e-2, which a combine without the gate weights and a
                 slot shifted by one expert must each exceed; and the
@@ -472,9 +477,45 @@ exits non-zero:
                 gathers, scatters, products, the rest and the optimizer.
                 (d) ``ogb_products``: its abstract cell only, and the 71.26
                 GB one layer's gathered ``t_j`` would hold.
+  16. code    — the code LMs StarCoder2-7B (arXiv:2402.19173: 32 layers,
+                d 4,608, 36 query heads on 4 KV heads of 128, RoPE base
+                10⁶) and Granite-20B (arXiv:2405.04324: 52 layers, d
+                6,144, 48 on 1), the reference's architecture, on a
+                drained card.  (a) The reduced StarCoder2-7B (K6 in f32
+                at D 32), Granite-20B and Qwen3-MoE (f32 at D 16) as
+                phase 8, then ``main_lm --arch`` of each, the
+                reference's entry point, on the card and on the CPU:
+                the same ids, K6 launched twice a layer on the card (the
+                warm-up and the recording).  (b) Each at full width cut
+                to 2 layers in f32 (seeded weights drawn on the card,
+                then moved), B 1, P 128, 4 greedy decode steps on the
+                card and on the CPU: every step's logits within 1e-4
+                (rtol and atol), the ids equal.  (c) K6 against its twin
+                (run one sequence at a time) at each full prefill shape
+                (B 4, S = T = 4,096, 36/4 and 48/1 heads, D 128, bf16,
+                causal): ``scaled_err`` within 5e-2 and ``allclose`` at
+                3e-2; kernel, twin and SDPA times beside the bound.  (d)
+                A twin dropping a KV tile, and at StarCoder2's 9:1 one
+                mapping query head h to KV head h mod 4, must exceed the
+                limit (at 48:1 every head reads KV head 0, so a wrong
+                mapping cannot show there).  (e) Each served at full
+                width and depth at phase 9's shape, as phase 12 (c)
+                (seeded bf16 weights drawn on a CUDA generator: 20.23 GB
+                and 56.33 GB), the card drained before each: K6 recorded
+                32 and 52 times in the prefill graphs and never in the
+                decode graphs, three fused and three eager serves
+                (``prefill_s``, ``decode_tok_s``, peak allocated and
+                reserved memory), the first three decode replays against
+                eager steps; one prefill and one decode replay under
+                torch.profiler (busy, idle share, the kernels by device
+                time) beside the decode bound (every weight but the
+                embedding and the whole cache read once at 3.35 TB/s)
+                and the prefill bound (2 operations a layer weight a
+                token and K6's attention at 989 TFLOP/s).
 
-The last three lines are the kernel table as JSON, the ``nvidia-smi``
-line, and ``{"ok": true, "device": {...}}``.
+After each phase from 2 on, a ``[timing]`` line gives the seconds since
+the start.  The last three lines are the kernel table as JSON, the
+``nvidia-smi`` line, and ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
@@ -758,6 +799,21 @@ NEQ_SPECIES = 8
 NEQ_SPACING, NEQ_JITTER = 1.5, 0.3
 NEQ_MOLECULE_SIDE, NEQ_CLOUD_FILL = 4, 0.5
 NEQ_MORSE_R0 = 1.5
+#: main_lm's defaults, B 4 and a prompt of 64: the reduced configs'
+#: prefill shape (B, S, T)
+MAIN_LM_SHAPE = (4, 64, 64)
+#: phase 16: the code LMs served at full width and depth; the reduced
+#: configs whose K6 runs in f32 at head width 32 or 16
+CODE_ARCHS = ("starcoder2-7b", "granite-20b")
+REDUCED_K6_ARCHS = (*CODE_ARCHS, "qwen3-moe-235b-a22b")
+#: phase 16 (b): full width cut to 2 layers in f32, B 1, P 128, 4 decode
+#: steps, card against CPU by ``allclose`` at CODE_F32_TOL (cuBLAS and
+#: the CPU sum d_model 4,608–6,144 products in other orders)
+CODE_DEPTH2 = dict(layers=2, batch=1, prompt=128, steps=4)
+CODE_F32_TOL = 1e-4
+#: phase 16 (c): K6 at the code LMs' prefill shapes is also held to
+#: ROADMAP's bf16 ``allclose`` tolerance
+CODE_K6_BF16 = 3e-2
 
 
 def say(phase: str, **fields) -> None:
@@ -2396,27 +2452,107 @@ def twin_dropping_keys(q, k, v, lo: int, hi: int) -> torch.Tensor:
     return torch.einsum("bhst,bthd->bshd", probs, v)
 
 
-def k6_planted_faults(q, k, v, got) -> dict:
-    """``scaled_err`` of K6's output ``got`` against the twin of two
-    faulty kernels on the first sequence: one that drops the KV tile of
-    keys 2,048 … 2,111, and one that maps query head h to KV head
-    h mod Hkv instead of h // (Hq/Hkv)."""
+def k6_planted_faults(q, k, v, got, faults) -> dict:
+    """``scaled_err`` of K6's output ``got`` against the twin of faulty
+    kernels on the first sequence, for each name in ``faults``:
+    ``dropped_tile`` drops the KV tile of keys 2,048 … 2,111, and
+    ``wrong_heads`` maps query head h to KV head h mod Hkv instead of
+    h // (Hq/Hkv) (the same head when Hkv is 1)."""
     q, k, v, got = q[:1], k[:1], v[:1], got[:1]
     rep = q.shape[2] // k.shape[2]
+    out = {}
+    if "dropped_tile" in faults:
+        kr, vr = k.repeat_interleave(rep, 2), v.repeat_interleave(rep, 2)
+        out["dropped_tile"] = scaled_err(
+            got, twin_dropping_keys(q, kr, vr, 2048, 2112))
+        del kr, vr
+    if "wrong_heads" in faults:
+        out["wrong_heads"] = scaled_err(got, ref.flash_attention_ref(
+            q, k.repeat(1, 1, rep, 1), v.repeat(1, 1, rep, 1), causal=True))
+    return out
+
+
+def k6_twin(q, kr, vr, causal: bool, by_rows: bool) -> torch.Tensor:
+    """The twin on KV heads already repeated; ``by_rows`` runs it one
+    sequence at a time (its f32 scores are B·Hq·S·T·4 bytes at once
+    otherwise: 12.9 GB at Granite-20B's prefill)."""
+    if not by_rows:
+        return ref.flash_attention_ref(q, kr, vr, causal=causal)
+    return torch.cat([ref.flash_attention_ref(q[b:b + 1], kr[b:b + 1],
+                                              vr[b:b + 1], causal=causal)
+                      for b in range(q.shape[0])])
+
+
+def k6_case(gen, dev, label, B, S, T, Hq, Hkv, D, causal, dtype, faults=(),
+            by_rows: bool = False, bf16_allclose=None,
+            phase: str = "k6") -> dict:
+    """K6 against its twin on seeded inputs of one shape: f32 by
+    ``allclose`` at 2e-5, bf16 by ``scaled_err`` within ``K6_BF16_TOL``
+    (and by ``allclose`` at ``bf16_allclose`` where given), which each
+    planted fault in ``faults`` must exceed; then the kernel's, the
+    twin's and one ``scaled_dot_product_attention`` call's times beside
+    the bound.  Prints a line and returns the row of the kernel table."""
+    q = torch.randn(B, S, Hq, D, generator=gen, device=dev).to(dtype)
+    k = torch.randn(B, T, Hkv, D, generator=gen, device=dev).to(dtype)
+    v = torch.randn(B, T, Hkv, D, generator=gen, device=dev).to(dtype)
+    rep = Hq // Hkv
     kr, vr = k.repeat_interleave(rep, 2), v.repeat_interleave(rep, 2)
-    dropped = scaled_err(got, twin_dropping_keys(q, kr, vr, 2048, 2112))
-    del kr, vr
-    heads = scaled_err(got, ref.flash_attention_ref(
-        q, k.repeat(1, 1, rep, 1), v.repeat(1, 1, rep, 1), causal=True))
-    return {"dropped_tile": dropped, "wrong_heads": heads}
+    got = fa.flash_attention(q, k, v, causal=causal)
+    want = k6_twin(q, kr, vr, causal, by_rows)
+    torch.cuda.synchronize()
+    err = float((got.float() - want.float()).abs().max())
+    scaled = scaled_err(got, want)
+    if dtype == torch.float32:
+        ok = torch.allclose(got, want, rtol=2e-5, atol=2e-5)
+    else:
+        ok = scaled <= K6_BF16_TOL and (bf16_allclose is None or (
+            torch.allclose(got.float(), want.float(), rtol=bf16_allclose,
+                           atol=bf16_allclose)))
+    del want
+    torch.cuda.empty_cache()
+    planted = k6_planted_faults(q, k, v, got, faults)
+    del got
+    torch.cuda.empty_cache()
+    ms = cuda_ms(lambda: fa.flash_attention(q, k, v, causal=causal), 10)
+    plain_ms = cuda_ms(lambda: k6_twin(q, kr, vr, causal, by_rows), 3)
+    qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+    # SDPA's is_causal aligns the diagonal top-left; a suffix of the keys
+    # (S < T) needs the mask written out
+    mask = (torch.ones(S, T, dtype=torch.bool, device=dev).tril(T - S)
+            if causal and S != T else None)
+    library_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
+        qt, kt, vt, attn_mask=mask, is_causal=causal and mask is None,
+        enable_gqa=True), 10)
+    bound_ms, bound_by = attention_bound(B, S, T, Hq, Hkv, D, causal, dtype)
+    extra = ({} if bf16_allclose is None or dtype == torch.float32
+             else {"allclose_at": bf16_allclose})
+    say(phase, case=label, shape=f"B{B}_S{S}_T{T}_Hq{Hq}_Hkv{Hkv}_D{D}",
+        causal=causal, dtype=str(dtype).split(".")[-1],
+        max_abs_err=f"{err:.3e}", scaled_err=f"{scaled:.3e}", **extra,
+        within_tol=ok, ms=f"{ms:.4f}",
+        plain_ms=f"{plain_ms:.4f}", library_ms=f"{library_ms:.4f}",
+        bound_ms=f"{bound_ms:.4f}", bound_by=bound_by,
+        of_bound=f"{bound_ms / ms:.3f}",
+        **{f"planted_{k}_scaled_err": f"{x:.3e}"
+           for k, x in planted.items()})
+    if not ok:
+        raise AssertionError(f"K6 differs from its twin at {label}: "
+                             f"max abs err {err}, scaled {scaled}")
+    missed = [k for k, x in planted.items() if not x > K6_BF16_TOL]
+    if missed or len(planted) != len(faults):
+        raise AssertionError(f"the K6 check cannot see the planted "
+                             f"faults {missed}: {planted}")
+    del q, k, v, kr, vr, qt, kt, vt, mask
+    torch.cuda.empty_cache()
+    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by,
+            "library_ms": library_ms}
 
 
 def check_k6(dev) -> dict:
-    """Phase 7: K6 against its twin (f32 by ``allclose`` at 2e-5, bf16 by
-    ``scaled_err`` within ``K6_BF16_TOL``, which two planted faults at the
-    serving shape must exceed); times beside the bound and one
-    ``scaled_dot_product_attention`` call; then the kernel alone at
-    prefill_32k's sequence length.  Returns the serving shape's row."""
+    """Phase 7: K6 against its twin (``k6_case``; two planted faults at
+    the serving shape); then the kernel alone at prefill_32k's sequence
+    length.  Returns the serving shape's row."""
     gen = torch.Generator(device=dev).manual_seed(0)
     cases = [  # (label, B, S, T, Hq, Hkv, D, causal, dtype)
         ("serving_prefill", LM_BATCH, LM_PROMPT, LM_PROMPT, 15, 5, 64, True,
@@ -2431,72 +2567,28 @@ def check_k6(dev) -> dict:
         ("causal_d32", 2, 2048, 2048, 6, 2, 32, True, torch.bfloat16),
         ("suffix_1000_of_4097", 1, 1000, LM_PROMPT + 1, 15, 5, 64, True,
          torch.bfloat16),
+        # flash_f32_kernel<16>: main_lm's prefill of the reduced
+        # Granite-20B (8:1) and Qwen3-MoE (8:2) configs, then a long one
+        *((f"main_lm_{name}_f32_d16", *MAIN_LM_SHAPE, 8, kv, 16, True,
+           torch.float32) for name, kv in (("granite", 1), ("qwen3", 2))),
+        ("long_f32_d16", LM_BATCH, LM_PROMPT, LM_PROMPT, 8, 2, 16, True,
+         torch.float32),
     ]
     config = build.function("flash_attention", "fa_bf16_config",
                             (ctypes.c_int, ctypes.POINTER(ctypes.c_int)))
-    for D in fa.HEAD_DIMS:
+    for D in fa.HEAD_DIMS[torch.bfloat16]:
         got = (ctypes.c_int * 4)()
         if config(D, got) != 0:
             raise AssertionError(f"fa_bf16_config({D}) failed")
         say("k6", config=f"bf16_D{D}", stages=got[0], block_rows=got[1],
             block_keys=got[2], dynamic_smem_bytes=got[3])
     row = None
-    for label, B, S, T, Hq, Hkv, D, causal, dtype in cases:
-        q = torch.randn(B, S, Hq, D, generator=gen, device=dev).to(dtype)
-        k = torch.randn(B, T, Hkv, D, generator=gen, device=dev).to(dtype)
-        v = torch.randn(B, T, Hkv, D, generator=gen, device=dev).to(dtype)
-        rep = Hq // Hkv
-        kr, vr = k.repeat_interleave(rep, 2), v.repeat_interleave(rep, 2)
-        got = fa.flash_attention(q, k, v, causal=causal)
-        want = ref.flash_attention_ref(q, kr, vr, causal=causal)
-        torch.cuda.synchronize()
-        err = float((got.float() - want.float()).abs().max())
-        scaled = scaled_err(got, want)
-        if dtype == torch.float32:
-            ok = torch.allclose(got, want, rtol=2e-5, atol=2e-5)
-        else:
-            ok = scaled <= K6_BF16_TOL
-        del want
-        torch.cuda.empty_cache()
-        faults = (k6_planted_faults(q, k, v, got)
-                  if label == "serving_prefill" else {})
-        del got
-        torch.cuda.empty_cache()
-        ms = cuda_ms(lambda: fa.flash_attention(q, k, v, causal=causal), 10)
-        plain_ms = cuda_ms(lambda: ref.flash_attention_ref(
-            q, kr, vr, causal=causal), 3)
-        qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
-        # SDPA's is_causal aligns the diagonal top-left; a suffix of the
-        # keys (S < T) needs the mask written out
-        mask = (torch.ones(S, T, dtype=torch.bool, device=dev).tril(T - S)
-                if causal and S != T else None)
-        library_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
-            qt, kt, vt, attn_mask=mask, is_causal=causal and mask is None,
-            enable_gqa=True), 10)
-        bound_ms, bound_by = attention_bound(B, S, T, Hq, Hkv, D, causal,
-                                             dtype)
-        say("k6", case=label, shape=f"B{B}_S{S}_T{T}_Hq{Hq}_Hkv{Hkv}_D{D}",
-            causal=causal, dtype=str(dtype).split(".")[-1],
-            max_abs_err=f"{err:.3e}", scaled_err=f"{scaled:.3e}",
-            within_tol=ok, ms=f"{ms:.4f}",
-            plain_ms=f"{plain_ms:.4f}", library_ms=f"{library_ms:.4f}",
-            bound_ms=f"{bound_ms:.4f}", bound_by=bound_by,
-            of_bound=f"{bound_ms / ms:.3f}",
-            **{f"planted_{k}_scaled_err": f"{x:.3e}"
-               for k, x in faults.items()})
-        if not ok:
-            raise AssertionError(f"K6 differs from its twin at {label}: "
-                                 f"max abs err {err}, scaled {scaled}")
-        missed = [k for k, x in faults.items() if not x > K6_BF16_TOL]
-        if missed:
-            raise AssertionError(f"the K6 check cannot see the planted "
-                                 f"faults {missed}: {faults}")
-        if label == "serving_prefill":
-            row = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-                   "bound_ms": bound_ms, "bound_by": bound_by,
-                   "library_ms": library_ms}
-        del q, k, v, kr, vr, qt, kt, vt, mask
-        torch.cuda.empty_cache()
+    for case in cases:
+        faults = (("dropped_tile", "wrong_heads")
+                  if case[0] == "serving_prefill" else ())
+        got = k6_case(gen, dev, *case, faults=faults)
+        if case[0] == "serving_prefill":
+            row = got
     # the kernel alone at prefill_32k's sequence (its twin's scores would
     # be 64 GB at the cell's batch; one sequence is timed)
     S = lm_shapes(True)["prefill_32k"].seq_len
@@ -3704,11 +3796,18 @@ def moe_profile(step: str, eager_fn, replay_fn) -> None:
               flush=True)
 
 
-def check_moe_slice(dev, smi: str) -> dict:
-    """Phase 12 (c) and (e): Qwen1.5-MoE-A2.7B at full width and depth
-    served at phase 9's shape, fused and eager, then profiled.  Returns
-    the launch counts of its path: K6's is the prefill graph's."""
-    cfg = get_config(MOE_ARCH).model
+def serve_full_width(dev, smi: str, cfg, phase: str, serve_phase: str,
+                     **fields) -> tuple:
+    """Phases 12 (c) and 16 (e): ``cfg`` at full width and depth, seeded
+    weights drawn on the card (each matrix in f32 from a CUDA generator,
+    then cast: no f32 copy of the model is ever held), served at phase
+    9's shape.  Every counter is set to 0 before the first fused serve
+    and read after and around each recording (K6 once a layer in the
+    prefill graph, none in the decode graph, one capture); then three
+    fused and three eager serves with the same ids, and the first three
+    decode replays against eager ``decode_step``s.  ``fields`` go on the
+    first line.  Returns (params, programs, the prompts on the card, the
+    serve's launch counts with K6's the prefill graph's)."""
     t = time.perf_counter()
     params = tr.init_lm_params(torch.Generator(device=dev).manual_seed(0), cfg)
     torch.cuda.synchronize()
@@ -3721,11 +3820,9 @@ def check_moe_slice(dev, smi: str) -> dict:
         cfg, params, prompts, dev)
     peak = torch.cuda.max_memory_allocated()
     cache = sum(x.numel() * x.element_size() for x in programs.cache[:2])
-    say("moe-slice", check="serve", config=cfg.name, layers=cfg.n_layers,
+    say(phase, check="serve", config=cfg.name, layers=cfg.n_layers,
         d_model=cfg.d_model, heads=f"{cfg.n_heads}/{cfg.n_kv_heads}",
-        head_dim=cfg.head_dim, experts=cfg.moe.n_experts,
-        top_k=cfg.moe.top_k, shared=cfg.moe.n_shared,
-        params=cfg.param_count(), active_params=cfg.active_param_count(),
+        head_dim=cfg.head_dim, **fields, params=cfg.param_count(),
         weights_gib=f"{weights / 2**30:.3f}",
         kv_cache_gib=f"{cache / 2**30:.3f}", dtype="bfloat16",
         batch=LM_BATCH, prompt=LM_PROMPT, gen=LM_GEN, fused=True,
@@ -3747,13 +3844,14 @@ def check_moe_slice(dev, smi: str) -> dict:
             or rec_prefill != want_prefill or rec_decode != want_decode
             or counts != want_serve):
         raise AssertionError(
-            f"MoE serving ran {res.ids.shape}, {res.captures} captures, "
-            f"recorded {rec_prefill} / {rec_decode}, launches {counts}; "
-            f"expected {want_prefill} / {want_decode}, {want_serve}")
+            f"{cfg.name} serving ran {res.ids.shape}, {res.captures} "
+            f"captures, recorded {rec_prefill} / {rec_decode}, launches "
+            f"{counts}; expected {want_prefill} / {want_decode}, "
+            f"{want_serve}")
 
     serve_lm(cfg, prompts, 2, dev, params=params, fused=False)   # warm-up
     fused, eager = serve_both_modes(cfg, params, prompts, dev, programs, smi,
-                                    phase="moe-serve")
+                                    phase=serve_phase)
     same_ids = all(np.array_equal(r.ids, eager[0].ids)
                    for r in (res, *fused, *eager))
     last = float((fused[0].logits.float() - eager[0].logits.float())
@@ -3761,22 +3859,33 @@ def check_moe_slice(dev, smi: str) -> dict:
     tokens = torch.from_numpy(prompts).to(dev)
     diffs, same_tokens = decode_replays_vs_eager(params, cfg, programs,
                                                  tokens)
-    say("moe-slice", check="fused_vs_eager", ids_equal=same_ids,
+    say(phase, check="fused_vs_eager", config=cfg.name, ids_equal=same_ids,
         last_logits_max_abs_diff=f"{last:.3e}",
         decode_replays_vs_eager_decode_step_max_abs_diff=
         "/".join(f"{d:.3e}" for d in diffs),
         decode_replay_tokens_equal=same_tokens)
     if not (same_ids and same_tokens):
-        raise AssertionError("the fused MoE serve's ids differ from the "
-                             "eager loop's")
-    del fused, eager
+        raise AssertionError(f"the fused {cfg.name} serve's ids differ from "
+                             f"the eager loop's")
+    return (params, programs, tokens,
+            dict(counts, flash_attention=rec_prefill["flash_attention"]))
 
+
+def check_moe_slice(dev, smi: str) -> dict:
+    """Phase 12 (c) and (e): Qwen1.5-MoE-A2.7B at full width and depth
+    served at phase 9's shape, fused and eager, then profiled.  Returns
+    the launch counts of its path: K6's is the prefill graph's."""
+    cfg = get_config(MOE_ARCH).model
+    params, programs, tokens, counts = serve_full_width(
+        dev, smi, cfg, "moe-slice", "moe-serve", experts=cfg.moe.n_experts,
+        top_k=cfg.moe.top_k, shared=cfg.moe.n_shared,
+        active_params=cfg.active_param_count())
     programs.load(tokens)
     moe_profile("prefill", programs._prefill_body, programs.prefill)
     moe_profile("decode", programs._decode_body, programs.decode)
     del programs, params
     torch.cuda.empty_cache()
-    return dict(counts, flash_attention=rec_prefill["flash_attention"])
+    return counts
 
 
 def greedy_logits(params, cfg, tokens, steps: int):
@@ -3877,18 +3986,24 @@ def check_moe_depth2(dev) -> None:
                              "the card and the CPU")
 
 
+def require_drained(phase: str, number: int) -> None:
+    """Empty the allocator's cache and fail unless under 1 GiB is still
+    allocated on the card: phase ``number`` starts on a drained card."""
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    allocated = torch.cuda.memory_allocated()
+    say(phase, check="start", allocated_bytes=allocated,
+        allocated_gib=f"{allocated / 2**30:.3f}")
+    if allocated >= 2**30:
+        raise AssertionError(f"phase {number} starts with {allocated} bytes "
+                             f"allocated on the card")
+
+
 def check_moe(dev, smi: str) -> dict:
     """Phase 12 (module docstring).  Returns the launch counts of the MoE
     serving path."""
     t0 = time.perf_counter()
-    torch.cuda.synchronize()
-    torch.cuda.empty_cache()
-    allocated = torch.cuda.memory_allocated()
-    say("moe-slice", check="start", allocated_bytes=allocated,
-        allocated_gib=f"{allocated / 2**30:.3f}")
-    if allocated >= 2**30:
-        raise AssertionError(f"phase 12 starts with {allocated} bytes "
-                             f"allocated on the card")
+    require_drained("moe-slice", 12)
     check_lm_parity(dev, MOE_ARCH, "moe-parity")
     check_moe_layer(dev)
     counts = check_moe_slice(dev, smi)
@@ -4201,14 +4316,7 @@ def check_gnn(dev, smi: str) -> None:
     counter set to 0 before and read after; no kernel of the port may
     launch."""
     t0 = time.perf_counter()
-    torch.cuda.synchronize()
-    torch.cuda.empty_cache()
-    allocated = torch.cuda.memory_allocated()
-    say("gnn", check="start", allocated_bytes=allocated,
-        allocated_gib=f"{allocated / 2**30:.3f}")
-    if allocated >= 2**30:
-        raise AssertionError(f"phase 13 starts with {allocated} bytes "
-                             f"allocated on the card")
+    require_drained("gnn", 13)
     reset_counts()
     check_gnn_parity(dev)
     check_gnn_full(dev, smi)
@@ -4598,14 +4706,7 @@ def check_recsys(dev, smi: str) -> None:
     counter set to 0 before and read after; no kernel of the port may
     launch."""
     t0 = time.perf_counter()
-    torch.cuda.synchronize()
-    torch.cuda.empty_cache()
-    allocated = torch.cuda.memory_allocated()
-    say("recsys", check="start", allocated_bytes=allocated,
-        allocated_gib=f"{allocated / 2**30:.3f}")
-    if allocated >= 2**30:
-        raise AssertionError(f"phase 14 starts with {allocated} bytes "
-                             f"allocated on the card")
+    require_drained("recsys", 14)
     reset_counts()
     check_recsys_parity(dev)
     arch = get_config(REC_ARCH)
@@ -4980,14 +5081,7 @@ def check_nequip(dev, smi: str) -> None:
     counter set to 0 before and read after; no kernel of the port may
     launch."""
     t0 = time.perf_counter()
-    torch.cuda.synchronize()
-    torch.cuda.empty_cache()
-    allocated = torch.cuda.memory_allocated()
-    say("nequip", check="start", allocated_bytes=allocated,
-        allocated_gib=f"{allocated / 2**30:.3f}")
-    if allocated >= 2**30:
-        raise AssertionError(f"phase 15 starts with {allocated} bytes "
-                             f"allocated on the card")
+    require_drained("nequip", 15)
     reset_counts()
     check_nequip_parity(dev)
     arch = get_config(NEQ_ARCH)
@@ -5011,12 +5105,157 @@ def check_nequip(dev, smi: str) -> None:
     torch.cuda.empty_cache()
 
 
+# ------------------------------------------------------------ phase 16 --
+
+def check_code_reduced(dev) -> None:
+    """Phase 16 (a): each reduced code LM, and the reduced Qwen3-MoE, as
+    phase 8 (K6 in f32 at head width 32, 16 and 16); then ``main_lm``,
+    the reference's entry point, on the card and on the CPU for each:
+    the same ids, and K6 launched twice a layer on the card (the
+    programs' warm-up and recording)."""
+    for arch in REDUCED_K6_ARCHS:
+        check_lm_parity(dev, arch, "code-parity")
+    for arch in REDUCED_K6_ARCHS:
+        layers = get_config(arch, reduced=True).model.n_layers
+        reset_counts()
+        card = serve.main_lm(["--arch", arch])
+        counts = read_counts()
+        cpu = serve.main_lm(["--arch", arch, "--device", "cpu"])
+        same = np.array_equal(card, cpu)
+        say("code-parity", check="main_lm", arch=arch,
+            ids_shape="x".join(map(str, card.shape)), ids_equal_cpu=same,
+            launches=_compact(counts))
+        if not same or counts != dict({n: 0 for n in KERNELS},
+                                      flash_attention=2 * layers):
+            raise AssertionError(f"main_lm --arch {arch} on the card: ids "
+                                 f"equal {same}, launches {counts}")
+
+
+def check_code_depth2(dev, arch: str) -> None:
+    """Phase 16 (b): ``arch`` at full width cut to 2 layers in f32, one
+    set of seeded weights on the card and on the CPU, B 1, P 128 and 4
+    greedy decode steps: every step's logits ``allclose`` at
+    CODE_F32_TOL and the ids equal; K6 launched once a layer on the
+    card."""
+    d2 = CODE_DEPTH2
+    cfg = dataclasses.replace(get_config(arch).model, n_layers=d2["layers"],
+                              dtype=torch.float32)
+    params = tr.init_lm_params(torch.Generator(device=dev).manual_seed(3),
+                               cfg)
+    tokens = torch.from_numpy(np.random.default_rng(3).integers(
+        0, cfg.vocab, (d2["batch"], d2["prompt"])).astype(np.int32))
+    t = time.perf_counter()
+    reset_counts()
+    lc, ic = greedy_logits(params, cfg, tokens.to(dev), d2["steps"])
+    counts = read_counts()
+    card_s = time.perf_counter() - t
+    params = _to(params, "cpu")
+    torch.cuda.empty_cache()
+    t = time.perf_counter()
+    lp, ip = greedy_logits(params, cfg, tokens, d2["steps"])
+    cpu_s = time.perf_counter() - t
+    errs = [float((a - b).abs().max()) for a, b in zip(lc, lp)]
+    ok = all(torch.allclose(a, b, rtol=CODE_F32_TOL, atol=CODE_F32_TOL)
+             for a, b in zip(lc, lp))
+    same = torch.equal(ic, ip)
+    say("code-parity", check="card_vs_cpu_2_layers", config=cfg.name,
+        dtype="float32", layers=cfg.n_layers,
+        heads=f"{cfg.n_heads}/{cfg.n_kv_heads}", head_dim=cfg.head_dim,
+        batch=d2["batch"], prompt=d2["prompt"], decode_steps=d2["steps"],
+        logits_max_abs_err="/".join(f"{e:.3e}" for e in errs),
+        max_abs_logit=f"{float(lp[0].abs().max()):.3f}",
+        logits_allclose=ok, ids_equal=same, launches=_compact(counts),
+        card_s=f"{card_s:.3f}", cpu_s=f"{cpu_s:.3f}")
+    if not (ok and same and counts["flash_attention"] == cfg.n_layers):
+        raise AssertionError(f"the 2-layer full-width {arch} differs "
+                             f"between the card and the CPU ({counts})")
+
+
+def check_code_slice(dev, smi: str, arch: str) -> dict:
+    """Phase 16 (e): ``arch`` at full width and depth served at phase 9's
+    shape (``serve_full_width``), the decode and prefill bounds beside
+    the measured times, one prefill and one decode replay profiled, the
+    peak allocated and reserved memory; the card drained before and
+    after.  Returns the serve's launch counts."""
+    require_drained("code-slice", 16)
+    cfg = get_config(arch).model
+    params, programs, tokens, counts = serve_full_width(
+        dev, smi, cfg, "code-slice", "code-serve",
+        grouping=f"{cfg.n_heads // cfg.n_kv_heads}:1",
+        rope_theta=cfg.rope_theta)
+    programs.load(tokens)
+    reset_counts()
+    splits = {"prefill_replay": _profile_split(programs.prefill),
+              "decode_replay": _profile_split(programs.decode)}
+    replay_counts = read_counts()
+    for step, split in splits.items():
+        say("code-profile", config=cfg.name, step=step, batch=LM_BATCH,
+            prompt=LM_PROMPT, **_fmt(split))
+    if any(replay_counts.values()):
+        raise AssertionError(f"a replay launched {replay_counts}")
+    # least times: a decode step reads every weight but the embedding
+    # (rows gathered) and the whole cache once; a prefill does 2
+    # operations a layer weight a token, and K6's attention
+    nbytes = [x.numel() * x.element_size()
+              for x in (*tree_leaves(params), *programs.cache[:2])]
+    embed = params["embed"].numel() * params["embed"].element_size()
+    decode_bound_ms = (sum(nbytes) - embed) / HBM_BYTES_PER_S * 1e3
+    layer_params = sum(x.numel() for x in tree_leaves(params["layers"]))
+    attn_ms = cfg.n_layers * attention_bound(
+        LM_BATCH, LM_PROMPT, LM_PROMPT, cfg.n_heads, cfg.n_kv_heads,
+        cfg.head_dim, True, torch.bfloat16)[0]
+    prefill_bound_s = (2 * layer_params * LM_BATCH * LM_PROMPT
+                       / PEAK_FLOPS[torch.bfloat16] + attn_ms / 1e3)
+    say("code-slice", check="bounds", config=cfg.name,
+        decode_bound_ms=f"{decode_bound_ms:.3f}",
+        decode_bound_tok_s=f"{LM_BATCH / decode_bound_ms * 1e3:.1f}",
+        decode_replay_busy_ms=f"{splits['decode_replay']['busy_ms']:.3f}",
+        prefill_bound_s=f"{prefill_bound_s:.4f}",
+        prefill_replay_busy_ms=f"{splits['prefill_replay']['busy_ms']:.3f}",
+        reserved_gib=f"{torch.cuda.memory_reserved() / 2**30:.3f}",
+        smi=f"'{smi}'")
+    del programs, params, tokens
+    torch.cuda.empty_cache()
+    return counts
+
+
+def check_code_lms(dev, smi: str) -> dict:
+    """Phase 16 (module docstring).  Returns each code LM's K6 row at its
+    prefill shape and its serve's launch counts."""
+    t0 = time.perf_counter()
+    require_drained("code-slice", 16)
+    check_code_reduced(dev)
+    for arch in CODE_ARCHS:
+        check_code_depth2(dev, arch)
+    gen = torch.Generator(device=dev).manual_seed(16)
+    rows, counts = {}, {}
+    for arch in CODE_ARCHS:
+        cfg = get_config(arch).model
+        faults = (("dropped_tile", "wrong_heads") if cfg.n_kv_heads > 1
+                  else ("dropped_tile",))
+        rows[arch] = k6_case(
+            gen, dev, f"{arch}_prefill", LM_BATCH, LM_PROMPT, LM_PROMPT,
+            cfg.n_heads, cfg.n_kv_heads, cfg.head_dim, True, torch.bfloat16,
+            faults=faults, by_rows=True, bf16_allclose=CODE_K6_BF16,
+            phase="code-k6")
+    for arch in CODE_ARCHS:
+        counts[arch] = check_code_slice(dev, smi, arch)
+    say("code-slice", seconds=f"{time.perf_counter() - t0:.3f}",
+        launches=_compact(counts))
+    return {"k6": rows, "launches": counts}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--scale", type=int, default=20,
                     help="RMAT scale of the main-path graph (default 20; "
                          "cut it, never the partitions, for a quick check)")
     args = ap.parse_args(argv)
+    t_start = time.perf_counter()
+
+    def phase_done(phase: str) -> None:
+        say("timing", after_phase=phase,
+            elapsed_s=f"{time.perf_counter() - t_start:.1f}")
 
     # ---- 1. device ----
     if not torch.cuda.is_available():
@@ -5044,11 +5283,13 @@ def main(argv=None) -> int:
                 kernel = entry_name(line)
             elif "registers" in line or "spill" in line or "C75" in line:
                 say("build", kernel=kernel, ptxas=f"'{line.strip()}'")
+    phase_done("2")
 
     # ---- 3. kernels against their twins at the main path's width ----
     rounds = p3.sharded_phase3_schedule(N_MAIN // 2, PARTS)["doubling_rounds"]
     table = check_kernels(dev, rounds)
     table["loop_condition"] = check_loop_condition(dev, (16, 54))
+    phase_done("3")
 
     # ---- 4. small parity: cuda against cpu, every Phase 3 mode ----
     g = eulerian_rmat(8, avg_degree=AVG_DEGREE, seed=SEED)
@@ -5064,6 +5305,7 @@ def main(argv=None) -> int:
                 device=device, byte_identical=same)
             if not same:
                 raise AssertionError(f"{mode} solve on {device} differs")
+    phase_done("4")
 
     # ---- 5. the main path: sharded (the default), then replicated ----
     t = time.perf_counter()
@@ -5108,6 +5350,7 @@ def main(argv=None) -> int:
         raise AssertionError("sharded and replicated solves differ")
     del res
     torch.cuda.empty_cache()
+    phase_done("5")
 
     # ---- 5b. the fused run: one recorded graph per bucket (5c's repeat
     # solve and 5d's pipelined pair at the main scale run in its sharded
@@ -5116,52 +5359,71 @@ def main(argv=None) -> int:
                                              loop_rounds)
     del results, g
     torch.cuda.empty_cache()
+    phase_done("5b")
 
     # ---- 5c. the session: solve_many, two live graphs, evictions ----
     check_session()
+    phase_done("5c")
 
     # ---- 5d. asynchronous solves: in flight, out of order, evicted ----
     check_async_small()
+    phase_done("5d")
 
     # ---- 5e. batched solves: one program per (bucket, B) ----
     check_batch(dev)
     check_batch_large(args.scale - 1, smi)
+    phase_done("5e")
 
     # ---- 5f. the reference's host engine beside the device solve ----
     check_host(args.scale - 4, smi)
+    phase_done("5f")
 
     # ---- 5g. the Euler serving loop and the program byte budget ----
     check_serve(args.scale, smi)
+    phase_done("5g")
 
     # ---- 6–7. K5 and K6 against their twins, timed ----
     table["segment_sum_sorted"] = check_k5(dev)
     table["flash_attention"] = check_k6(dev)
+    phase_done("6–7")
 
     # ---- 8. small LM parity: cuda against cpu ----
     check_lm_parity(dev)
+    phase_done("8")
 
     # ---- 9. the LM serving path at full width ----
     counts = check_lm_slice(dev, smi)
     launches["segment_sum_sorted"] = counts["segment_sum_sorted"]
     launches["flash_attention"] = counts["flash_attention"]
+    phase_done("9")
 
     # ---- 10. the program audit, planted faults, the first-record charge
     check_audit(smi)
+    phase_done("10")
 
     # ---- 11. the LM trainer: parity, the entry point, throughput ----
     check_train(dev, smi)
+    phase_done("11")
 
     # ---- 12. the MoE LM: parity, one layer, the slice, 2 layers in f32 --
     check_moe(dev, smi)
+    phase_done("12")
 
     # ---- 13. the GNN family: parity, Cora at full width, sampled blocks --
     check_gnn(dev, smi)
+    phase_done("13")
 
     # ---- 14. AutoInt: parity, train, serve and retrieve at full config --
     check_recsys(dev, smi)
+    phase_done("14")
 
     # ---- 15. NequIP: parity, the symmetry, the cells at full size ----
     check_nequip(dev, smi)
+    phase_done("15")
+
+    # ---- 16. the code LMs: reduced and 2-layer parity, K6, full width --
+    check_code_lms(dev, smi)
+    phase_done("16")
 
     print(json.dumps({"kernels": [
         {"name": name, **KERNELS[name], "launches": launches[name],

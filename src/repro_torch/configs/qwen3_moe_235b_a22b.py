@@ -4,8 +4,8 @@
 The reference's ``moe_shard_map=True`` (expert parallelism over a mesh)
 is left out with the rest of the mesh (ROADMAP queue 1 item 9): the full
 config is 470 GB in bf16 and stays abstract on one card.  The reduced
-config's head width, 16, is not one of K6's, so it serves on the CPU
-only."""
+config's head width, 16, is one K6 takes in f32 (its f32
+instantiation), so it serves on the card and on the CPU."""
 import torch
 
 from ..models.moe import MoEConfig

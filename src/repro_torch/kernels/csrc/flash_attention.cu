@@ -12,7 +12,8 @@
 // suffix of the keys).  q and o are [B, S, Hq, D], k and v [B, T, Hkv, D],
 // all contiguous: neither the head repeat nor a transpose is ever
 // materialised.  Any S and T (T >= S when causal; T >= 1 in bf16); D is
-// a template over {32, 64, 128}.
+// a template over {32, 64, 128}, and in f32 also 16 (the reduced
+// configurations' head width).
 //
 // Numerics, as the reference: scores in f32, scaled after the dot,
 // masked with -1e30; the running (max, sum, acc) in f32; p rounded to
@@ -72,11 +73,12 @@
 // launches on the given stream, allocates nothing, does not synchronise,
 // and returns cudaGetLastError().
 //
-// f32, which only the checks and the reduced configuration use, runs the
-// same online softmax on CUDA-core FMAs (tensor cores would round the
+// f32, which only the checks and the reduced configurations use, runs
+// the same online softmax on CUDA-core FMAs (tensor cores would round the
 // inputs to TF32): four threads share a query row, each holding a
-// quarter of its q and accumulator as float4s, over 32-key tiles with
-// synchronous loads.
+// quarter of its q and accumulator as float4s (D / 16 of them: one at
+// D 16, so the four threads hold float4s 0-3 of the row, and a tile row
+// of ks/vs is those four), over 32-key tiles with synchronous loads.
 
 #include <cuda.h>  // CUtensorMap and its enums (types only: no -lcuda)
 #include <cuda_bf16.h>
@@ -837,16 +839,22 @@ cudaError_t launch_bf16(const void* q, const void* k, const void* v, void* o,
 }
 
 template <int D>
-cudaError_t launch(const void* q, const void* k, const void* v, void* o,
-                   int batch, const Shape& sh, int dtype,
-                   cudaStream_t stream) {
-  if (dtype == 2) return launch_bf16<D>(q, k, v, o, batch, sh, stream);
-  if (dtype != 0) return cudaErrorInvalidValue;
+cudaError_t launch_f32(const void* q, const void* k, const void* v, void* o,
+                       int batch, const Shape& sh, cudaStream_t stream) {
   const dim3 grid((sh.S + kRows32 - 1) / kRows32, sh.Hq, batch);
   flash_f32_kernel<D><<<grid, kThreads, 0, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
       static_cast<const float*>(v), static_cast<float*>(o), sh);
   return cudaGetLastError();
+}
+
+template <int D>
+cudaError_t launch(const void* q, const void* k, const void* v, void* o,
+                   int batch, const Shape& sh, int dtype,
+                   cudaStream_t stream) {
+  if (dtype == 2) return launch_bf16<D>(q, k, v, o, batch, sh, stream);
+  if (dtype != 0) return cudaErrorInvalidValue;
+  return launch_f32<D>(q, k, v, o, batch, sh, stream);
 }
 
 template <int D>
@@ -863,8 +871,8 @@ void bf16_config(int* out) {
 extern "C" {
 
 // dtype: 0 = f32, 2 = bf16.  Needs B, S, T, Hkv >= 1, Hq a multiple of
-// Hkv, T >= S when causal, D in {32, 64, 128}, every pointer 16-byte
-// aligned; bf16 also needs B and ceil(S / 128) <= 65535.
+// Hkv, T >= S when causal, D in {32, 64, 128} (f32 also 16), every
+// pointer 16-byte aligned; bf16 also needs B and ceil(S / 128) <= 65535.
 int fa_flash_attention(const void* q, const void* k, const void* v, void* o,
                        int batch, int s, int t, int hq, int hkv, int d,
                        int causal, int dtype, void* stream) {
@@ -872,6 +880,9 @@ int fa_flash_attention(const void* q, const void* k, const void* v, void* o,
                  1.0f / sqrtf(static_cast<float>(d))};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (d) {
+    case 16:  // f32 only: a 32-byte bf16 row needs a TMA swizzle of its own
+      return dtype == 0 ? launch_f32<16>(q, k, v, o, batch, sh, st)
+                        : static_cast<int>(cudaErrorInvalidValue);
     case 32:
       return launch<32>(q, k, v, o, batch, sh, dtype, st);
     case 64:

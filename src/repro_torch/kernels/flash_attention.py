@@ -5,8 +5,8 @@
 [B, T, Hkv, D] with Hq a multiple of Hkv (grouped-query attention: query
 head h reads KV head ``h // (Hq // Hkv)``) and returns [B, S, Hq, D] in
 q's dtype.  Causal with S < T treats the queries as the suffix of the
-keys (offset T − S).  f32 or bf16, D ∈ {32, 64, 128}, any S and T
-(T ≥ S when causal).
+keys (offset T − S).  f32 with D ∈ {16, 32, 64, 128} or bf16 with
+D ∈ {32, 64, 128} (``HEAD_DIMS``), any S and T (T ≥ S when causal).
 
 The kernel lives in ``csrc/flash_attention.cu`` (design and bound in its
 header comment), is built by :mod:`.build` at first use and called
@@ -31,8 +31,11 @@ from .ref import flash_attention_ref
 
 #: the kernel's dtype codes
 DTYPES = {torch.float32: 0, torch.bfloat16: 2}
-#: the head dims the kernel is instantiated for
-HEAD_DIMS = (32, 64, 128)
+#: the head dims the kernel is instantiated for, by dtype (f32 also
+#: takes the reduced configurations' 16; a bf16 row of 32 bytes would
+#: need a TMA swizzle of its own, and no bf16 configuration has it)
+HEAD_DIMS = {torch.float32: (16, 32, 64, 128),
+             torch.bfloat16: (32, 64, 128)}
 _ARGS = ((ctypes.c_void_p,) * 4 + (ctypes.c_int,) * 8
          + (ctypes.c_void_p,))
 #: the f32 grid's y (heads) and z (batch) limit (the bf16 kernel's grid
@@ -80,8 +83,9 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise ValueError(f"flash_attention: unsupported device {q.device}")
     B, S, Hq, D = q.shape
     T, Hkv = k.shape[1], k.shape[2]
-    if D not in HEAD_DIMS:
-        raise ValueError(f"flash_attention: head dim {D} not in {HEAD_DIMS}")
+    if D not in HEAD_DIMS[q.dtype]:
+        raise ValueError(f"flash_attention: head dim {D} not in "
+                         f"{HEAD_DIMS[q.dtype]} for {q.dtype}")
     for name, t in (("q", q), ("k", k), ("v", v)):
         if not t.is_contiguous() or t.data_ptr() % 16:
             raise ValueError(f"flash_attention: {name} must be contiguous "

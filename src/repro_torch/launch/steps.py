@@ -8,9 +8,10 @@ padded graph; NequIP's train on padded point clouds (``molecule`` on
 energies and forces, by a second-order gradient); the recsys arch's
 cells train, serve or retrieve.  The port runs on one device, so there
 is no mesh and no sharding: abstract inputs are ``meta`` tensors, and a
-``mesh`` raises (ROADMAP queue 1 item 9), as does the Euler family (item
-8).  Steps run eagerly; a train step updates the parameters and the
-optimizer state in place (the reference donates them).
+``mesh`` raises (ROADMAP queue 1 item 9), as does the Euler family (the
+same item: its cells take ``parallel/sharding.py``'s mesh specs).  Steps
+run eagerly; a train step updates the parameters and the optimizer
+state in place (the reference donates them).
 """
 from __future__ import annotations
 
@@ -334,5 +335,7 @@ def build_cell(arch: ArchConfig, shape_name: str, mesh=None) -> Cell:
                                   "waits for ROADMAP queue 1 item 9")
     if arch.family not in BUILDERS:
         raise NotImplementedError(f"{arch.family} cells are not ported yet "
-                                  f"(ROADMAP queue 1 item 8)")
+                                  f"(ROADMAP queue 1 item 9: the Euler "
+                                  f"cells need parallel/sharding.py's "
+                                  f"mesh specs)")
     return BUILDERS[arch.family](arch, cell)

@@ -423,12 +423,12 @@ def test_build_cell_refuses_the_other_families_and_a_mesh():
     with pytest.raises(NotImplementedError, match="item 9"):
         steps.build_cell(arch, "molecule", mesh=object())
     for family in ("euler",):
-        with pytest.raises(NotImplementedError, match="item 8"):
+        with pytest.raises(NotImplementedError, match="item 9"):
             steps.build_cell(dataclasses.replace(arch, family=family),
                              "molecule")
-    for arch_id in ("euler-rmat", "granite-20b"):
-        with pytest.raises(KeyError, match="item 8"):
-            registry.get_config(arch_id)
+    with pytest.raises(KeyError, match="item 9"):
+        registry.get_config("euler-rmat")
+    assert registry.get_config("granite-20b").family == "lm"
 
 
 # -------------------------------------------------------------- sampler --

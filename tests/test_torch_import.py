@@ -45,7 +45,9 @@ print(len(names))
                                     "repro_torch.kernels.ops",
                                     "repro_torch.configs.registry",
                                     "repro_torch.configs.qwen2_moe_a2_7b",
-                                    "repro_torch.configs.qwen3_moe_235b_a22b"])
+                                    "repro_torch.configs.qwen3_moe_235b_a22b",
+                                    "repro_torch.configs.starcoder2_7b",
+                                    "repro_torch.configs.granite_20b"])
 def test_serving_slice_imports_with_jax_blocked(module):
     """The serving slices' entry points (LM and Euler) stand alone, each
     imported first in a fresh process."""
@@ -65,7 +67,8 @@ assert not bad, bad
 
 @pytest.mark.parametrize("module", ["repro_torch.obs", "repro_torch.euler",
                                     "repro_torch.analysis",
-                                    "repro_torch.analysis.audit"])
+                                    "repro_torch.analysis.audit",
+                                    "repro_torch.core.makki"])
 def test_session_slice_imports_with_jax_blocked(module):
     """The solver session and its observability layer (the port's copy of
     ``repro/obs``, stdlib only) stand alone, each imported first in a

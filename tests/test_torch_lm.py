@@ -144,7 +144,8 @@ def test_params_from_numpy_keeps_bf16_bits():
 
 
 @pytest.mark.parametrize("arch", ["smollm-360m", "qwen2-moe-a2.7b",
-                                  "qwen3-moe-235b-a22b"])
+                                  "qwen3-moe-235b-a22b", "starcoder2-7b",
+                                  "granite-20b"])
 def test_configs_match_the_reference(arch):
     from repro.configs.registry import get_config as j_get
 
@@ -168,12 +169,15 @@ def test_configs_match_the_reference(arch):
         full = registry.get_config(arch).model
         assert (full.n_layers, full.d_model, full.head_dim) == (32, 960, 64)
         assert full.param_count() == 409_007_040
+    counts = {"starcoder2-7b": 10_116_960_768, "granite-20b": 28_167_493_632}
+    if arch in counts:
+        assert registry.get_config(arch).model.param_count() == counts[arch]
     assert registry.get_config(arch).shapes["prefill_32k"].seq_len == 32768
 
 
 def test_registry_and_config_refuse_what_is_not_ported():
     with pytest.raises(KeyError, match="ROADMAP"):
-        registry.get_config("starcoder2-7b")
+        registry.get_config("euler-rmat")
 
 
 # ----------------------------------------------------------- the slice --

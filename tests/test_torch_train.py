@@ -389,7 +389,7 @@ def test_build_cell_abstract_inputs_and_other_cells():
     with pytest.raises(NotImplementedError, match="item 9"):
         steps.build_cell(arch, "train_4k", mesh=object())
     euler = dataclasses.replace(arch, family="euler")
-    with pytest.raises(NotImplementedError, match="item 8"):
+    with pytest.raises(NotImplementedError, match="item 9"):
         steps.build_cell(euler, "train_4k")
 
 
