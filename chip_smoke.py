@@ -9,7 +9,8 @@
                                           # training, serving, retrieval,
                                           # NequIP training, full-width
                                           # StarCoder2-7B and Granite-20B
-                                          # serving
+                                          # serving, the engine over one
+                                          # NCCL rank
 
 Phases, each printed on its own line; any failure raises and the script
 exits non-zero:
@@ -512,6 +513,25 @@ exits non-zero:
                 embedding and the whole cache read once at 3.35 TB/s)
                 and the prefill bound (2 operations a layer weight a
                 token and K6's attention at 989 TFLOP/s).
+  17. mesh    — the engine across ranks (``launch/mesh.py``,
+                ``EulerSolver(mesh=…)``): one NCCL rank in this process
+                (a ``FileStore`` world of 1; NCCL refuses two ranks on
+                one card; ``NCCL_GRAPH_MIXING_SUPPORT=0`` set first, as
+                the mesh asks) holding all 8 partitions, the group
+                destroyed after its solvers are gone.  On the main path's graph, reusing phase 5b's
+                prepared graph: a fused sharded and a fused replicated
+                solve over the mesh, each cold (the launch counters and
+                the mesh's call counts set to 0 just before the
+                recording and read just after: the calls must equal
+                ``fused_collective_budget``'s, the K1–K4 and loop-test
+                launches the meshless recording's of phase 5b), then
+                replayed (nothing launched or called from Python); an
+                eager sharded solve (each level's logs gathered); each
+                byte-equal to phase 5's meshless solve, its times and
+                peak memory printed beside phase 5b's and phase 5's
+                meshless ones.  A ring planted to send to rank − 1 (at
+                world 1 the local rows roll the wrong way) must change
+                the bytes or fail the solve, eager and fused, at scale 8.
 
 After each phase from 2 on, a ``[timing]`` line gives the seconds since
 the start.  The last three lines are the kernel table as JSON, the
@@ -523,7 +543,9 @@ import argparse
 import contextlib
 import ctypes
 import dataclasses
+import datetime
 import json
+import os
 import re
 import runpy
 import shutil
@@ -543,6 +565,7 @@ sys.path.insert(0, str(ROOT / "src"))
 
 import numpy as np  # noqa: E402
 import torch  # noqa: E402
+import torch.distributed as dist  # noqa: E402
 import torch.nn.functional as F  # noqa: E402
 
 from repro_torch.analysis import audit_graph  # noqa: E402
@@ -555,7 +578,8 @@ from repro_torch.configs.registry import get_config  # noqa: E402
 from repro_torch.core import capture  # noqa: E402
 from repro_torch.core import phase1 as p1  # noqa: E402
 from repro_torch.core import phase3 as p3  # noqa: E402
-from repro_torch.core.engine import Engine, FusedRun  # noqa: E402
+from repro_torch.core.engine import (Engine, FusedRun,  # noqa: E402
+                                     fused_collective_budget)
 from repro_torch.core.graph import Graph  # noqa: E402
 from repro_torch.core.phase3 import circuit_from_mate_np  # noqa: E402
 from repro_torch.data.lm import SyntheticLM  # noqa: E402
@@ -575,6 +599,9 @@ from repro_torch.kernels import graph_loop  # noqa: E402
 from repro_torch.kernels import pointer_double as pd  # noqa: E402
 from repro_torch.kernels import segment_reduce as sr  # noqa: E402
 from repro_torch.launch import serve, steps, train  # noqa: E402
+from repro_torch.launch.mesh import (NCCL_GRAPH_MIXING,  # noqa: E402
+                                     PartMesh, expected_calls,
+                                     make_part_mesh)
 from repro_torch.launch.serve import LMPrograms, serve_lm  # noqa: E402
 from repro_torch.graphgen.sampler import NeighborSampler  # noqa: E402
 from repro_torch.models import gnn  # noqa: E402
@@ -1257,6 +1284,9 @@ def check_fused(scale: int, g, eager: dict, eager_rounds: dict) -> int:
         res.validate()
         report(res, solver, SEED, launches, recorded, peak, reserved,
                eager[sharded], eager_rounds[sharded])
+        MESHLESS_FUSED[sharded] = (dict(res.timings), peak, reserved,
+                                   recorded)
+        PREPARED[id(g)] = solver._prep_cache[id(g)]
         cold = res
         rounds = p3.sharded_phase3_schedule(
             g.num_edges + res.padded_edges, PARTS)["doubling_rounds"]
@@ -5244,6 +5274,201 @@ def check_code_lms(dev, smi: str) -> dict:
         launches=_compact(counts))
     return {"k6": rows, "launches": counts}
 
+#: phase 17: the engine across ranks, one NCCL rank holding all PARTS
+#: partitions (NCCL refuses two ranks on one card); the planted fault's
+#: graph scale
+MESH_FAULT_SCALE = 8
+#: phase 5b's cold fused solves at the main scale, by ``sharded_phase3``:
+#: ``(timings, peak allocated, peak reserved, launches recorded)``
+MESHLESS_FUSED: dict = {}
+#: phase 5b's prepared main-path graph (its prep-memo entry), which phase
+#: 17's solvers reuse instead of preparing the graph again
+PREPARED: dict = {}
+
+
+@contextlib.contextmanager
+def nccl_world():
+    """A world of one NCCL rank in this process (a ``FileStore`` in a
+    temporary directory), destroyed on leaving; NCCL's graph mixing off
+    before its first communicator, as ``launch/mesh.py`` asks."""
+    name, value = NCCL_GRAPH_MIXING
+    os.environ[name] = value
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_nccl_")
+    dist.init_process_group(
+        "nccl", store=dist.FileStore(str(Path(tmp) / "store"), 1), rank=0,
+        world_size=1, timeout=datetime.timedelta(seconds=300))
+    try:
+        yield
+    finally:
+        dist.destroy_process_group()
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def backwards_ring(self, x, dim=0):
+    """A planted fault: a ring step along i → i−1 (the first row to rank
+    − 1; at world 1 the local rows roll the wrong way)."""
+    self._count("ring", "all_to_all_single")
+    m = x.shape[dim]
+    first = x.narrow(dim, 0, 1).contiguous().reshape(-1)
+    got = torch.empty_like(first)
+    sends, recvs = [0] * self.world, [0] * self.world
+    sends[(self.rank - 1) % self.world] = first.numel()
+    recvs[(self.rank + 1) % self.world] = first.numel()
+    dist.all_to_all_single(got, first, recvs, sends, group=self.group)
+    shape = list(x.shape)
+    shape[dim] = 1
+    return torch.cat([x.narrow(dim, 1, m - 1), got.view(shape)], dim)
+
+
+def mesh_recorded(solver, g, mesh):
+    """A cold fused ``solver.solve(g)`` over ``mesh`` with the launch
+    counters and the mesh's call counts set to 0 just before the graph's
+    recording and read just after.  Returns ``(result, launches and
+    calls recorded, peak allocated, peak reserved)``."""
+    recorded = []
+    record = FusedRun._record
+
+    def counted(run):
+        reset_counts()
+        mesh.calls.clear()
+        record(run)
+        recorded.append((read_counts(), dict(mesh.calls)))
+    torch.cuda.reset_peak_memory_stats()
+    with mock.patch.object(FusedRun, "_record", counted):
+        res = solver.solve(g)
+    if len(recorded) != 1:
+        raise AssertionError(f"the cold mesh solve recorded "
+                             f"{len(recorded)} graphs")
+    return (res, recorded[0], torch.cuda.max_memory_allocated(),
+            torch.cuda.max_memory_reserved())
+
+
+def check_mesh(scale: int, g, eager: dict, smi: str) -> None:
+    """Phase 17 (module docstring).  ``eager`` holds phase 5's meshless
+    eager results of ``g`` by ``sharded_phase3``."""
+    t0 = time.perf_counter()
+    torch.cuda.empty_cache()
+    with nccl_world():
+        mesh = make_part_mesh(PARTS)
+        say("mesh", world=mesh.world, rank=mesh.rank, parts=mesh.n_parts,
+            per_rank=mesh.m, device=mesh.device, backend=mesh.backend,
+            nccl=".".join(map(str, torch.cuda.nccl.version())),
+            allocated_gib=f"{torch.cuda.memory_allocated() / 2**30:.3f}",
+            smi=f"'{smi}'")
+        for sharded in (True, False):
+            phase3 = "sharded" if sharded else "replicated"
+            solver = EulerSolver(mesh=mesh, sharded_phase3=sharded)
+            solver._prep_cache.update(PREPARED)
+            key = solver.bucket_of(g)
+            torch.cuda.empty_cache()
+            res, (recorded, calls), peak, reserved = mesh_recorded(
+                solver, g, mesh)
+            budget = fused_collective_budget(
+                key[2], num_edges=key[0], n_parts=PARTS,
+                sharded_phase3=True) if sharded \
+                else fused_collective_budget(key[2])
+            want = {k: v for k, v in expected_calls(budget, PARTS).items()
+                    if v}
+            want["fetch"] = 2
+            base_t, base_peak, base_reserved, base_rec = \
+                MESHLESS_FUSED[sharded]
+            same = same_bytes(res, eager[sharded])
+            say("mesh", run="fused", phase3=phase3, edges=g.num_edges,
+                byte_identical_to_meshless=same,
+                recorded_calls=json.dumps(calls, separators=(",", ":")),
+                budget_calls=json.dumps(want, separators=(",", ":")),
+                recorded_launches=json.dumps(recorded, separators=(",", ":")),
+                meshless_recorded_launches=json.dumps(
+                    base_rec, separators=(",", ":")),
+                peak_gib=f"{peak / 2**30:.3f}",
+                reserved_gib=f"{reserved / 2**30:.3f}",
+                meshless_peak_gib=f"{base_peak / 2**30:.3f}",
+                meshless_reserved_gib=f"{base_reserved / 2**30:.3f}",
+                **{k: f"{res.timings[k]:.4f}" for k in
+                   ("upload_s", "warmup_s", "capture_s", "run_s")},
+                **{f"meshless_{k}": f"{base_t[k]:.4f}" for k in
+                   ("warmup_s", "capture_s", "run_s")})
+            if not same:
+                raise AssertionError(f"the fused {phase3} solve over the "
+                                     f"mesh differs from the meshless one")
+            if calls != want:
+                raise AssertionError(f"the {phase3} recording called "
+                                     f"{calls}, the budget {want}")
+            if recorded != base_rec:
+                raise AssertionError(f"the {phase3} recording launched "
+                                     f"{recorded}, the meshless one "
+                                     f"{base_rec}")
+            for name in PATH_KERNELS[sharded]:
+                if not recorded[name]:
+                    raise AssertionError(f"{name} was not launched on the "
+                                         f"mesh's {phase3} path")
+            reset_counts()
+            mesh.calls.clear()
+            res = solver.solve(g)
+            launched, called = read_counts(), dict(mesh.calls)
+            same = same_bytes(res, eager[sharded])
+            say("mesh", run="replay", phase3=phase3,
+                byte_identical_to_meshless=same,
+                python_launches=sum(launched.values()),
+                python_calls=sum(called.values()),
+                **{k: f"{res.timings[k]:.4f}" for k in
+                   ("upload_s", "run_s", "fetch_s")},
+                meshless_cold_run_s=f"{base_t['run_s']:.4f}")
+            if not same or any(launched.values()) or called:
+                raise AssertionError(f"the {phase3} replay over the mesh "
+                                     f"differs or ran Python-side work")
+            del solver, res
+            torch.cuda.empty_cache()
+        # the eager path: each level's logs gathered, Phase 3 sharded
+        solver = EulerSolver(mesh=mesh, fused=False)
+        solver._prep_cache.update(PREPARED)
+        reset_counts()
+        mesh.calls.clear()
+        torch.cuda.reset_peak_memory_stats()
+        res = solver.solve(g)
+        launched, called = read_counts(), dict(mesh.calls)
+        same = same_bytes(res, eager[True])
+        base = eager[True].timings
+        say("mesh", run="eager", phase3="sharded",
+            byte_identical_to_meshless=same,
+            launches=json.dumps(launched, separators=(",", ":")),
+            calls=json.dumps(called, separators=(",", ":")),
+            peak_gib=f"{torch.cuda.max_memory_allocated() / 2**30:.3f}",
+            supersteps_s=f"{res.timings['supersteps_s']:.4f}",
+            phase3_s=f"{res.timings['phase3_s']:.4f}",
+            meshless_supersteps_s=f"{base['supersteps_s']:.4f}",
+            meshless_phase3_s=f"{base['phase3_s']:.4f}")
+        if not same:
+            raise AssertionError("the eager solve over the mesh differs "
+                                 "from the meshless one")
+        for name in PATH_KERNELS[True]:
+            if not launched[name]:
+                raise AssertionError(f"{name} was not launched on the "
+                                     f"mesh's eager path")
+        del solver, res
+        torch.cuda.empty_cache()
+        # a planted mis-wiring must be caught
+        small = eulerian_rmat(MESH_FAULT_SCALE, avg_degree=AVG_DEGREE,
+                              seed=SEED)
+        plain = solve(small, n_parts=PARTS, fused=False)
+        for run in ("eager", "fused"):
+            outcome = "same bytes"
+            with mock.patch.object(PartMesh, "ring", backwards_ring):
+                try:
+                    bad = EulerSolver(mesh=mesh).solve(
+                        small, fused=run == "fused")
+                    if not same_bytes(bad, plain):
+                        outcome = "other bytes"
+                except RuntimeError as e:
+                    outcome = f"raised: {str(e).splitlines()[0][:120]}"
+            say("mesh", fault="ring_sent_backwards", run=run,
+                scale=MESH_FAULT_SCALE, caught=outcome != "same bytes",
+                outcome=f"'{outcome}'")
+            if outcome == "same bytes":
+                raise AssertionError(f"the planted backwards ring went "
+                                     f"unnoticed ({run})")
+    say("mesh", seconds=f"{time.perf_counter() - t0:.1f}")
+
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
@@ -5357,8 +5582,7 @@ def main(argv=None) -> int:
     # session) ----
     launches["loop_condition"] = check_fused(args.scale, g, results,
                                              loop_rounds)
-    del results, g
-    torch.cuda.empty_cache()
+    torch.cuda.empty_cache()       # g and results stay for phase 17
     phase_done("5b")
 
     # ---- 5c. the session: solve_many, two live graphs, evictions ----
@@ -5424,6 +5648,12 @@ def main(argv=None) -> int:
     # ---- 16. the code LMs: reduced and 2-layer parity, K6, full width --
     check_code_lms(dev, smi)
     phase_done("16")
+
+    # ---- 17. the engine across ranks: one NCCL rank, all 8 partitions --
+    check_mesh(args.scale, g, results, smi)
+    del results, g
+    PREPARED.clear()
+    phase_done("17")
 
     print(json.dumps({"kernels": [
         {"name": name, **KERNELS[name], "launches": launches[name],

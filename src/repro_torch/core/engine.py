@@ -42,6 +42,27 @@ Two execution modes, as in the reference (DESIGN.md §4):
 Host-side planning (:meth:`Engine.plan`, :meth:`Engine.size_caps`,
 :meth:`Engine.load`) is the reference's numpy, unchanged.
 
+Across ranks (``Engine(mesh=…)``, a :class:`~repro_torch.launch.mesh.
+PartMesh`): each rank holds ``m`` of the ``n`` partitions as its rows and
+the exchanges are ``torch.distributed`` calls, the reference's schedule
+(:func:`fused_collective_budget`), made whatever the world's size:
+
+  * ``axis_index`` is each row's global partition index;
+  * each table group ships every field the reference ships, and its lane
+    mask, by one ``all_to_all`` a field (:func:`_exchange`), its send
+    lanes laid out by destination rank so that every receiver sees them
+    source-major; the receiver compacts with :func:`_receive_compact`'s
+    rule, so the bits are the one-device engine's;
+  * the fused run routes each level's mate writes to the rank owning the
+    stub's shard (``ws // S``, lane ``mate_ship_cap or 2·pair_cap()``,
+    its overflow clearing flag 3), and each rank holds only its ``[m,
+    S]`` mate shards (:meth:`Engine._route_mates`); the eager run
+    all-gathers each level's logs and builds the whole mate on every
+    rank (the reference's host replay);
+  * Phase 3 runs over the mesh (``core/phase3.py``), and the outputs'
+    per-rank rows (flags, metrics, the rank shards) are gathered, so
+    every rank returns the same bytes.
+
 For the sharded Phase 3 the reference routes each mate write to the
 shard ``ws // S`` that owns the stub, so its shards are the flat mate cut
 into ``[n, S]``.  Here :func:`stub_shards` does that cut on the
@@ -86,8 +107,9 @@ class EngineCaps:
     touch_cap: int
     open_ship_cap: int = 0    # per (src,dst) lane for opens (0 → open_cap)
     touch_ship_cap: int = 0   # per (src,dst) lane for touch (0 → touch_cap)
-    mate_ship_cap: int = 0    # mesh-only lane for mate writes: on one
-                              # device nothing ships, so it sizes nothing
+    mate_ship_cap: int = 0    # per (src,dst) lane of the mesh's mate
+                              # route (0 → 2·pair_cap); the one-device
+                              # engine scatters mates locally
     hook_rounds: int = 0
     splice_rounds: int = 12
     phase3_rounds: int = 64   # pivot-splice round budget of Phase 3
@@ -230,6 +252,15 @@ def stub_shards(x: torch.Tensor, n: int, fill: int) -> torch.Tensor:
     return y.view(x.shape[0], n, -1).transpose(0, 1).contiguous()
 
 
+def require_meshless(mesh, what: str) -> None:
+    """Over a mesh the engine solves one graph at a time: ``what`` raises
+    ``NotImplementedError`` there (ROADMAP item 9)."""
+    if mesh is not None:
+        raise NotImplementedError(
+            f"{what} over a partition mesh is not ported (ROADMAP item 9); "
+            f"solve one graph at a time")
+
+
 def require_batch_fits(num_edges: int, batch: int) -> None:
     """A batched program numbers its graphs' stubs in one int32 space
     (``B·(2E + 1)`` mate slots, ``B·2E`` component labels), which must
@@ -292,17 +323,12 @@ def fused_collective_budget(n_levels: int, num_edges: Optional[int] = None,
     return out
 
 
-def _route(dest: torch.Tensor, mask: torch.Tensor, fields, n: int,
-           lane: int, group: str):
-    """Every source row's entries into its ``n`` send lanes of width
-    ``lane``, keyed by destination partition: one per-row stable argsort
-    of the ``[n_src, X]`` keys and one scatter per field into
-    ``[n_src, n·lane + 1]`` buffers (BIG-filled; the last column is the
-    pad slot that takes every entry that does not ship).  Returns
-    (buffers, mask buffer, per-source overflow [n_src]).  ``group`` (a
-    key of ``_SHIP_GROUPS``) is the table group shipped: the reference's
-    ``all_to_all`` of each of its fields (:mod:`.capture`'s census)."""
-    capture.note("all_to_all", _SHIP_GROUPS[group])
+def _lane_slots(dest: torch.Tensor, mask: torch.Tensor, n: int,
+                lane: int):
+    """Each row's entries sorted by destination partition (a per-row
+    stable argsort of the ``[rows, X]`` keys; pads key ``n``): ``(order,
+    destination, slot in its lane, ships, per-row overflow)``, the middle
+    three in sorted order."""
     key = torch.where(mask, dest, n)          # pads route to virtual slot n
     order = torch.argsort(key, dim=-1, stable=True)
     kd = take(key, order)
@@ -310,6 +336,21 @@ def _route(dest: torch.Tensor, mask: torch.Tensor, fields, n: int,
     lane_pos = idx - _seg_starts(kd)
     ok = (kd < n) & (lane_pos < lane)
     overflow = ((kd < n) & (lane_pos >= lane)).any(-1)
+    return order, kd, lane_pos, ok, overflow
+
+
+def _route(dest: torch.Tensor, mask: torch.Tensor, fields, n: int,
+           lane: int, group: str):
+    """Every source row's entries into its ``n`` send lanes of width
+    ``lane``, keyed by destination partition (:func:`_lane_slots`), one
+    scatter per field into ``[n_src, n·lane + 1]`` buffers (BIG-filled;
+    the last column is the pad slot that takes every entry that does not
+    ship).  Returns (buffers, mask buffer, per-source overflow [n_src]).
+    ``group`` (a key of ``_SHIP_GROUPS``) is the table group shipped: the
+    reference's ``all_to_all`` of each of its fields (:mod:`.capture`'s
+    census)."""
+    capture.note("all_to_all", _SHIP_GROUPS[group])
+    order, kd, lane_pos, ok, overflow = _lane_slots(dest, mask, n, lane)
     flat = torch.where(ok, kd * lane + lane_pos, n * lane)
     width = (kd.shape[0], n * lane + 1)
     outs = []
@@ -319,6 +360,49 @@ def _route(dest: torch.Tensor, mask: torch.Tensor, fields, n: int,
                                                        BIG)))
     bm = torch.zeros(width, dtype=torch.bool, device=kd.device)
     return outs, bm.scatter_(-1, flat, ok), overflow
+
+
+def _exchange(dest: torch.Tensor, mask: torch.Tensor, fields, n: int,
+              lane: int, group: str, mesh, keep: Optional[int] = None):
+    """:func:`_route` across the ranks of ``mesh``: the ``m`` local rows'
+    entries into their send lanes, laid out ``[world (destination rank),
+    m (source row), m (destination row), lane]``, one field at a time,
+    each shipped by one ``all_to_all`` (the mask last, as uint8) and its
+    send buffer dropped before the next is built.  Every rank receives
+    ``[n_src, m, lane]``: source-major lanes for each of its rows, so
+    :func:`_gather_received` reads them as the ``[n_src, m·lane]``
+    buffers it is given.  ``keep`` (default all): the fields whose
+    received copies are returned; the rest are shipped, as the
+    reference ships them, and dropped.  Returns (received fields,
+    received mask ``[n_src, m·lane]``, per-source overflow [m])."""
+    capture.note("all_to_all", _SHIP_GROUPS[group])
+    order, kd, lane_pos, ok, overflow = _lane_slots(dest, mask, n, lane)
+    m = kd.shape[0]
+    src = torch.arange(m, device=kd.device)[:, None]
+    size = m * n * lane
+    flat = torch.where(ok, ((kd // m * m + src) * m + kd % m) * lane +
+                       lane_pos, size).view(-1)
+    del kd, lane_pos
+    out = []
+    for i, f in enumerate(fields):
+        buf = torch.full((size + 1,), BIG, dtype=f.dtype, device=f.device)
+        buf.scatter_(0, flat, torch.where(ok, take(f, order), BIG).view(-1))
+        got = mesh.all_to_all(buf[:size])
+        del buf
+        if keep is None or i < keep:
+            out.append(got.view(n, m * lane))
+        del got
+    bm = torch.zeros(size + 1, dtype=torch.bool, device=ok.device)
+    rm = mesh.all_to_all(bm.scatter_(0, flat, ok.view(-1))[:size])
+    return out, rm.view(n, m * lane), overflow
+
+
+def _received_rows(rm: torch.Tensor, lane: int) -> torch.Tensor:
+    """:func:`_exchange`'s received mask ``[n_src, m·lane]`` as each
+    destination row's ``[m, n_src·lane]``, source-major (a bool copy, the
+    counterpart of :func:`_received_mask`)."""
+    n = rm.shape[0]
+    return rm.view(n, -1, lane).transpose(0, 1).reshape(-1, n * lane)
 
 
 def _received_mask(bm: torch.Tensor, lane: int,
@@ -362,14 +446,48 @@ def _receive_compact(bufs, rmask: torch.Tensor, lane: int, cap: int,
             take(rmask, order), rmask.sum(-1) > cap)
 
 
-def _ship(dest, mask, fields, n: int, lane: int, cap: int, group: str,
-          batch: int = 1):
-    """Route, exchange and compact one table group (opens or touch
+class _OneDevice:
+    """The superstep's exchange on one device: the send lanes stay where
+    :func:`_route` built them, each receiver reads its own in place
+    (:func:`_received_mask`, :func:`_gather_received`), and the fields the
+    reference ships only for its schedule (``extra``) are not built."""
+
+    def __init__(self, n: int, batch: int):
+        self.n, self.batch = n, batch
+
+    def ship(self, dest, mask, fields, extra, lane: int, group: str):
+        return _route(dest, mask, fields, self.n, lane, group)
+
+    def received(self, bm: torch.Tensor, lane: int) -> torch.Tensor:
+        return _received_mask(bm, lane, self.batch)
+
+
+class _AcrossRanks:
+    """The superstep's exchange across the ranks of a mesh: every field,
+    ``extra`` too, by one ``all_to_all`` each (:func:`_exchange`), the
+    ``extra`` ones dropped on arrival; one graph."""
+
+    batch = 1
+
+    def __init__(self, n: int, mesh):
+        self.n, self.mesh = n, mesh
+
+    def ship(self, dest, mask, fields, extra, lane: int, group: str):
+        return _exchange(dest, mask, (*fields, *extra), self.n, lane, group,
+                         self.mesh, keep=len(fields))
+
+    def received(self, rm: torch.Tensor, lane: int) -> torch.Tensor:
+        return _received_rows(rm, lane)
+
+
+def _ship(ex, dest, mask, fields, extra, lane: int, cap: int, group: str):
+    """Route, exchange (``ex``, :class:`_OneDevice` or
+    :class:`_AcrossRanks`) and compact one table group (opens or touch
     pairs): ``(fields, mask, route overflow, compaction overflow)``, the
     first three per destination, the route overflow per source."""
-    bufs, bm, of_route = _route(dest, mask, fields, n, lane, group)
-    out, om, of_cap = _receive_compact(bufs, _received_mask(bm, lane, batch),
-                                       lane, cap, batch)
+    bufs, bm, of_route = ex.ship(dest, mask, fields, extra, lane, group)
+    out, om, of_cap = _receive_compact(bufs, ex.received(bm, lane), lane,
+                                       cap, ex.batch)
     return out, om, of_route, of_cap
 
 
@@ -435,7 +553,12 @@ class Engine:
     recording, on the CPU its first run, and the first eager superstep),
     ``on_upload`` at each host→device state upload; ``trace`` takes the
     spans (default: the process-wide ``repro_torch.obs`` log), and
-    ``timed_probe`` adds one ``level`` span a level to eager runs."""
+    ``timed_probe`` adds one ``level`` span a level to eager runs.
+
+    ``mesh`` (a :class:`~repro_torch.launch.mesh.PartMesh` of ``n_parts``
+    partitions) runs the engine across its ranks (module docstring): the
+    uploaded state is this rank's rows, and one graph at a time (a batch
+    raises ``NotImplementedError``)."""
 
     def __init__(self, n_parts: int, caps: EngineCaps, n_levels: int,
                  sharded_phase3: bool = False, gather_circuit: bool = True,
@@ -443,8 +566,12 @@ class Engine:
                  on_trace: Optional[Callable[[], None]] = None,
                  on_upload: Optional[Callable[[], None]] = None,
                  trace: Optional[obs.TraceLog] = None,
-                 timed_probe: bool = False):
+                 timed_probe: bool = False, mesh=None):
         require_deferred_transfer(deferred_transfer)
+        if mesh is not None and mesh.n_parts != int(n_parts):
+            raise ValueError(f"the mesh holds {mesh.n_parts} partitions, "
+                             f"the engine runs {n_parts}")
+        self.mesh = mesh
         self.n = int(n_parts)
         self.caps = caps
         self.n_levels = n_levels  # supersteps ≥ tree height + 1 (ladder)
@@ -686,9 +813,11 @@ class Engine:
         that later solves of the graph upload nothing."""
         if resident and ent["dev"] is not None:
             return ent["dev"]
+        state = ent["state"]
+        if self.mesh is not None:       # this rank's rows only
+            state = EngineState(*(x[self.mesh.rows] for x in state))
         with self.trace.span("upload", edges=len(ent["sv"]) // 2):
-            dev = state_from_numpy(ent["state"], ent["anc"], ent["sv"],
-                                   device)
+            dev = state_from_numpy(state, ent["anc"], ent["sv"], device)
         if self.on_upload is not None:
             self.on_upload()
         if resident:
@@ -707,6 +836,7 @@ class Engine:
         nothing.  Mixed edge counts raise ``ValueError``; so does a
         replicated batch whose vertex keys would pass int32 max
         (:func:`~repro_torch.core.phase3.splice_components`)."""
+        require_meshless(self.mesh, "a batch of graphs")
         E = pgs[0].graph.num_edges
         for pg in pgs:
             if pg.graph.num_edges != E:
@@ -752,15 +882,25 @@ class Engine:
         A batch of B graphs (``anc`` ``[B, H, n]``) runs as ``n·B`` rows,
         (partition, graph) pairs, partition major: Phase 1 and the table
         refresh are local to a row, and each exchange stays within its
-        graph (:func:`_received_mask`)."""
+        graph (:func:`_received_mask`).  Over a mesh the rows are this
+        rank's ``m`` partitions and each group crosses the ranks
+        (:class:`_AcrossRanks`), own0 shipped too as the reference ships
+        it (the deferred transfer never reads it on arrival), and level
+        0's empty parked lanes as well."""
         n, c = self.n, self.caps
         osc = c.open_ship_cap or c.open_cap
         tsc = c.touch_ship_cap or c.touch_cap
         dev = state.pk_eid.device
         anc = anc if anc.dim() == 3 else anc[None]
         batch = anc.shape[0]
-        row = torch.arange(n * batch, dtype=I32, device=dev)[:, None]
-        me = row // batch                            # each row's partition
+        row = torch.arange(state.pk_eid.shape[0], dtype=I32,
+                           device=dev)[:, None]
+        if self.mesh is None:
+            ex = _OneDevice(n, batch)
+            me = row // batch                        # each row's partition
+        else:
+            ex = _AcrossRanks(n, self.mesh)
+            me = row + self.mesh.first
         # [B·n] part0 → active pid, each row reading its own graph's row
         dest_row = anc[:, max(lvl - 1, 0)].reshape(-1)
         graph0 = (row % batch) * n
@@ -773,23 +913,23 @@ class Engine:
         # ---- 1. ship activated parked edges (deferred transfer, §5) ----
         send = state.pk_mask & (state.pk_act == lvl - 1)
         e_dest = torch.where(send, dest_of(state.pk_own0), n)
+        parked = (state.pk_eid, state.pk_u, state.pk_v, state.pk_lau,
+                  state.pk_lav, state.pk_act)
         if lvl == 0:       # level 0 consumes the initial local edges
-            _, _, of1 = _route(e_dest, send, (), n, c.ship_cap, "park")
+            _, _, of1 = ex.ship(e_dest, send, (), (*parked, state.pk_own0),
+                                c.ship_cap, "park")
             ne = NewEdges(*(_fit(x, c.new_cap) for x in
                             (state.le_eid, state.le_u, state.le_v,
                              state.le_lau, state.le_lav, state.le_mask)))
             of_new = state.le_mask.sum(-1) > c.new_cap
         else:
-            bufs, bm, of1 = _route(
-                e_dest, send, (state.pk_eid, state.pk_u, state.pk_v,
-                               state.pk_lau, state.pk_lav, state.pk_act),
-                n, c.ship_cap, "park")
-            arrived = _received_mask(bm & (bufs[5] == lvl - 1), c.ship_cap,
-                                     batch)
+            bufs, bm, of1 = ex.ship(e_dest, send, parked, (state.pk_own0,),
+                                    c.ship_cap, "park")
+            arrived = ex.received(bm & (bufs[5] == lvl - 1), c.ship_cap)
             del bm
             fields, am, of_new = _receive_compact(bufs[:5], arrived,
                                                   c.ship_cap, c.new_cap,
-                                                  batch)
+                                                  ex.batch)
             del bufs, arrived
             ne = NewEdges(*(_fit(x, c.new_cap) for x in (*fields, am)))
 
@@ -797,17 +937,16 @@ class Engine:
         o_dest = dest_of(state.op_own0) if lvl > 0 \
             else me.expand_as(state.op_own0)
         (os_, ov_, ol_, oc_), om_, of2, of3 = _ship(
-            torch.where(state.op_mask, o_dest, n), state.op_mask,
+            ex, torch.where(state.op_mask, o_dest, n), state.op_mask,
             (state.op_stub, state.op_vert, state.op_la, state.op_comp),
-            n, osc, c.open_cap, "open", batch)
+            (state.op_own0,), osc, c.open_cap, "open")
         opens = OpenTable(os_, ov_, ol_, oc_, om_)
         t_dest = dest_of(state.tc_own0) if lvl > 0 \
             else me.expand_as(state.tc_own0)
         (ts1, ts2, tv_, tl_, tc_), tm_, of4, of5 = _ship(
-            torch.where(state.tc_mask, t_dest, n), state.tc_mask,
+            ex, torch.where(state.tc_mask, t_dest, n), state.tc_mask,
             (state.tc_s1, state.tc_s2, state.tc_vert, state.tc_la,
-             state.tc_comp),
-            n, tsc, c.touch_cap, "touch", batch)
+             state.tc_comp), (state.tc_own0,), tsc, c.touch_cap, "touch")
         touch = TouchTable(ts1, ts2, tv_, tl_, tc_, tm_)
 
         # ---- 3. Phase 1 ----
@@ -847,11 +986,18 @@ class Engine:
         return nstate, out.log_s1, out.log_s2, out.log_mask, flags, metrics
 
     def run_levels(self, state: EngineState, anc: torch.Tensor,
-                   num_edges: int, clock: bool = True) -> RunOut:
+                   num_edges: int, clock: bool = True,
+                   route_mates: bool = False) -> RunOut:
         """Every superstep in level order, accumulating the mate logs
         into one ``[2E + 1]`` tensor (pad slot ``2E`` takes the masked
         writes, all −1).  The mesh's mate-lane overflow flag has no
         counterpart on one device: flag 3 carries only the table lanes.
+        Over a mesh each level's logs are all-gathered and scattered into
+        the whole mate on every rank (the reference's eager replay), or
+        with ``route_mates`` (the fused run) routed to the ranks owning
+        their stubs (:meth:`_route_mates`): ``mate`` is then this rank's
+        ``[m, S]`` shards, and the route's overflow clears flag 3; the
+        flags and metrics are gathered, ``[n, L, 4]`` on every rank.
         A batch (``state`` ``[n·B, ·]`` rows, ``anc`` ``[B, H, n]``)
         returns the reference's batched layouts: mate ``[B, 2E]``, flags
         and metrics ``[n, B, L, 4]``.
@@ -864,8 +1010,13 @@ class Engine:
         n_stubs = 2 * num_edges
         dev = state.pk_eid.device
         batch = anc.shape[0] if anc.dim() == 3 else None
-        mate = torch.full((batch or 1, n_stubs + 1), -1, dtype=I32,
-                          device=dev)
+        mesh = self.mesh
+        S = shard_width(num_edges, self.n)
+        if mesh is not None and route_mates:
+            mate = torch.full((mesh.m, S + 1), -1, dtype=I32, device=dev)
+        else:
+            mate = torch.full((batch or 1, n_stubs + 1), -1, dtype=I32,
+                              device=dev)
         flags, metrics = [], []
         marks = [drained_clock(dev)] if clock else []
         for lvl in range(self.n_levels):
@@ -877,7 +1028,13 @@ class Engine:
                     self._stepped = True
                     self._traced("superstep")
                 state, s1, s2, lm, fl, mt = self.superstep(lvl, anc, state)
-                _log_mates(mate, s1, s2, lm, n_stubs)
+                if mesh is None:
+                    _log_mates(mate, s1, s2, lm, n_stubs)
+                elif route_mates:
+                    fl[:, 3] &= ~self._route_mates(mate, s1, s2, lm, S)
+                else:
+                    _log_mates(mate, *(mesh.fetch(x) for x in (s1, s2, lm)),
+                               n_stubs)
                 flags.append(fl)
                 metrics.append(mt)
                 if clock:
@@ -886,9 +1043,44 @@ class Engine:
         if batch is not None:
             flags, metrics = (x.view(self.n, batch, *x.shape[1:])
                               for x in (flags, metrics))
+        if mesh is not None:
+            flags, metrics = mesh.fetch(flags), mesh.fetch(metrics)
+        level_s = tuple(b - a for a, b in zip(marks, marks[1:]))
+        if mesh is not None and route_mates:
+            return RunOut(mate[:, :S].contiguous(), flags, metrics, level_s)
         return RunOut(mate=mate[:, :n_stubs] if batch else mate[0, :n_stubs],
-                      flags=flags, metrics=metrics,
-                      level_s=tuple(b - a for a, b in zip(marks, marks[1:])))
+                      flags=flags, metrics=metrics, level_s=level_s)
+
+    def _route_mates(self, mate_sh: torch.Tensor, s1: torch.Tensor,
+                     s2: torch.Tensor, lm: torch.Tensor, S: int
+                     ) -> torch.Tensor:
+        """The fused run's mate route across the mesh (the reference's
+        ``make_fused`` body): both directions of every logged pair,
+        routed by :func:`_exchange` to the rank owning the stub's shard
+        (``ws // S``), lane ``mate_ship_cap or 2·pair_cap()``, then
+        scattered into this rank's ``[m, S + 1]`` shards (masked entries
+        into each row's pad slot ``S``, all −1), one source partition at
+        a time to bound the offsets' memory.  Within a level the pairs
+        are disjoint, and later levels overwrite earlier ones.  Returns
+        the per-source lane overflow ``[m]``."""
+        n, c, mesh = self.n, self.caps, self.mesh
+        m = mate_sh.shape[0]
+        ws = torch.cat([s1, s2], -1)
+        wv = torch.cat([s2, s1], -1)
+        wm = torch.cat([lm, lm], -1)
+        (r_s, r_v), r_m, of_m = _exchange(
+            torch.where(wm, ws // S, n), wm, (ws, wv), n,
+            c.mate_ship_cap or 2 * c.pair_cap(), "mate", mesh)
+        del ws, wv, wm
+        row = torch.arange(m, device=mate_sh.device)[:, None]
+        lo = (mesh.part_ids()[:, None] * S).to(torch.int64)
+        flat = mate_sh.view(-1)
+        for src in range(n):
+            got, at = r_m[src].view(m, -1), r_s[src].view(m, -1)
+            at = torch.where(got, at - lo, S) + row * (S + 1)
+            flat[at.view(-1)] = torch.where(got, r_v[src].view(m, -1),
+                                            -1).view(-1)
+        return of_m
 
     # ------------------------------------------------------------------
     # the fused whole run
@@ -909,6 +1101,8 @@ class Engine:
         uncaptured), so a CUDA graph can hold it."""
         c, n_stubs = self.caps, 2 * num_edges
         batch = anc.shape[0] if anc.dim() == 3 else None
+        if self.mesh is not None:
+            return self._whole_run_mesh(state, anc, sv, num_edges)
         if batch is not None:
             state = EngineState(*(x.flatten(0, 1) for x in state))
         mate, flags, metrics, _ = self.run_levels(state, anc, num_edges,
@@ -933,6 +1127,44 @@ class Engine:
         return FusedOut(packed, unshard(mate_sh, batch)[..., :n_stubs],
                         flags, metrics, ok)
 
+    def _whole_run_mesh(self, state: EngineState, anc: torch.Tensor,
+                        sv: torch.Tensor, num_edges: int) -> FusedOut:
+        """:meth:`whole_run` across the mesh: the levels with the mate
+        route, then Phase 3 on this rank's ``[m, S]`` mate shards —
+        replicated: the shards all-gathered and K1/K2 run on every rank
+        (``sv`` whole), sharded: ``phase3_sharded`` over the mesh (``sv``
+        this rank's shards).  Every output is whole on every rank."""
+        c, n_stubs, mesh = self.caps, 2 * num_edges, self.mesh
+        mate_sh, flags, metrics, _ = self.run_levels(
+            state, anc, num_edges, clock=False, route_mates=True)
+        if not self.sharded_phase3:
+            capture.note("all_gather")
+            mate = mesh.all_gather(mate_sh).view(-1)[:n_stubs]
+            circuit, mate2, ok = phase3_device(
+                mate, sv, splice_rounds=c.phase3_rounds)
+            return FusedOut(circuit, mate2, flags, metrics, ok)
+        res = phase3_sharded(mate_sh, sv, n_stubs, c.p3v_cap or num_edges,
+                             splice_rounds=c.phase3_rounds,
+                             gather_circuit=self.gather_circuit, mesh=mesh)
+        if self.gather_circuit:
+            return FusedOut(*res[:2], flags, metrics, res[2])
+        mate_sh, dist_sh, reach_sh, ok = res
+        packed = mesh.fetch(torch.stack([mate_sh, dist_sh, reach_sh],
+                                        -1)).view(-1, 3)
+        return FusedOut(packed, packed[:n_stubs, 0].contiguous(), flags,
+                        metrics, ok)
+
+    def phase3_sv(self, sv: torch.Tensor) -> torch.Tensor:
+        """The stub-vertex map as Phase 3 reads it: whole for the
+        replicated Phase 3, :func:`stub_shards` ``[n, S]`` for the sharded
+        one, of which a mesh's rank reads its rows."""
+        if not self.sharded_phase3:
+            return sv
+        shards = stub_shards(sv, self.n, 0)
+        if self.mesh is None:
+            return shards
+        return shards[self.mesh.rows].contiguous()
+
     def fused_program(self, num_edges: int,
                       batch: Optional[int] = None) -> "FusedRun":
         """Get or create the bucket's :class:`FusedRun` for ``(num_edges,
@@ -941,6 +1173,7 @@ class Engine:
         ``batch=B`` runs B graphs of the bucket at once
         (:meth:`whole_run`), a program of its own."""
         if batch is not None:
+            require_meshless(self.mesh, "a batched program")
             require_batch_fits(num_edges, batch)
         key = (int(num_edges), batch)
         run = self._fused.get(key)
@@ -1180,8 +1413,7 @@ class FusedRun:
               sv: torch.Tensor) -> None:
         """Copy one graph's (a batch's stacked) uploaded tables into the
         static inputs (allocated from the first launch's)."""
-        if self.engine.sharded_phase3:
-            sv = stub_shards(sv, self.engine.n, 0)
+        sv = self.engine.phase3_sv(sv)
         if self.inputs is None:
             self.inputs = (EngineState(*(x.clone() for x in state)),
                            anc.clone(), sv.clone())
@@ -1228,8 +1460,21 @@ class FusedRun:
         graph = torch.cuda.CUDAGraph(keep_graph=self.audit)
         loops = capture.Loops(dev)
         census = capture.Census()
-        with capture.recording(graph, loops), capture.censusing(census):
-            self.out = self.engine.whole_run(*self.inputs, self.num_edges)
+        mesh = self.engine.mesh
+        try:
+            with capture.recording(graph, loops), capture.censusing(census):
+                self.out = self.engine.whole_run(*self.inputs,
+                                                 self.num_edges)
+        except RuntimeError as e:
+            if mesh is None:
+                raise
+            raise RuntimeError(
+                f"the fused run over the partition mesh cannot be recorded "
+                f"into a CUDA graph; the last collective called was "
+                f"{mesh.last_call} (launch/mesh.py: NCCL records its "
+                f"point-to-point kernel inside a CUDA while node only "
+                f"under NCCL_GRAPH_MIXING_SUPPORT=0; ROADMAP item 9): "
+                f"{e}") from e
         if self.audit:
             self.graph_census = capture.graph_census(graph, loops, dev)
         self.graph, self.loops, self.census = graph, loops, census

@@ -396,10 +396,17 @@ def phase3_device(mate: torch.Tensor, stub_vertex: torch.Tensor,
 #
 #   * ``axis_index`` → ``arange(n)`` (``me``, one per row);
 #   * a ``ppermute`` along the ring i → i+1 → :func:`_ring`, a roll of the
-#     row dimension, kept explicit so a multi-device engine can swap it
-#     for point-to-point sends;
+#     row dimension;
 #   * ``psum`` → a sum over the rows; the tiled ``all_gather`` → a reshape;
 #   * per-device scalars (``cnt``, ``of_t``, ``start``) → [n] tensors.
+#
+# Across the ranks of a mesh (``mesh=``, ``repro_torch.launch.mesh``)
+# each rank holds m = n / world of the rows, ``me`` is their global
+# partition index, a ring step is the mesh's (the local rows roll, the
+# last goes to rank + 1), the ``psum``s are ``all_reduce``s (so the splice
+# loop stops on the global flag on every rank) and the ``all_gather`` is
+# one.  The doubling loops still launch K3/K4 once a ring step, on the
+# rows a rank holds.
 #
 # A batch of B graphs (the reference's ``vmap`` over a batch axis after
 # the partition axis) makes the rows (partition, graph) pairs, partition
@@ -453,20 +460,31 @@ def sharded_phase3_schedule(num_edges: int, n_parts: int,
     }
 
 
-def _ring(x: torch.Tensor, dim: int = 0, batch: int = 1) -> torch.Tensor:
+def _ring(x: torch.Tensor, dim: int = 0, batch: int = 1,
+          mesh=None) -> torch.Tensor:
     """One ``ppermute`` step along the ring i → i+1: partition i receives
     partition i−1's value.  Rows are (partition, graph) pairs, partition
-    major, so the step rolls ``dim`` by ``batch`` rows.  Each ring loop
+    major, so the step rolls ``dim`` by ``batch`` rows; over a ``mesh``
+    it is the mesh's ring step (``PartMesh.ring``).  Each ring loop
     (the reference's ``fori_loop`` around one ``ppermute``) runs inside
     ``capture.scope("ring")``; the census counts the steps."""
     capture.note("ring_step")
+    if mesh is not None:
+        return mesh.ring(x, dim)
     return torch.roll(x, shifts=batch, dims=dim)
 
 
-def _shard_ids(rows: int, S: int, batch: int, dev):
+def _n_parts(rows: int, batch: int, mesh) -> int:
+    """Partitions on the ring: the rows' (one device), or the mesh's."""
+    return rows // batch if mesh is None else mesh.n_parts
+
+
+def _shard_ids(rows: int, S: int, batch: int, dev, mesh=None):
     """``(me [rows], gid [rows, S])``: each row's partition (its shard
-    index within its graph) and the global ids of its stubs."""
-    me = torch.arange(rows, dtype=I32, device=dev) // batch
+    index within its graph; over a ``mesh`` the global one) and the
+    global ids of its stubs."""
+    me = torch.arange(rows, dtype=I32, device=dev) // batch \
+        if mesh is None else mesh.part_ids()
     return me, me[:, None] * S + torch.arange(S, dtype=I32, device=dev)
 
 
@@ -482,38 +500,39 @@ def _per_graph(x: torch.Tensor, batch: int) -> torch.Tensor:
 
 
 def _doubling_sharded(kernel, q, carries, tables, me, S: int,
-                      batch: int = 1):
+                      batch: int = 1, mesh=None):
     """One doubling round's table rotation: ``n`` ring steps of the shard
     kernel, each answering the queries the visiting slices own.  The
     answers ping-pong two buffer sets (a step reads step k−1 only); the
     starting ``carries`` are read, never written."""
-    n = me.shape[0] // batch
+    n = _n_parts(me.shape[0], batch, mesh)
     bufs = [tuple(torch.empty_like(a) for a in carries) for _ in range(2)]
     cur = carries
     with capture.scope("ring"):
         for k in range(n):
             if k:
-                tables = _ring(tables, 1, batch)
+                tables = _ring(tables, 1, batch, mesh)
             cur = kernel(q, *cur, _ring_bases(me, k, S, n), *tables,
                          s_real=S, out=bufs[k % 2])
     return cur
 
 
-def _cc_labels_sharded(mate_sh: torch.Tensor, batch: int = 1
-                       ) -> torch.Tensor:
+def _cc_labels_sharded(mate_sh: torch.Tensor, batch: int = 1,
+                       mesh=None) -> torch.Tensor:
     """Sharded twin of :func:`_cc_cycle_labels` over ``mate_sh`` [n, S]
-    (a batch: [n·B, S]): min-label propagation by pointer doubling where
-    each round resolves remote pointers with one full ring rotation of
-    the (nxt, lab) table shards (K3, one launch per ring step)."""
+    (a batch: [n·B, S]; over a ``mesh`` this rank's [m, S]): min-label
+    propagation by pointer doubling where each round resolves remote
+    pointers with one full ring rotation of the (nxt, lab) table shards
+    (K3, one launch per ring step)."""
     rows, S = mate_sh.shape
-    me, gid = _shard_ids(rows, S, batch, mate_sh.device)
+    me, gid = _shard_ids(rows, S, batch, mate_sh.device, mesh)
     nxt = torch.where(mate_sh >= 0, mate_sh ^ 1, gid)
     lab = gid
-    for _ in range(_doubling_rounds(rows // batch * S)):
+    for _ in range(_doubling_rounds(_n_parts(rows, batch, mesh) * S)):
         a_nxt, a_lab = _doubling_sharded(
             pointer_double_shard, nxt,
             (nxt, torch.full_like(nxt, BIG)), torch.stack([nxt, lab]), me, S,
-            batch)
+            batch, mesh)
         nxt = a_nxt
         lab = torch.minimum(lab, a_lab)
     sib = torch.arange(S, dtype=I32, device=mate_sh.device) ^ 1
@@ -534,7 +553,7 @@ def _lexsort3_rows(k1, k2, k3) -> torch.Tensor:
 def splice_components_sharded(mate_sh: torch.Tensor, sv_sh: torch.Tensor,
                               p3v_cap: int, rounds: int = 64,
                               lab: Optional[torch.Tensor] = None,
-                              batch: Optional[int] = None
+                              batch: Optional[int] = None, mesh=None
                               ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Sharded twin of :func:`splice_components` over ``mate_sh`` and
     ``sv_sh`` [n, S] (a batch of B graphs: [n·B, S], rows partition
@@ -550,17 +569,21 @@ def splice_components_sharded(mate_sh: torch.Tensor, sv_sh: torch.Tensor,
     ``(mate_sh', ok)``, ``ok`` a 0-d bool (``[B]`` for a batch, each
     graph's own): convergence and no vertex-table overflow (an undersized
     ``p3v_cap`` fails the solve, never corrupts it).  A batch runs while
-    any graph changes; a converged graph's extra rounds rotate nothing."""
+    any graph changes; a converged graph's extra rounds rotate nothing.
+
+    Over a ``mesh`` the rows are this rank's, each ring step the mesh's,
+    and the round's flags are all-reduced (the reference's ``psum``), so
+    every rank stops after the same round."""
     B = batch or 1
     rows, S = mate_sh.shape
-    n = rows // B
+    n = _n_parts(rows, B, mesh)
     P = int(p3v_cap)
     dev = mate_sh.device
-    me, gid = _shard_ids(rows, S, B, dev)
+    me, gid = _shard_ids(rows, S, B, dev, mesh)
     mate_sh = mate_sh.to(I32)
     sv_sh = sv_sh.to(I32)
     if lab is None:
-        lab = _cc_labels_sharded(mate_sh, B)
+        lab = _cc_labels_sharded(mate_sh, B, mesh)
     lo = (me * S)[:, None]
     hi = lo + S
     row64 = torch.arange(rows, dtype=torch.int64, device=dev)[:, None]
@@ -569,7 +592,7 @@ def splice_components_sharded(mate_sh: torch.Tensor, sv_sh: torch.Tensor,
                                       device=dev).view(rows, P)
 
     def ring(x):
-        return _ring(x, 1, B)
+        return _ring(x, 1, B, mesh)
 
     def round_fn(mate, lab, of, _changed):
         cm = (mate >= 0) & (mate > gid)           # canonical stub per pair
@@ -696,6 +719,9 @@ def splice_components_sharded(mate_sh: torch.Tensor, sv_sh: torch.Tensor,
 
         # the psum of the flags: over each graph's partitions
         capture.note("psum")
+        if mesh is not None:
+            anywhere = mesh.any(torch.stack([of_t.any(), hm.any()]))
+            return mate_new, lab_new, of | anywhere[:1], anywhere[1:]
         return (mate_new, lab_new, of | _per_graph(of_t, B).any(0),
                 _per_graph(hm.any(1), B).any(0))
 
@@ -706,15 +732,15 @@ def splice_components_sharded(mate_sh: torch.Tensor, sv_sh: torch.Tensor,
     return mate_sh, (ok if batch else ok[0])
 
 
-def _rank_sharded(mate_sh: torch.Tensor, batch: int = 1
+def _rank_sharded(mate_sh: torch.Tensor, batch: int = 1, mesh=None
                   ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Sharded list ranking: the doubling loop of :func:`circuit_from_mate`
     over rotating (ptr, dist, reach) table shards (K4, one launch per ring
-    step).  Returns the [n, S] (a batch: [n·B, S]) (dist, reach)
-    shards."""
+    step).  Returns the [n, S] (a batch: [n·B, S]; over a ``mesh`` this
+    rank's [m, S]) (dist, reach) shards."""
     rows, S = mate_sh.shape
-    n = rows // batch
-    me, gid = _shard_ids(rows, S, batch, mate_sh.device)
+    n = _n_parts(rows, batch, mesh)
+    me, gid = _shard_ids(rows, S, batch, mate_sh.device, mesh)
     valid = mate_sh >= 0
     nxt = torch.where(valid, mate_sh ^ 1, gid)
 
@@ -722,14 +748,17 @@ def _rank_sharded(mate_sh: torch.Tensor, batch: int = 1
     acc = rot = torch.where(valid, gid, BIG).amin(dim=1)
     with capture.scope("ring"):
         for _ in range(n):
-            rot = _ring(rot, 0, batch)
+            rot = _ring(rot, 0, batch, mesh)
             acc = torch.minimum(acc, rot)
     # halt stub t = mate[start ^ 1], fetched from its owner by one psum
     # over each graph's partitions, then broadcast to its rows
     capture.note("psum")
     q = (acc ^ 1)[:, None]
-    t = _per_graph(torch.where(gid == q, mate_sh, 0).sum(dim=1),
-                   batch).sum(0).to(I32).repeat(n)
+    hit = torch.where(gid == q, mate_sh, 0).sum(dim=1)
+    if mesh is None:
+        t = _per_graph(hit, batch).sum(0).to(I32).repeat(n)
+    else:
+        t = mesh.psum(hit.sum()).to(I32).repeat(rows)
 
     halt = gid == t[:, None]
     ptr = torch.where(halt, gid, nxt)
@@ -739,7 +768,7 @@ def _rank_sharded(mate_sh: torch.Tensor, batch: int = 1
     for _ in range(_doubling_rounds(n * S)):
         a_ptr, a_dist, a_reach = _doubling_sharded(
             pointer_double_rank_shard, ptr, (ptr, zero, zero),
-            torch.stack([ptr, dist, reach]), me, S, batch)
+            torch.stack([ptr, dist, reach]), me, S, batch, mesh)
         ptr = a_ptr
         dist = dist + a_dist
         reach = torch.maximum(reach, a_reach)
@@ -759,12 +788,18 @@ def unshard(x: torch.Tensor, batch: Optional[int]) -> torch.Tensor:
 
 def gather_circuit_sharded(mate_sh: torch.Tensor, dist_sh: torch.Tensor,
                            reach_sh: torch.Tensor, n_stubs: int,
-                           batch: Optional[int] = None):
+                           batch: Optional[int] = None, mesh=None):
     """The reference's emission ``all_gather``: the [n, S] shards read as
-    one [n·S] stub space (:func:`unshard`), cut to ``n_stubs`` and
-    emitted by :func:`emit_circuit`.  Returns ``(circuit [E], mate
-    [n_stubs])``, for a batch ``([B, E], [B, n_stubs])``."""
+    one [n·S] stub space (:func:`unshard`; over a ``mesh`` the ranks'
+    ``(mate, dist, reach)`` triples gathered by one ``all_gather``), cut
+    to ``n_stubs`` and emitted by :func:`emit_circuit`.  Returns
+    ``(circuit [E], mate [n_stubs])``, for a batch ``([B, E], [B,
+    n_stubs])``."""
     capture.note("all_gather")
+    if mesh is not None:
+        g = mesh.all_gather(torch.stack([mate_sh, dist_sh, reach_sh], -1))
+        mate, dist, reach = g.view(-1, 3)[:n_stubs].unbind(-1)
+        return emit_circuit(mate >= 0, dist, reach), mate.contiguous()
     mate, dist, reach = (unshard(x, batch)[..., :n_stubs]
                          for x in (mate_sh, dist_sh, reach_sh))
     return emit_circuit(mate >= 0, dist, reach), mate
@@ -773,7 +808,7 @@ def gather_circuit_sharded(mate_sh: torch.Tensor, dist_sh: torch.Tensor,
 def phase3_sharded(mate_sh: torch.Tensor, sv_sh: torch.Tensor,
                    n_stubs: int, p3v_cap: int, splice_rounds: int = 64,
                    gather_circuit: bool = True,
-                   batch: Optional[int] = None):
+                   batch: Optional[int] = None, mesh=None):
     """Full sharded Phase 3 over the [n, S] stub shards (``mate_sh``
     padded with −1 past ``n_stubs``, ``sv_sh`` with vertex 0), or over a
     batch's [n·B, S] rows.
@@ -783,13 +818,19 @@ def phase3_sharded(mate_sh: torch.Tensor, sv_sh: torch.Tensor,
     n_stubs]``, ``[B]``).  With ``gather_circuit=False`` nothing is
     gathered: returns the still sharded ``(mate_sh, dist_sh, reach_sh,
     ok)``, from which the caller emits host-side with
-    :func:`emit_circuit_np`."""
+    :func:`emit_circuit_np`.
+
+    Over a ``mesh`` (a :class:`~repro_torch.launch.mesh.PartMesh`, one
+    graph) the inputs are this rank's ``[m, S]`` rows, the rings, psums
+    and the gather are the mesh's collectives, and the sharded outputs
+    stay this rank's rows."""
     mate2_sh, ok = splice_components_sharded(mate_sh, sv_sh, p3v_cap,
                                              rounds=splice_rounds,
-                                             batch=batch)
-    dist_sh, reach_sh = _rank_sharded(mate2_sh, batch or 1)
+                                             batch=batch, mesh=mesh)
+    dist_sh, reach_sh = _rank_sharded(mate2_sh, batch or 1) \
+        if mesh is None else _rank_sharded(mate2_sh, mesh=mesh)
     if not gather_circuit:
         return mate2_sh, dist_sh, reach_sh, ok
     circuit, mate2 = gather_circuit_sharded(mate2_sh, dist_sh, reach_sh,
-                                            n_stubs, batch)
+                                            n_stubs, batch, mesh)
     return circuit, mate2, ok

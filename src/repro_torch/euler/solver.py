@@ -73,9 +73,19 @@ card it raises instead of falling back.  ``backend="host"`` runs the
 reference's exact host BSP engine instead
 (:class:`~repro_torch.core.host_engine.HostEngine`: numpy and scipy, the
 paper's Int64 memory-state accounting and both §5 heuristics, one graph
-at a time, no device).  Not ported yet (ROADMAP queue 1): a
-multi-device mesh (item 9) and, on the device backend, the
-``deferred_transfer=False`` baseline (raises; queue 3).
+at a time, no device).
+
+Across ranks, ``EulerSolver(mesh=make_part_mesh(P))`` (or ``solve(g,
+n_parts=P, mesh=…)``; ``repro_torch.launch.mesh``) runs the reference's
+mesh path over ``torch.distributed``: every rank prepares the whole graph
+on the host, deterministically, uploads only its partitions' rows, and
+makes the superstep's exchanges, the mate route and Phase 3's rings,
+psums and gathers as collectives (``core/engine.py``); every rank returns
+the same :class:`EulerResult`, byte for byte the meshless solve's.  Fused
+and eager runs and all three Phase 3 modes run over a mesh; batches and
+the serving loop raise ``NotImplementedError`` there (ROADMAP item 9), as
+does ``backend="host"``.  Not ported yet: on the device backend the
+``deferred_transfer=False`` baseline (raises; ROADMAP queue 3).
 
     >>> from repro_torch.euler import solve                 # doctest: +SKIP
     >>> res = solve(graph, n_parts=8).validate()            # doctest: +SKIP
@@ -98,7 +108,8 @@ from ..analysis.graph_audit import program_cost_bytes
 from ..core import capture
 from ..core.engine import (Engine, EngineCaps, FusedOut, FusedRun,
                            PendingRun, drained_clock, require_batch_fits,
-                           require_deferred_transfer, stub_shards)
+                           require_deferred_transfer, require_meshless,
+                           stub_shards)
 from ..core.graph import Graph, partition_graph
 from ..core.phase2 import MergeTree, generate_merge_tree
 from ..core.phase3 import (_cc_labels_sharded, _rank_sharded,
@@ -267,6 +278,12 @@ class EulerSolver:
                         :class:`repro_torch.obs.TraceLog` this session
                         reports into (default: the process-wide ones).
     timed_probe:        one ``level`` span a level on the eager path.
+    mesh:               a :class:`~repro_torch.launch.mesh.PartMesh`: run
+                        across its ranks (module docstring).  ``n_parts``
+                        defaults to the mesh's and must equal it;
+                        ``device`` to the mesh's, and must equal it.  The
+                        session's programs are the mesh's: its engines
+                        run on it and nothing else.
 
     ``captures`` counts the CUDA graphs this solver recorded.
 
@@ -290,10 +307,23 @@ class EulerSolver:
                  gather_circuit: bool = True,
                  registry: Optional[obs.Registry] = None,
                  trace: Optional[obs.TraceLog] = None,
-                 timed_probe: bool = False):
+                 timed_probe: bool = False, mesh=None):
         if backend not in ("device", "host"):
             raise ValueError(f"backend must be 'device' or 'host': {backend}")
         self.backend = backend
+        if mesh is not None:
+            if backend == "host":
+                raise ValueError("backend='host' runs on no mesh: the host "
+                                 "engine is one process's numpy")
+            if n_parts is not None and int(n_parts) != mesh.n_parts:
+                raise ValueError(f"n_parts={n_parts}, but the mesh holds "
+                                 f"{mesh.n_parts} partitions")
+            if device is not None and \
+                    torch.device(device) != torch.device(mesh.device):
+                raise ValueError(f"device={device!r}, but the mesh runs on "
+                                 f"{mesh.device}")
+            n_parts, device = mesh.n_parts, mesh.device
+        self._mesh = mesh
         if backend == "host":
             if device is not None:
                 raise ValueError(
@@ -394,6 +424,12 @@ class EulerSolver:
         self._lock = threading.RLock()
 
     # ------------------------------------------------------------------
+    @property
+    def mesh(self):
+        """The :class:`~repro_torch.launch.mesh.PartMesh` this session
+        runs across, or None (one device)."""
+        return self._mesh
+
     @property
     def cache_stats(self) -> CacheStats:
         """Cumulative cache accounting, read through the metrics
@@ -496,7 +532,7 @@ class EulerSolver:
                              on_trace=self._c_traces.inc,
                              on_upload=self._c_uploads.inc,
                              trace=self.trace,
-                             timed_probe=self.timed_probe)
+                             timed_probe=self.timed_probe, mesh=self._mesh)
                 if len(self._engines) >= self._engines_max:
                     evicted = next(iter(self._engines))
                     for p in [p for p in self._programs if p[0] == evicted]:
@@ -834,7 +870,9 @@ class EulerSolver:
         session lock (a ``stage`` span); the launch runs outside it (a
         ``launch`` span): a replay is only enqueued, a miss warms up and
         records first.  So the host can prepare the next graph while the
-        card runs this one.  Device backend only."""
+        card runs this one.  Device backend only.  Over a mesh the solve
+        is fetched before this returns: no NCCL launch may overlap a
+        replay there (``launch/mesh.py``)."""
         if self.backend != "device":
             raise ValueError("solve_async is a device-backend path; the "
                              "host engine runs synchronously via solve()")
@@ -849,8 +887,13 @@ class EulerSolver:
                                                t0, drain=False)
                 run = eng.fused_program(key[0])
         pending = self._launch(run, staged, key, hit)
-        return PendingSolve(self, pending, [graph], [tree], key, hit, t0,
-                            timings)
+        solve = PendingSolve(self, pending, [graph], [tree], key, hit, t0,
+                             timings)
+        if self._mesh is not None:
+            # NCCL_GRAPH_MIXING_SUPPORT=0's rule (launch/mesh.py): no
+            # launch while one is outstanding on the mesh's communicator
+            solve.results()
+        return solve
 
     def _launch(self, run: FusedRun, staged, key: BucketKey,
                 hit: bool) -> PendingRun:
@@ -914,6 +957,7 @@ class EulerSolver:
             raise ValueError("solve_batch_async is a device-backend path")
         if len(graphs) == 1:
             return self.solve_async(graphs[0])
+        require_meshless(self._mesh, "solve_batch")
         t0 = time.perf_counter()
         B = len(graphs)
         with self._lock:
@@ -1097,24 +1141,30 @@ class EulerSolver:
         ``gather_circuit=False`` ``circuit`` is the still-sharded rank
         triple ``[n·S, 3]`` and ``mate`` its first column cut to
         ``n_stubs``."""
-        dev, n = mate.device, self.n_parts
+        dev, n, mesh = mate.device, self.n_parts, self._mesh
         marks = [t_start]
-        mate_sh = stub_shards(mate, n, -1)
-        lab = _cc_labels_sharded(mate_sh)
+        mate_sh, sv_sh = stub_shards(mate, n, -1), stub_shards(sv, n, 0)
+        if mesh is not None:       # this rank's shards of the whole mate
+            mate_sh, sv_sh = (x[mesh.rows].contiguous()
+                              for x in (mate_sh, sv_sh))
+        lab = _cc_labels_sharded(mate_sh, mesh=mesh)
         marks.append(drained_clock(dev))
         mate_sh, ok = splice_components_sharded(
-            mate_sh, stub_shards(sv, n, 0), caps.p3v_cap or n_stubs // 2,
-            rounds=caps.phase3_rounds, lab=lab)
+            mate_sh, sv_sh, caps.p3v_cap or n_stubs // 2,
+            rounds=caps.phase3_rounds, lab=lab, mesh=mesh)
         marks.append(drained_clock(dev))
-        dist_sh, reach_sh = _rank_sharded(mate_sh)
+        dist_sh, reach_sh = _rank_sharded(mate_sh, mesh=mesh)
         marks.append(drained_clock(dev))
         if self.gather_circuit:
             circuit, mate = gather_circuit_sharded(mate_sh, dist_sh,
-                                                   reach_sh, n_stubs)
+                                                   reach_sh, n_stubs,
+                                                   mesh=mesh)
         else:
-            circuit = torch.stack([mate_sh, dist_sh, reach_sh],
-                                  dim=-1).reshape(-1, 3)
-            mate = mate_sh.reshape(-1)[:n_stubs]
+            circuit = torch.stack([mate_sh, dist_sh, reach_sh], dim=-1)
+            if mesh is not None:
+                circuit = mesh.fetch(circuit)
+            circuit = circuit.reshape(-1, 3)
+            mate = circuit[:n_stubs, 0]
         marks.append(drained_clock(dev))
         return circuit, mate, ok, marks
 

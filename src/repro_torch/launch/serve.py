@@ -70,7 +70,7 @@ import torch
 from .. import obs
 from ..configs.registry import get_config
 from ..core import capture
-from ..core.engine import drained_clock
+from ..core.engine import drained_clock, require_meshless
 from ..euler.autotune import AutoTuner, FlushLog
 from ..euler.bucket import modal_bucket_pool
 from ..euler.solver import EulerSolver, resolve_device
@@ -114,11 +114,16 @@ class MicroBatcher:
     every submit and flush: an
     :class:`~repro_torch.euler.autotune.AutoTuner` under ``main_euler
     --adaptive``.
+
+    A solver over a partition mesh raises ``NotImplementedError``: the
+    loop's batches and pipelined dispatches are one-device paths
+    (ROADMAP item 9).
     """
 
     def __init__(self, solver, max_batch: int = 8,
                  deadline_s: float = 0.010, clock=time.perf_counter,
                  pipeline_depth: int = 2, autotuner=None):
+        require_meshless(getattr(solver, "mesh", None), "the serving loop")
         if max_batch < 1 or pipeline_depth < 0:
             raise ValueError(
                 f"need max_batch >= 1 and pipeline_depth >= 0, got "
