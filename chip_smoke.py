@@ -10,7 +10,9 @@
                                           # NequIP training, full-width
                                           # StarCoder2-7B and Granite-20B
                                           # serving, the engine over one
-                                          # NCCL rank
+                                          # NCCL rank, the paper's Euler
+                                          # cells and the production
+                                          # mesh's dry run
 
 Phases, each printed on its own line; any failure raises and the script
 exits non-zero:
@@ -151,7 +153,7 @@ exits non-zero:
                 ``solve_many`` of the 8 with ``batch=None`` and
                 ``batch=8`` in turns (three each), graphs a second from
                 the medians, and a B = 8 replay's event time against a
-                one-graph replay's.  At the main scale less one (19)
+                one-graph replay's.  At the main scale less two (18)
                 under ``program_cache_max=1``: seed 0 and the first
                 later seed of its bucket (keys printed), one at a time
                 (seed 0 records, the other replays, seed 0 again), then
@@ -532,6 +534,34 @@ exits non-zero:
                 meshless ones.  A ring planted to send to rank − 1 (at
                 world 1 the local rows roll the wrong way) must change
                 the bytes or fail the solve, eager and fused, at scale 8.
+  18. cells   — the paper's own architecture, ``euler-rmat``
+                (``configs/euler_rmat.py``, ``build_cell``'s Euler half,
+                ``parallel/sharding.py``).  (a) Both cells of the full
+                config (``euler-rmat-512``: every cap as the reference's,
+                10 levels, ``fused_edges`` 4,194,304) built over one NCCL
+                rank holding ``CELL_PARTS`` = 16 partitions (cut from
+                512, one a device) on the Eulerian RMAT graph of
+                ``CELL_SCALE`` 11, the largest whose partitions fit the
+                caps (the scale-20 graph overflows them): each
+                level's ``superstep`` cell byte-equal to the meshless
+                engine's, no kernel launched, every flag holding; the
+                ``fused`` cell (the stub-vertex map padded with vertex 0
+                to 2 · 4,194,304 stubs, those stubs unmated) recorded
+                and replayed, its circuit, mate, flags and metrics
+                byte-equal to the meshless ``FusedRun`` of the same caps,
+                the circuit valid and its padding −1, the recording's
+                K1/K2 launches (24 each) and calls (the budget)
+                counted just around it; ``warmup_s``, ``capture_s``,
+                ``run_s``, peak allocated and reserved.  (b) ``python -m
+                repro_torch.launch.dryrun --arch euler-rmat
+                --both-meshes`` in a process of its own: rank 0 of a
+                ``fake`` world of 256 and of 512 ranks, both cells of the
+                full config (one partition a rank, empty tables) on the
+                card, each with its arguments', outputs', peak and
+                reserved bytes, the ``program_cost_bytes`` model, the
+                bytes each kind of collective sends, the launches and
+                the dominant H100 term; the fused cell's K1/K2 launches
+                are added to the kernel table's.
 
 After each phase from 2 on, a ``[timing]`` line gives the seconds since
 the start.  The last three lines are the kernel table as JSON, the
@@ -579,8 +609,11 @@ from repro_torch.core import capture  # noqa: E402
 from repro_torch.core import phase1 as p1  # noqa: E402
 from repro_torch.core import phase3 as p3  # noqa: E402
 from repro_torch.core.engine import (Engine, FusedRun,  # noqa: E402
-                                     fused_collective_budget)
-from repro_torch.core.graph import Graph  # noqa: E402
+                                     PendingRun, drained_clock,
+                                     fused_collective_budget,
+                                     state_from_numpy, stub_vertex)
+from repro_torch.core.graph import Graph, partition_graph  # noqa: E402
+from repro_torch.core.hierholzer import validate_circuit  # noqa: E402
 from repro_torch.core.phase3 import circuit_from_mate_np  # noqa: E402
 from repro_torch.data.lm import SyntheticLM  # noqa: E402
 from repro_torch.data.recsys import (SyntheticCTR,  # noqa: E402
@@ -593,6 +626,7 @@ from repro_torch.euler.bucket import (TIGHT_DIVISORS,  # noqa: E402
                                       ladder_floors, modal_bucket_pool,
                                       strip_circuit)
 from repro_torch.graphgen.eulerize import eulerian_rmat  # noqa: E402
+from repro_torch.graphgen.partition import partition_vertices  # noqa: E402
 from repro_torch.kernels import build, ref  # noqa: E402
 from repro_torch.kernels import flash_attention as fa  # noqa: E402
 from repro_torch.kernels import graph_loop  # noqa: E402
@@ -1962,7 +1996,7 @@ def check_batch(dev, scale: int = 8, seeds: int = 30,
 
 
 def check_batch_large(scale: int, smi: str, seeds: int = 8) -> None:
-    """Phase 5e at ``scale`` (the main scale less one), P = 8, under
+    """Phase 5e at ``scale`` (the main scale less two), P = 8, under
     ``program_cache_max=1``: seed 0 and the first later seed that shares
     its bucket, one at a time (seed 0 records, the other replays, seed
     0 again replays), then ``solve_batch`` of the two (records a B = 2
@@ -5102,7 +5136,7 @@ def check_nequip_products(arch) -> None:
     say("nequip", check="ogb_products", run=False, padded_atoms=n,
         padded_edges=e, model_flops=f"{cell.model_flops:.6e}",
         t_j_bytes=t_j, t_j_gb=f"{t_j / 1e9:.2f}",
-        waits_for="'ROADMAP item 9 (a mesh), and edge chunking, which the "
+        waits_for="'ROADMAP item 9c (a mesh), and edge chunking, which the "
                   "reference lacks'")
 
 
@@ -5470,6 +5504,204 @@ def check_mesh(scale: int, g, eager: dict, smi: str) -> None:
     say("mesh", seconds=f"{time.perf_counter() - t0:.1f}")
 
 
+#: phase 18: the paper's Euler cells at euler-rmat-512's caps.  The
+#: partitions a rank, cut from the config's 512 (one a device) to what
+#: one card holds, and the largest Eulerian RMAT scale (average degree
+#: 5, seed 0) whose partitions fit every cap there: at scale 12 a lane
+#: overflows at the top merge (flag 3 of level 4,
+#: ``tests/test_torch_cells.py``), and the main path's scale-20 graph
+#: overflows the caps too
+CELL_PARTS, CELL_SCALE = 16, 11
+#: phase 18 (b): the dry run's time limit
+DRYRUN_TIMEOUT = 600
+
+
+def _same_tensors(a, b) -> bool:
+    return all(torch.equal(x, y) for x, y in zip(a, b))
+
+
+def cells_recorded(fn, *args, mesh=None):
+    """``fn(*args)`` with the launch counters (and ``mesh``'s call
+    counts) set to 0 just before each recording of a fused run and read
+    just after, and the timings of every fused run fetched.  Returns
+    ``(out, (launches, calls) recorded, timings)``."""
+    recorded, timings = [], []
+    record, wait = FusedRun._record, PendingRun.wait
+
+    def counted(run):
+        reset_counts()
+        if mesh is not None:
+            mesh.calls.clear()
+        record(run)
+        recorded.append((read_counts(),
+                         None if mesh is None else dict(mesh.calls)))
+
+    def kept(pending):
+        out = wait(pending)
+        timings.append(out[1])
+        return out
+    with mock.patch.object(FusedRun, "_record", counted), \
+            mock.patch.object(PendingRun, "wait", kept):
+        out = fn(*args)
+    return out, (recorded[0] if recorded else (None, None)), timings[-1]
+
+
+def check_cells_full(smi: str) -> dict:
+    """Phase 18 (a) (module docstring).  Returns the fused cell's K1–K4
+    launches recorded."""
+    arch = get_config("euler-rmat")
+    cfg = arch.model
+    c, E, L = cfg.caps, cfg.fused_edges, cfg.n_levels
+    t = time.perf_counter()
+    g = eulerian_rmat(CELL_SCALE, avg_degree=AVG_DEGREE, seed=SEED)
+    pg = partition_graph(g, partition_vertices(g, CELL_PARTS, seed=0))
+    meshless = Engine(CELL_PARTS, c, L)
+    st, anc = meshless.load(pg)
+    anc = np.concatenate([anc, np.repeat(anc[-1:], L - anc.shape[0], 0)])
+    sv = np.zeros(2 * E, np.int64)
+    sv[:2 * g.num_edges] = stub_vertex(pg)
+    state0, anc, sv = state_from_numpy(st, anc, sv, "cuda")
+    prep_s = time.perf_counter() - t
+    say("cells", config=cfg.name, arch="euler-rmat", scale=CELL_SCALE,
+        parts=CELL_PARTS, vertices=g.num_vertices, edges=g.num_edges,
+        fused_edges=E, n_levels=L, tree_height=Engine.plan(pg)[0].height,
+        prep_s=f"{prep_s:.2f}", reduced=f"'partitions 512 -> {CELL_PARTS} "
+        f"on one rank; graph G50-class -> RMAT scale {CELL_SCALE}'",
+        smi=f"'{smi}'")
+    with nccl_world():
+        pm = make_part_mesh(CELL_PARTS)
+        cells = {s: steps.build_cell(arch, s, pm) for s in arch.shapes}
+        shapes = [tuple(x.shape) for x in
+                  cells["superstep"].abstract_inputs[2]]
+        if any(sh[0] != pm.m for sh in shapes):
+            raise AssertionError(f"the cell's abstract state {shapes} is "
+                                 f"not this rank's {pm.m} rows")
+        # superstep: every level against the meshless engine's
+        reset_counts()
+        torch.cuda.reset_peak_memory_stats()
+        state, plain, level_s, same, flags = state0, state0, [], True, True
+        for lvl in range(L):
+            t = drained_clock(pm.device)
+            got = cells["superstep"].fn(lvl, anc, state)
+            level_s.append(drained_clock(pm.device) - t)
+            want = meshless.superstep(lvl, anc, plain)
+            same &= _same_tensors((*got[0], *got[1:]),
+                                  (*want[0], *want[1:]))
+            flags &= bool(got[4].all())
+            state, plain = got[0], want[0]
+        launched = read_counts()
+        say("cells", cell="superstep", levels=L, byte_identical=same,
+            flags_all=flags, launches=sum(launched.values()),
+            level_s="'" + ",".join(f"{x:.4f}" for x in level_s) + "'",
+            peak_gib=f"{torch.cuda.max_memory_allocated() / 2**30:.3f}",
+            reserved_gib=f"{torch.cuda.max_memory_reserved() / 2**30:.3f}")
+        if not (same and flags) or any(launched.values()):
+            raise AssertionError("the superstep cell differs from the "
+                                 "meshless engine, overflowed a cap or "
+                                 "launched a kernel")
+        del state, plain, got, want
+        # fused: record, then replay; the meshless run of the same caps
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        out, (recorded, calls), cold = cells_recorded(
+            cells["fused"].fn, anc, state0, sv, mesh=pm)
+        peak = torch.cuda.max_memory_allocated()
+        reserved = torch.cuda.max_memory_reserved()
+        again, _, warm = cells_recorded(cells["fused"].fn, anc, state0, sv)
+        run = meshless.fused_program(E)
+        plain, (plain_recorded, _), _ = cells_recorded(
+            lambda: run.launch(state0, anc, sv).wait()[0])
+        m = g.num_edges
+        same = all(np.array_equal(getattr(out, f), getattr(plain, f))
+                   and np.array_equal(getattr(again, f), getattr(plain, f))
+                   for f in ("circuit", "mate", "flags", "metrics",
+                             "phase3_ok"))
+        validate_circuit(g, out.circuit[:m])     # raises when invalid
+        unmated = bool((out.circuit[m:] == -1).all()
+                       and (out.mate[2 * m:] == -1).all())
+        budget = {k: v for k, v in expected_calls(
+            fused_collective_budget(L), CELL_PARTS).items() if v}
+        budget["fetch"] = 2
+        say("cells", cell="fused", edges=m, fused_edges=E,
+            byte_identical_to_meshless=same, valid=True,
+            padding_unmated=unmated, flags_all=bool(out.flags.all()),
+            phase3_ok=bool(out.phase3_ok),
+            recorded_launches=json.dumps(recorded, separators=(",", ":")),
+            meshless_recorded_launches=json.dumps(plain_recorded,
+                                                  separators=(",", ":")),
+            recorded_calls=json.dumps(calls, separators=(",", ":")),
+            budget_calls=json.dumps(budget, separators=(",", ":")),
+            warmup_s=f"{cold['warmup_s']:.4f}",
+            capture_s=f"{cold['capture_s']:.4f}",
+            run_s=f"{warm['run_s']:.4f}", cold_run_s=f"{cold['run_s']:.4f}",
+            peak_gib=f"{peak / 2**30:.3f}",
+            reserved_gib=f"{reserved / 2**30:.3f}")
+        rounds = p3.sharded_phase3_schedule(E, CELL_PARTS)["doubling_rounds"]
+        if not (same and unmated and out.flags.all() and out.phase3_ok):
+            raise AssertionError("the fused cell differs from the meshless "
+                                 "run, overflowed or left padding mated")
+        if recorded != plain_recorded or calls != budget or any(
+                recorded[name] != rounds for name in PATH_KERNELS[False]):
+            raise AssertionError(f"the fused cell recorded {recorded} "
+                                 f"launches and {calls} calls; expected "
+                                 f"the meshless {plain_recorded}, "
+                                 f"{rounds} of K1/K2, and {budget}")
+        # the mesh's graph holds NCCL's kernels: free it before the group
+        cells["fused"].engine.evict_program(E, None)
+        run.free()
+        del cells, out, again, plain, run, meshless
+        torch.cuda.empty_cache()
+    return recorded
+
+
+def check_dryrun(smi: str) -> None:
+    """Phase 18 (b): ``python -m repro_torch.launch.dryrun --arch
+    euler-rmat --both-meshes`` in a process of its own; every cell must
+    report its per-rank memory and collective bytes."""
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_dryrun_") as tmp:
+        out = Path(tmp) / "dryrun.json"
+        env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+        t = time.perf_counter()
+        p = subprocess.run(
+            [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
+             "euler-rmat", "--both-meshes", "--json", str(out)],
+            env=env, capture_output=True, text=True, timeout=DRYRUN_TIMEOUT)
+        seconds = time.perf_counter() - t
+        for line in p.stdout.splitlines():
+            if line.strip():
+                print(line, flush=True)
+        if p.returncode:
+            raise AssertionError(f"the dry run exited {p.returncode}: "
+                                 f"{p.stderr[-3000:]}")
+        recs = json.loads(out.read_text())
+    for r in recs:
+        mem = r["memory"]
+        say("dryrun", cell=r["shape"], mesh="x".join(map(str, r["mesh"])),
+            world=r["world"], per_rank=r["partitions_per_rank"],
+            argument_bytes=mem["argument_bytes"],
+            output_bytes=mem["output_bytes"],
+            peak_bytes=mem["peak_allocated_bytes"],
+            reserved_bytes=mem["peak_reserved_bytes"],
+            model_bytes=mem["program_cost_bytes"],
+            collective_bytes=json.dumps(r["collectives"]["sent_bytes"],
+                                        separators=(",", ":")),
+            calls=json.dumps(r["collectives"]["calls"],
+                             separators=(",", ":")),
+            launches=json.dumps(r["launches"], separators=(",", ":")),
+            call_s=f"{r['call_s']:.4f}",
+            replay_s=None if r["replay_s"] is None
+            else f"{r['replay_s']:.4f}",
+            dominant=r["dominant"], smi=f"'{smi}'")
+    cells = sorted((r["shape"], r["world"]) for r in recs)
+    if cells != [("fused", 256), ("fused", 512), ("superstep", 256),
+                 ("superstep", 512)] or any(
+            not r["memory"]["peak_allocated_bytes"]
+            or not r["collectives"]["sent_bytes"] for r in recs):
+        raise AssertionError(f"the dry run reported {cells}, or a cell "
+                             f"without its memory or collective bytes")
+    say("dryrun", seconds=f"{seconds:.1f}")
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--scale", type=int, default=20,
@@ -5595,7 +5827,7 @@ def main(argv=None) -> int:
 
     # ---- 5e. batched solves: one program per (bucket, B) ----
     check_batch(dev)
-    check_batch_large(args.scale - 1, smi)
+    check_batch_large(args.scale - 2, smi)
     phase_done("5e")
 
     # ---- 5f. the reference's host engine beside the device solve ----
@@ -5654,6 +5886,15 @@ def main(argv=None) -> int:
     del results, g
     PREPARED.clear()
     phase_done("17")
+
+    # ---- 18. the Euler cells at the full config's caps; the dry run ----
+    t = time.perf_counter()
+    torch.cuda.empty_cache()
+    for name, n in check_cells_full(smi).items():
+        launches[name] += n
+    check_dryrun(smi)
+    say("cells", seconds=f"{time.perf_counter() - t:.1f}")
+    phase_done("18")
 
     print(json.dumps({"kernels": [
         {"name": name, **KERNELS[name], "launches": launches[name],

@@ -1,12 +1,13 @@
 """Arch registry: --arch <id> → ArchConfig (mirrors
-``repro/configs/registry.py``, in its order; lists every architecture
-but ``euler-rmat``, whose cells wait for the mesh)."""
+``repro/configs/registry.py``, every architecture in its order).
+``euler-rmat``'s cells run over a mesh only (``launch/steps.py``)."""
 from importlib import import_module
 
 ARCH_IDS = ["starcoder2-7b", "granite-20b", "smollm-360m",
             "qwen2-moe-a2.7b", "qwen3-moe-235b-a22b",
             "gat-cora", "pna", "gcn-cora", "nequip",
-            "autoint"]
+            "autoint",
+            "euler-rmat"]
 
 _MODULES = {"starcoder2-7b": "starcoder2_7b",
             "granite-20b": "granite_20b",
@@ -17,18 +18,11 @@ _MODULES = {"starcoder2-7b": "starcoder2_7b",
             "pna": "pna",
             "gcn-cora": "gcn_cora",
             "nequip": "nequip",
-            "autoint": "autoint"}
-
-
-#: the reference's architectures the port does not have yet, and why
-NOT_PORTED = {"euler-rmat": "ROADMAP queue 1 item 9: the Euler cells need "
-                            "the mesh specs of parallel/sharding.py"}
+            "autoint": "autoint",
+            "euler-rmat": "euler_rmat"}
 
 
 def get_config(arch_id: str, reduced: bool = False):
-    if arch_id in NOT_PORTED:
-        raise KeyError(f"{arch_id!r} is not ported yet "
-                       f"({NOT_PORTED[arch_id]}); the port has {ARCH_IDS}")
     mod = import_module(f"{__package__}.{_MODULES[arch_id]}")
     cfg = mod.CONFIG
     return cfg.reduced() if reduced else cfg

@@ -254,10 +254,10 @@ def stub_shards(x: torch.Tensor, n: int, fill: int) -> torch.Tensor:
 
 def require_meshless(mesh, what: str) -> None:
     """Over a mesh the engine solves one graph at a time: ``what`` raises
-    ``NotImplementedError`` there (ROADMAP item 9)."""
+    ``NotImplementedError`` there (ROADMAP item 9c)."""
     if mesh is not None:
         raise NotImplementedError(
-            f"{what} over a partition mesh is not ported (ROADMAP item 9); "
+            f"{what} over a partition mesh is not ported (ROADMAP item 9c); "
             f"solve one graph at a time")
 
 
@@ -1473,7 +1473,7 @@ class FusedRun:
                 f"into a CUDA graph; the last collective called was "
                 f"{mesh.last_call} (launch/mesh.py: NCCL records its "
                 f"point-to-point kernel inside a CUDA while node only "
-                f"under NCCL_GRAPH_MIXING_SUPPORT=0; ROADMAP item 9): "
+                f"under NCCL_GRAPH_MIXING_SUPPORT=0; ROADMAP item 9a): "
                 f"{e}") from e
         if self.audit:
             self.graph_census = capture.graph_census(graph, loops, dev)

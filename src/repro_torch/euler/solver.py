@@ -83,7 +83,7 @@ makes the superstep's exchanges, the mate route and Phase 3's rings,
 psums and gathers as collectives (``core/engine.py``); every rank returns
 the same :class:`EulerResult`, byte for byte the meshless solve's.  Fused
 and eager runs and all three Phase 3 modes run over a mesh; batches and
-the serving loop raise ``NotImplementedError`` there (ROADMAP item 9), as
+the serving loop raise ``NotImplementedError`` there (ROADMAP item 9c), as
 does ``backend="host"``.  Not ported yet: on the device backend the
 ``deferred_transfer=False`` baseline (raises; ROADMAP queue 3).
 

@@ -51,6 +51,28 @@ the open census (``core/capture.py``) as ``dist:<kind>``:
   * ``fetch`` — the gather of a sharded output that the reference's host
     fetch makes outside its program (flags, metrics, the rank shards
     under ``gather_circuit=False``), and the eager path's log gathers.
+
+Each call also adds the bytes it sends from this rank to
+:attr:`PartMesh.sent_bytes` under its kind: the whole send buffer of an
+``all_to_all`` (its chunk to this rank included, as the reference's
+operand is), the row a ring step sends, the tensor an ``all_reduce``
+reduces, the shard a gather sends.  The dry run (``launch/dryrun.py``)
+reports them where the reference parses the collectives of its HLO.
+
+The production mesh (the counterpart of the reference's
+``make_production_mesh`` and ``make_test_mesh``) is a
+``torch.distributed.device_mesh.DeviceMesh`` over the world:
+:func:`make_production_mesh` ``(16, 16)`` ``("data", "model")`` or,
+multi-pod, ``(2, 16, 16)`` ``("pod", "data", "model")``;
+:func:`make_test_mesh` ``(n // tp, tp)``.  Neither initialises a group.
+The Euler engine lays one partition on each device of such a mesh, its
+axes flattened row-major (:func:`part_mesh_of`), as the reference's
+``P(axes, None)`` does.  A world of torch's ``fake`` backend (one rank
+of a production world in one process, the dry run's) moves no data:
+its :class:`PartMesh` zero-fills what it receives, so what a rank reads
+does not depend on what the backend leaves in the receive buffers
+(torch 2.11's ``fake`` leaves them as allocated, 2.13's copies the
+input in), and a zero mask receives nothing.
 """
 from __future__ import annotations
 
@@ -58,7 +80,7 @@ import dataclasses
 import os
 import warnings
 from collections import Counter
-from typing import List, Optional
+from typing import List, Optional, Tuple
 
 import torch
 import torch.distributed as dist
@@ -98,7 +120,17 @@ class PartMesh:
     device: torch.device
     backend: str
     calls: Counter = dataclasses.field(default_factory=Counter)
+    sent_bytes: Counter = dataclasses.field(default_factory=Counter)
     last_call: Optional[str] = None
+
+    #: the mesh's one axis, as the reference names a partition mesh's
+    mesh_dim_names = ("part",)
+
+    @property
+    def shape(self) -> Tuple[int]:
+        """The mesh's shape, ``(world,)``: a 1-D mesh whose devices hold
+        ``m`` partitions each (``parallel/sharding.py::local_shape``)."""
+        return (self.world,)
 
     @property
     def m(self) -> int:
@@ -121,10 +153,18 @@ class PartMesh:
         return torch.arange(self.first, self.first + self.m, dtype=dtype,
                             device=self.device)
 
-    def _count(self, kind: str, call: str) -> None:
+    def _count(self, kind: str, call: str,
+               sent: Optional[torch.Tensor] = None) -> None:
         self.calls[kind] += 1
+        if sent is not None:
+            self.sent_bytes[kind] += sent.numel() * sent.element_size()
         self.last_call = call
         capture.note(f"dist:{kind}")
+
+    def _received(self, out: torch.Tensor) -> torch.Tensor:
+        """``out`` as a call left it; zeros under ``fake`` (module
+        docstring)."""
+        return out.zero_() if self.backend == "fake" else out
 
     # ------------------------------------------------------------------
     # the collectives
@@ -133,19 +173,19 @@ class PartMesh:
         """Chunk r of ``send`` (its first axis cut in ``world`` equal
         chunks) to rank r; returns what every rank sent here, chunk r
         from rank r."""
-        self._count("all_to_all", "all_to_all_single")
         x = _wire(send)
+        self._count("all_to_all", "all_to_all_single", x)
         out = torch.empty_like(x)
         dist.all_to_all_single(out, x, group=self.group)
-        return _unwire(out, send.dtype)
+        return _unwire(self._received(out), send.dtype)
 
     def ring(self, x: torch.Tensor, dim: int = 0) -> torch.Tensor:
         """One ``ppermute`` step along the ring i → i+1 of ``x``'s
         partition axis ``dim`` (``m`` local rows): row i takes row i − 1,
         row 0 the last row of rank − 1."""
-        self._count("ring", "all_to_all_single")
         m = x.shape[dim]
         last = _wire(x.narrow(dim, m - 1, 1)).reshape(-1)
+        self._count("ring", "all_to_all_single", last)
         got = torch.empty_like(last)
         sends = [0] * self.world
         recvs = [0] * self.world
@@ -154,20 +194,20 @@ class PartMesh:
         dist.all_to_all_single(got, last, recvs, sends, group=self.group)
         shape = list(x.shape)
         shape[dim] = 1
-        return torch.cat([_unwire(got, x.dtype).view(shape),
+        return torch.cat([_unwire(self._received(got), x.dtype).view(shape),
                           x.narrow(dim, 0, m - 1)], dim)
 
     def psum(self, x: torch.Tensor) -> torch.Tensor:
         """The sum of ``x`` over the ranks (a new tensor)."""
-        self._count("all_reduce", "all_reduce")
         out = x.clone()
+        self._count("all_reduce", "all_reduce", out)
         dist.all_reduce(out, group=self.group)
         return out
 
     def any(self, flags: torch.Tensor) -> torch.Tensor:
         """Whether each bool of ``flags`` holds on any rank."""
-        self._count("all_reduce", "all_reduce")
         out = flags.to(torch.int32)
+        self._count("all_reduce", "all_reduce", out)
         dist.all_reduce(out, op=dist.ReduceOp.MAX, group=self.group)
         return out > 0
 
@@ -176,18 +216,18 @@ class PartMesh:
         out = torch.empty((self.world * w.shape[0], *w.shape[1:]),
                           dtype=w.dtype, device=w.device)
         dist.all_gather_into_tensor(out, w, group=self.group)
-        return _unwire(out, x.dtype)
+        return _unwire(self._received(out), x.dtype)
 
     def all_gather(self, x: torch.Tensor) -> torch.Tensor:
         """The tiled ``all_gather`` of ``x``'s first axis: ``[m, ·]`` →
         ``[n_parts, ·]``, rank order."""
-        self._count("all_gather", "all_gather_into_tensor")
+        self._count("all_gather", "all_gather_into_tensor", x)
         return self._gather(x)
 
     def fetch(self, x: torch.Tensor) -> torch.Tensor:
         """:meth:`all_gather` of an output, counted apart (module
         docstring)."""
-        self._count("fetch", "all_gather_into_tensor")
+        self._count("fetch", "all_gather_into_tensor", x)
         return self._gather(x)
 
 
@@ -220,7 +260,18 @@ def _local_device(backend: str, device) -> torch.device:
                 "a gloo group carries the mesh on the CPU, and only when "
                 "asked: pass device='cpu' (the card's mesh runs on NCCL)")
         return torch.device("cpu")
-    raise ValueError(f"the partition mesh runs on nccl or gloo, not "
+    if backend == "fake":
+        if device is not None and torch.device(device).type == "cpu":
+            return torch.device("cpu")
+        dev = torch.device("cuda", int(os.environ.get("LOCAL_RANK", 0))) \
+            if device is None else torch.device(device)
+        if dev.type != "cuda" or not torch.cuda.is_available():
+            raise RuntimeError(
+                f"a fake group's mesh runs on the card unless the caller "
+                f"passes device='cpu'; got device={device!r}, CUDA "
+                f"available: {torch.cuda.is_available()}")
+        return dev
+    raise ValueError(f"the partition mesh runs on nccl, gloo or fake, not "
                      f"{backend!r}")
 
 
@@ -230,13 +281,9 @@ def make_part_mesh(n_parts: int, group: Optional[dist.ProcessGroup] = None,
     ``group`` (default: the default group), which the caller has
     initialised (under NCCL with ``NCCL_GRAPH_MIXING_SUPPORT=0`` set
     first: module docstring).  ``n_parts`` must divide by the world size.
-    ``device``: default ``cuda:LOCAL_RANK`` under NCCL; ``"cpu"`` with
-    gloo."""
-    if not dist.is_available() or not dist.is_initialized():
-        raise RuntimeError(
-            "make_part_mesh needs an initialised process group "
-            "(torch.distributed.run, or init_process_group); it never "
-            "initialises one")
+    ``device``: default ``cuda:LOCAL_RANK`` under NCCL and ``fake``;
+    ``"cpu"`` with gloo, and with ``fake`` when asked."""
+    _require_group("make_part_mesh")
     world = dist.get_world_size(group)
     rank = dist.get_rank(group)
     n_parts = int(n_parts)
@@ -246,6 +293,83 @@ def make_part_mesh(n_parts: int, group: Optional[dist.ProcessGroup] = None,
     backend = str(dist.get_backend(group))
     return PartMesh(group=group, rank=rank, world=world, n_parts=n_parts,
                     device=_local_device(backend, device), backend=backend)
+
+
+def _require_group(what: str) -> None:
+    if not dist.is_available() or not dist.is_initialized():
+        raise RuntimeError(
+            f"{what} needs an initialised process group "
+            f"(torch.distributed.run, or init_process_group); it never "
+            f"initialises one")
+
+
+def _device_type(device) -> str:
+    """``cuda`` unless the caller asks for the CPU."""
+    return "cpu" if device is not None and \
+        torch.device(device).type == "cpu" else "cuda"
+
+
+def make_production_mesh(*, multi_pod: bool = False, device=None):
+    """The production mesh over the world the caller initialised:
+    ``(16, 16)`` ``("data", "model")`` = 256 devices, or with
+    ``multi_pod`` ``(2, 16, 16)`` ``("pod", "data", "model")`` = 512
+    (the reference's).  The world must have that many ranks; the dry run
+    makes one of torch's ``fake`` backend.  On the card unless
+    ``device="cpu"``."""
+    from torch.distributed.device_mesh import init_device_mesh
+
+    _require_group("make_production_mesh")
+    shape = (2, 16, 16) if multi_pod else (16, 16)
+    axes = ("pod", "data", "model") if multi_pod else ("data", "model")
+    return init_device_mesh(_device_type(device), shape,
+                            mesh_dim_names=axes)
+
+
+def make_test_mesh(n_devices: int = 0, tp: int = 1, device=None):
+    """Small ``(n // tp, tp)`` ``("data", "model")`` mesh over the first
+    ``n_devices`` ranks of the world (0: all of them), for tests and
+    smoke runs.  On the card unless ``device="cpu"``."""
+    from torch.distributed.device_mesh import DeviceMesh, init_device_mesh
+
+    _require_group("make_test_mesh")
+    world = dist.get_world_size()
+    n = n_devices or world
+    if n % tp or n > world:
+        raise ValueError(f"{n} devices over tp={tp} in a world of {world}")
+    shape, axes = (n // tp, tp), ("data", "model")
+    if n == world:
+        return init_device_mesh(_device_type(device), shape,
+                                mesh_dim_names=axes)
+    return DeviceMesh(_device_type(device), torch.arange(n).view(shape),
+                      mesh_dim_names=axes)
+
+
+def flat_axes(mesh) -> Tuple[str, ...]:
+    """Every axis of ``mesh``, the Euler engine's one partition axis."""
+    return tuple(mesh.mesh_dim_names)
+
+
+def part_mesh_of(mesh) -> PartMesh:
+    """The :class:`PartMesh` of a ``DeviceMesh`` with all its axes
+    flattened row-major: one partition a device, as the reference's
+    ``P(axes, None)`` lays them.  A mesh holding the whole world in rank
+    order runs over the default group; any other over the group of
+    ``DeviceMesh._flatten()``, whose ranks must number in the mesh's
+    row-major order."""
+    world = dist.get_world_size()
+    ranks = mesh.mesh.flatten().tolist()
+    if ranks == list(range(world)):
+        group = None
+    elif mesh.ndim == 1:
+        group = mesh.get_group()
+    else:
+        group = mesh._flatten().get_group()
+    pm = make_part_mesh(mesh.size(), group=group,
+                        device="cpu" if mesh.device_type == "cpu" else None)
+    if pm.rank != ranks.index(dist.get_rank()):
+        raise ValueError(f"the mesh's group numbers its ranks otherwise "
+                         f"than the mesh's row-major order {ranks}")
+    return pm
 
 
 def ring_calls(n_parts: int, schedule: dict) -> int:
@@ -274,4 +398,5 @@ def expected_calls(budget: dict, n_parts: int) -> dict:
 
 
 __all__: List[str] = ["NCCL_GRAPH_MIXING", "PartMesh", "make_part_mesh",
-                      "ring_calls", "expected_calls"]
+                      "make_production_mesh", "make_test_mesh", "flat_axes",
+                      "part_mesh_of", "ring_calls", "expected_calls"]

@@ -117,7 +117,7 @@ class MicroBatcher:
 
     A solver over a partition mesh raises ``NotImplementedError``: the
     loop's batches and pipelined dispatches are one-device paths
-    (ROADMAP item 9).
+    (ROADMAP item 9c).
     """
 
     def __init__(self, solver, max_batch: int = 8,

@@ -1,26 +1,37 @@
 """Resolve (arch × shape) → step function and abstract inputs (mirrors
-the LM, GNN, NequIP and recsys halves of ``repro/launch/steps.py``).
+``repro/launch/steps.py``).
 
 :func:`build_cell` is the one entry point, as in the reference: the
 trainer runs its ``train`` cell, and its ``prefill`` and ``decode`` cells
 are the port's serving steps; a GNN arch's cells each train on one
 padded graph; NequIP's train on padded point clouds (``molecule`` on
 energies and forces, by a second-order gradient); the recsys arch's
-cells train, serve or retrieve.  The port runs on one device, so there
-is no mesh and no sharding: abstract inputs are ``meta`` tensors, and a
-``mesh`` raises (ROADMAP queue 1 item 9), as does the Euler family (the
-same item: its cells take ``parallel/sharding.py``'s mesh specs).  Steps
-run eagerly; a train step updates the parameters and the optimizer
-state in place (the reference donates them).
+cells train, serve or retrieve.  These families run on one device, with
+no mesh and no sharding: abstract inputs are ``meta`` tensors, and a
+``mesh`` raises (their mesh is ROADMAP queue 1 item 9c).  Steps run
+eagerly; a train step updates the parameters and the optimizer state in
+place (the reference donates them).
+
+The Euler family (``euler-rmat``) runs only over a mesh, as in the
+reference: a ``DeviceMesh`` (``launch/mesh.py``, one partition a device,
+all axes flattened) or a :class:`~repro_torch.launch.mesh.PartMesh`
+(its partitions over its ranks).  Its cells' abstract inputs are this
+rank's ``meta`` tensors, sized by ``parallel/sharding.py``'s specs
+(:func:`~repro_torch.parallel.sharding.local_shape`), as the reference's
+``in_shardings`` size them; ``superstep`` runs one level
+(:meth:`Engine.superstep`), ``fused`` the bucket's whole run
+(:class:`FusedRun`).
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable, NamedTuple, Tuple
+from typing import Any, Callable, NamedTuple, Optional, Tuple
 
+import numpy as np
 import torch
 
 from ..configs.base import ArchConfig, ShapeCell
+from ..core.engine import Engine, EngineState
 from ..models import gnn as gnn_mod
 from ..models.equivariant import (AtomsBatch, NequIPConfig,
                                   abstract_nequip_params,
@@ -34,7 +45,9 @@ from ..models.transformer import (LMConfig, abstract_kv_cache,
                                   prefill_step)
 from ..optim.adamw import adamw_update, init_adamw
 from ..optim.schedule import warmup_cosine
+from ..parallel import sharding as shd
 from ..tree import tree_leaves, tree_map, tree_unflatten
+from .mesh import PartMesh, flat_axes, part_mesh_of
 
 
 class Cell(NamedTuple):
@@ -44,6 +57,7 @@ class Cell(NamedTuple):
     abstract_inputs: Tuple       # meta-tensor trees matching fn's args
     model_flops: float           # analytic useful FLOPs of one call
     note: str = ""
+    engine: Optional[Any] = None  # an Euler cell's Engine (and its mesh)
 
 
 def _lm_train_flops(cfg: LMConfig, cell: ShapeCell) -> float:
@@ -318,6 +332,60 @@ def build_recsys_cell(arch: ArchConfig, cell: ShapeCell) -> Cell:
     raise ValueError(cell.kind)
 
 
+# ---------------------------------------------------------------------------
+# Euler cells (the paper's own architecture)
+# ---------------------------------------------------------------------------
+
+def build_euler_cell(arch: ArchConfig, cell: ShapeCell, mesh) -> Cell:
+    """The reference's ``build_euler_cell`` over ``mesh``: an
+    :class:`Engine` over the mesh's :class:`PartMesh` with the config's
+    caps and ``n_levels`` and the reference's defaults (replicated Phase
+    3, the circuit gathered)."""
+    ecfg = arch.model
+    pm = mesh if isinstance(mesh, PartMesh) else part_mesh_of(mesh)
+    axes = flat_axes(mesh)
+    eng = Engine(pm.n_parts, ecfg.caps, ecfg.n_levels, mesh=pm)
+    n, c = eng.n, ecfg.caps
+    width = {"pk": c.park_cap, "op": c.open_cap, "tc": c.touch_cap,
+             "le": c.edge_cap}
+    specs = shd.euler_state_specs(mesh, axes)
+    state_abs = EngineState(*(
+        _meta(shd.local_shape((n, width[f[:2]]), spec, mesh),
+              torch.bool if f.endswith("_mask") else torch.int32)
+        for f, spec in zip(EngineState._fields, specs)))
+    anc_abs = _meta(shd.local_shape((ecfg.n_levels, n), shd.P(None, None),
+                                    mesh), torch.int32)
+
+    # estimate useful work: sort + pairing + CC over the pool
+    pool = 2 * c.new_cap + c.open_cap
+    flops = float(n * pool * np.log2(max(2, pool)) * 8)
+
+    if cell.name == "fused":
+        # the whole run: the levels, the mate route and Phase 3, one
+        # recorded graph on a card, one synchronization
+        E = ecfg.fused_edges or n * c.edge_cap
+        run = eng.fused_program(E)
+        sv_abs = _meta(shd.local_shape((2 * E,), shd.P(None), mesh),
+                       torch.int32)
+
+        def fused(anc, state, sv):
+            return run.launch(state, anc, sv).wait()[0]
+
+        p3 = float(2 * E * np.log2(max(2, 2 * E)) * 6)  # splice + list-rank
+        return Cell(fused, (anc_abs, state_abs, sv_abs),
+                    flops * ecfg.n_levels + p3,
+                    note="the full fused run: all levels + mate "
+                         "accumulation + device Phase 3, one host sync",
+                    engine=eng)
+
+    def superstep(lvl, anc, state):
+        return eng.superstep(int(lvl), anc, state)
+
+    return Cell(superstep, (_meta((), torch.int32), anc_abs, state_abs),
+                flops, note="one BSP superstep (ship + Phase 1) on the "
+                            "mesh", engine=eng)
+
+
 BUILDERS = {"lm": build_lm_cell, "gnn": build_gnn_cell,
             "nequip": build_nequip_cell, "recsys": build_recsys_cell}
 
@@ -330,12 +398,15 @@ def build_cell(arch: ArchConfig, shape_name: str, mesh=None) -> Cell:
     cell = arch.shapes[shape_name]
     if cell.skip:
         raise SkippedCell(cell.skip)
+    if arch.family == "euler":
+        if mesh is None:
+            raise ValueError(
+                f"the {arch.arch_id} cells run over a mesh, as the "
+                f"reference's: pass mesh= (launch/mesh.py: "
+                f"make_production_mesh, make_test_mesh or make_part_mesh)")
+        return build_euler_cell(arch, cell, mesh)
     if mesh is not None:
-        raise NotImplementedError("the port runs on one device; a mesh "
-                                  "waits for ROADMAP queue 1 item 9")
-    if arch.family not in BUILDERS:
-        raise NotImplementedError(f"{arch.family} cells are not ported yet "
-                                  f"(ROADMAP queue 1 item 9: the Euler "
-                                  f"cells need parallel/sharding.py's "
-                                  f"mesh specs)")
+        raise NotImplementedError(f"{arch.family} cells run on one device; "
+                                  f"their mesh waits for ROADMAP queue 1 "
+                                  f"item 9c")
     return BUILDERS[arch.family](arch, cell)

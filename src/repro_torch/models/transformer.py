@@ -22,7 +22,7 @@ the reference does.  Prefill attention runs the K6 kernel through
 (``gqa_attention`` with ``kv_len``), as in the reference.  A MoE layer's
 FFN is ``models.moe.moe_ffn`` on one device, which the reference's
 ``_layer_fwd`` takes whenever it has no mesh; the sharding constraints
-and ``moe_ffn_ep`` wait for a mesh (ROADMAP queue 1 item 9).
+and ``moe_ffn_ep`` wait for a mesh (ROADMAP queue 1 item 9c).
 """
 from __future__ import annotations
 

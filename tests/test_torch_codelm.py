@@ -135,9 +135,11 @@ def test_every_registered_lm_config_has_a_head_width_k6_takes():
 
 
 def test_euler_rmat_waits_for_the_mesh():
-    with pytest.raises(KeyError, match="item 9"):
-        registry.get_config("euler-rmat")
-    assert "euler-rmat" not in registry.ARCH_IDS
+    """``euler-rmat`` is registered, last; its cells need a mesh."""
+    arch = registry.get_config("euler-rmat")
+    assert registry.ARCH_IDS[-1] == "euler-rmat" and arch.family == "euler"
+    with pytest.raises(ValueError, match="mesh"):
+        steps.build_cell(arch, "superstep")
 
 
 def _layer_key(path):

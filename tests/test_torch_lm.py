@@ -176,8 +176,15 @@ def test_configs_match_the_reference(arch):
 
 
 def test_registry_and_config_refuse_what_is_not_ported():
-    with pytest.raises(KeyError, match="ROADMAP"):
-        registry.get_config("euler-rmat")
+    """Every architecture of the reference is ported, in its order (the
+    last, ``euler-rmat``, since its cells run over a mesh); an id the
+    reference lacks raises."""
+    from repro.configs import registry as jregistry
+
+    assert registry.ARCH_IDS == jregistry.ARCH_IDS
+    assert registry.get_config("euler-rmat").family == "euler"
+    with pytest.raises(KeyError):
+        registry.get_config("no-such-arch")
 
 
 # ----------------------------------------------------------- the slice --

@@ -386,10 +386,10 @@ def test_build_cell_abstract_inputs_and_other_cells():
     assert cache.k.shape == (2, 128, 32768, 1, 32)
     with pytest.raises(steps.SkippedCell):
         steps.build_cell(arch, "long_500k")
-    with pytest.raises(NotImplementedError, match="item 9"):
+    with pytest.raises(NotImplementedError, match="item 9c"):
         steps.build_cell(arch, "train_4k", mesh=object())
     euler = dataclasses.replace(arch, family="euler")
-    with pytest.raises(NotImplementedError, match="item 9"):
+    with pytest.raises(ValueError, match="mesh"):
         steps.build_cell(euler, "train_4k")
 
 
