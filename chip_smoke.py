@@ -38,11 +38,28 @@ exits non-zero:
                 54), each replay of a seeded countdown held to the rounds
                 and bytes of its twin driving the same loop on the host,
                 timed as one test a round of a node around the test
-                alone;
+                alone; then K1 and K2 at N = 8,388,608 on seeded records
+                of which 4,096 point at −1, −N, N or N + 5: bit-equal to
+                the twins, which read such a pointer as a jnp gather
+                does (``check=gather_rule``), with no fault;
   4. parity   — a scale-8, 2-partition eager solve (``fused=False``) on
                 ``cuda`` and on ``cpu`` in each Phase 3 mode (sharded, the
                 default; replicated; ``gather_circuit=False``): every
                 circuit and mate byte-identical, all validated;
+  4b. repair  — an overflowing solve returns its flags: the scale-8,
+                P = 8 modal bucket's replicated engine with its open
+                table cut to 80 (``REPAIR_*``), fused, seed 12 (which
+                overflows and leaves the walk's start without a
+                predecessor: the halt at −1) and seed 2 (which fits),
+                each alone and as a B = 2 batch with seed 12 first, on
+                ``cuda`` (launch counters set to 0 before and read
+                after: K1/K2 launched) and on ``cpu``: every output of
+                the card byte-equal to the CPU's, each batch member
+                byte-equal to its own run; flags and ``phase3_ok``
+                printed.  ``python3 chip_smoke.py --overflow-cell`` runs
+                only phases 1–2 and the meshless fused run of
+                euler-rmat-512's full caps at P = 16 on the main path's
+                graph, which overflows them (``[overflow]``);
   5. slice    — the main path: ``repro_torch.euler.solve`` of an Eulerian
                 RMAT graph (scale 20, average degree 5, seed 0) with 8
                 partitions on ``cuda``, eagerly (``fused=False``, each
@@ -108,10 +125,10 @@ exits non-zero:
                 (copies of their edge arrays, so the prep memo misses),
                 solved in sequence with ``solve``, and pipelined:
                 ``solve_async(A)``, ``solve_async(B)``, whose host prep
-                runs while A replays, then ``result()`` of each; three
-                times each in turns (sequence, pipeline, pipeline,
-                sequence, sequence, pipeline, each in new objects, their
-                memo entries and states dropped after), ``seq_s`` and
+                runs while A replays, then ``result()`` of each; twice
+                each in turns (sequence, pipeline, pipeline, sequence,
+                each in new objects, their memo entries and states
+                dropped after), ``seq_s`` and
                 ``pipelined_s`` the means, and the saving less the
                 difference of the two ways' host prep and upload
                 seconds (the overlap alone).  First, the host seconds of
@@ -153,7 +170,7 @@ exits non-zero:
                 ``solve_many`` of the 8 with ``batch=None`` and
                 ``batch=8`` in turns (three each), graphs a second from
                 the medians, and a B = 8 replay's event time against a
-                one-graph replay's.  At the main scale less two (18)
+                one-graph replay's.  At the main scale less three (17)
                 under ``program_cache_max=1``: seed 0 and the first
                 later seed of its bucket (keys printed), one at a time
                 (seed 0 records, the other replays, seed 0 again), then
@@ -531,9 +548,25 @@ exits non-zero:
                 eager sharded solve (each level's logs gathered); each
                 byte-equal to phase 5's meshless solve, its times and
                 peak memory printed beside phase 5b's and phase 5's
-                meshless ones.  A ring planted to send to rank − 1 (at
-                world 1 the local rows roll the wrong way) must change
-                the bytes or fail the solve, eager and fused, at scale 8.
+                meshless ones.  Batches over the mesh
+                (``[mesh] run=batch``): seed 0's scale-16 graph and the
+                first later seed of its bucket as ``[g0, g1]`` and
+                ``[g0, g1, g0, g1]`` (``MESH_BATCH_*``), sharded and
+                replicated, each width recorded and replayed over the
+                mesh and without it: byte-equal, the recording's calls
+                the one-graph budget, its K1–K4 launches the meshless
+                recording's, warm ``run_s`` beside meshless.  The
+                serving loop over the mesh (``[mesh] run=serve``):
+                ``main_euler`` in-process with phase 5g's arguments,
+                ``--widths 8 --sync-prewarm`` and 256 requests at
+                pipeline depth 2 and 0, over the mesh and without it:
+                every request's circuit and mate byte-equal, one flush
+                broadcast a dispatch and the stop, K3/K4 launched (the
+                launch counters set to 0 before each run and read
+                after); circuits/s and p50/p95 beside meshless.  A ring
+                planted to send to rank − 1 (at world 1 the local rows
+                roll the wrong way) must change the bytes or fail the
+                solve, eager and fused, at scale 8.
   18. cells   — the paper's own architecture, ``euler-rmat``
                 (``configs/euler_rmat.py``, ``build_cell``'s Euler half,
                 ``parallel/sharding.py``).  (a) Both cells of the full
@@ -608,8 +641,8 @@ from repro_torch.configs.registry import get_config  # noqa: E402
 from repro_torch.core import capture  # noqa: E402
 from repro_torch.core import phase1 as p1  # noqa: E402
 from repro_torch.core import phase3 as p3  # noqa: E402
-from repro_torch.core.engine import (Engine, FusedRun,  # noqa: E402
-                                     PendingRun, drained_clock,
+from repro_torch.core.engine import (Engine, FusedOut,  # noqa: E402
+                                     FusedRun, PendingRun, drained_clock,
                                      fused_collective_budget,
                                      state_from_numpy, stub_vertex)
 from repro_torch.core.graph import Graph, partition_graph  # noqa: E402
@@ -726,6 +759,16 @@ K6_BF16_TOL = 5e-2
 #: position (0.15 in f32, 0.16 in bf16 on the H100).
 DECODE_F32_TOL = 1e-4
 DECODE_BF16_TOL = 0.1
+#: phase 5d's turns at the main scale, two a way
+ASYNC_TURNS = ("seq", "pipe", "pipe", "seq")
+#: phase 3's repair check: records of the main path's N with an
+#: out-of-range pointer
+GATHER_RULE_ROWS = 4096
+#: phase 4b: tests/test_torch_halt.py's overflowing solve: the scale-8,
+#: P = 8 modal bucket's engine with its open table cut to REPAIR_OPEN_CAP
+#: overflows on seed 12 and leaves the start's sibling unmated (the
+#: reference's halt at −1); seed 2 fits
+REPAIR_SCALE, REPAIR_OPEN_CAP, REPAIR_SEEDS = 8, 80, (12, 2)
 #: the kernels each Phase 3 path runs, by the solver's sharded_phase3
 PATH_KERNELS = {False: ("pointer_double", "pointer_double_rank"),
                 True: ("pointer_double_shard", "pointer_double_rank_shard")}
@@ -1026,7 +1069,37 @@ def check_kernels(dev, rounds: int) -> dict:
         table[name] = _timed_row(name, kernel, twin, ins, outs, {}, one,
                                  chained, nbytes, **extra)
     table.update(check_shard_kernels(dev, rounds, nxt, ptr, halt))
+    check_gather_rule(dev)
     return table
+
+
+def check_gather_rule(dev) -> None:
+    """Phase 3's repair check: K1 and K2 on N_MAIN seeded records of
+    which GATHER_RULE_ROWS point at −1, −N, N or N + 5 (the reference's
+    halt at a wrapped −1, and past the table): bit-equal to the twins,
+    which read such a pointer as a jnp gather does, with no fault."""
+    rng = np.random.default_rng(1)
+    bad = (-1, -N_MAIN, N_MAIN, N_MAIN + 5)
+    for name, width, twin in (
+            ("pointer_double", 2, ref.pointer_double_packed_ref),
+            ("pointer_double_rank", 4, ref.pointer_double_rank_packed_ref)):
+        rec = rng.integers(0, 1 << 20, (N_MAIN, width), dtype=np.int32)
+        rec[:, 0] = rng.integers(0, N_MAIN, N_MAIN)
+        rows = rng.choice(N_MAIN, GATHER_RULE_ROWS, replace=False)
+        rec[rows, 0] = np.resize(bad, GATHER_RULE_ROWS)
+        if width == 4:
+            rec[:, 2] = rng.integers(0, 2, N_MAIN)
+            rec[:, 3] = 0
+        t = torch.as_tensor(rec, device=dev)
+        got = getattr(pd, name)(t)
+        torch.cuda.synchronize()          # a fault raises here
+        err = max_abs_err((got,), (twin(t),))
+        say("kernels", check="gather_rule", name=name, n=N_MAIN,
+            out_of_range=GATHER_RULE_ROWS, pointers="'-1,-N,N,N+5'",
+            bit_equal=err == 0)
+        if err:
+            raise AssertionError(f"{name} reads an out-of-range pointer "
+                                 f"otherwise than its twin ({err})")
 
 
 def check_shard_kernels(dev, rounds: int, nxt, ptr, halt: int) -> dict:
@@ -1255,6 +1328,83 @@ def _fmt_rounds(loops, ran) -> str:
     and a list of rounds run."""
     return "'" + ",".join(f"{m}:{r}/{b}" for (m, _, b), r
                           in zip(loops, ran)) + "'"
+
+
+def repair_engine(dev: str):
+    """``(engine, bucket key, [overflowing pg, sound pg])``: phase 4b's
+    replicated engine of REPAIR_OPEN_CAP, new, for runs on ``dev``."""
+    solver = EulerSolver(n_parts=PARTS, device="cpu")
+    preps = [solver._prepare(eulerian_rmat(REPAIR_SCALE, avg_degree=5,
+                                           seed=s), None)
+             for s in REPAIR_SEEDS]
+    key = preps[0][2]
+    if preps[1][2] != key:
+        raise AssertionError("phase 4b's graphs left their bucket")
+    caps = dataclasses.replace(key[3], open_cap=REPAIR_OPEN_CAP,
+                               open_ship_cap=REPAIR_OPEN_CAP)
+    return (Engine(PARTS, caps, key[2], sharded_phase3=False), key,
+            [p[0] for p in preps])
+
+
+def repair_runs(dev: str):
+    """Phase 4b's fused runs on ``dev``: each graph alone, then the B = 2
+    batch with the overflowing graph first; ``([alone…], batch)`` as
+    host ``FusedOut``s, and the seconds of the cold batch."""
+    eng, key, pgs = repair_engine(dev)
+    d = torch.device(dev)
+    alone = [eng.fused_program(key[0]).launch(
+        *eng.device_state(eng.load_cached(pg), d, False)).wait()[0]
+        for pg in pgs]
+    batch, timings = eng.fused_program(key[0], 2).launch(
+        *eng.stage_batch(pgs, d)).wait()
+    return alone, batch, timings
+
+
+def check_repair(smi: str) -> None:
+    """Phase 4b (module docstring): an overflowing replicated solve
+    returns its flags, byte-equal to the CPU's, and leaves its batch
+    partner intact."""
+    t = time.perf_counter()
+    reset_counts()
+    alone, batch, timings = repair_runs("cuda")
+    launched = read_counts()
+    cpu_alone, cpu_batch, _ = repair_runs("cpu")
+    fields = FusedOut._fields
+
+    def same(a, b):
+        return all(np.array_equal(getattr(a, f), getattr(b, f))
+                   for f in fields)
+
+    def member(out, b):
+        return FusedOut(out.circuit[b], out.mate[b], out.flags[:, b],
+                        out.metrics[:, b], out.phase3_ok[b])
+    bad, good = alone
+    start = int(np.argmax(bad.mate >= 0))
+    failed = sorted({(int(lv), int(f)) for lv, f in
+                     zip(*np.nonzero(~bad.flags.all(0)))})
+    card_is_cpu = same(bad, cpu_alone[0]) and same(good, cpu_alone[1]) \
+        and same(batch, cpu_batch)
+    members = [same(member(batch, b), alone[b]) for b in range(2)]
+    say("repair", scale=REPAIR_SCALE, parts=PARTS,
+        open_cap=REPAIR_OPEN_CAP, seeds=",".join(map(str, REPAIR_SEEDS)),
+        phase3="replicated", halt_unmated=bool(bad.mate[start ^ 1] == -1),
+        flags_all=bool(bad.flags.all()),
+        failed_level_flags=f"'{failed}'", phase3_ok=bool(bad.phase3_ok),
+        sound_flags_all=bool(good.flags.all()),
+        card_byte_equal_cpu=card_is_cpu,
+        batch_members_equal_alone=",".join(map(str, members)),
+        launches=json.dumps(launched, separators=(",", ":")),
+        batch_run_s=f"{timings['run_s']:.4f}",
+        seconds=f"{time.perf_counter() - t:.1f}", smi=f"'{smi}'")
+    if bad.mate[start ^ 1] != -1 or bad.flags.all() or not good.flags.all():
+        raise AssertionError("phase 4b's graphs no longer overflow as "
+                             "chosen")
+    if not (card_is_cpu and all(members)):
+        raise AssertionError("the overflowing solve differs from the "
+                             "CPU's, or corrupts its batch partner")
+    if not all(launched[name] for name in PATH_KERNELS[False]):
+        raise AssertionError(f"the replicated runs launched {launched}")
+    torch.cuda.empty_cache()
 
 
 def check_fused(scale: int, g, eager: dict, eager_rounds: dict) -> int:
@@ -1590,14 +1740,14 @@ def host_contention(solver, g) -> dict:
 def check_async(scale: int, solver, graphs, colds) -> None:
     """Phase 5d at the main scale, in 5b's sharded session: seed 0's and
     seed 1's graphs (``graphs``, 5b's results ``colds``) in new ``Graph``
-    objects, solved in sequence and pipelined, three times each in
-    turns (sequence, pipeline, pipeline, sequence, sequence, pipeline),
-    so that the host prep's drift and spread fall on both."""
+    objects, solved in sequence and pipelined, twice each in turns
+    (sequence, pipeline, pipeline, sequence), so that the host prep's
+    drift and spread fall on both."""
     captures = solver.captures
     say("async", **launch_breakdown(solver, graphs[0]))
     say("async", **host_contention(solver, graphs[0]))
     seqs, pipes = [], []
-    for turn in ("seq", "pipe", "pipe", "seq", "seq", "pipe"):
+    for turn in ASYNC_TURNS:
         if turn == "seq":
             seqs.append(sequential_pair(solver, graphs))
             res, sec, launches = seqs[-1]
@@ -1650,8 +1800,8 @@ def check_async(scale: int, solver, graphs, colds) -> None:
     if solver.captures != captures:
         raise AssertionError("the 5d solves recorded a graph")
     # the host prep of one cold graph spreads by seconds between runs
-    # (8.4-12.9 s at scale 20 on the H100's host), so over three turns
-    # the raw saving carries about a second of noise: the overlap is
+    # (8.4-12.9 s at scale 20 on the H100's host), so over two turns
+    # the raw saving carries a second or more of noise: the overlap is
     # held net of the two ways' host prep, the raw saving to a win
     if net < 0.8 * a_run_s:
         raise AssertionError(f"the overlap saved {net:.3f} s net of the "
@@ -1996,7 +2146,7 @@ def check_batch(dev, scale: int = 8, seeds: int = 30,
 
 
 def check_batch_large(scale: int, smi: str, seeds: int = 8) -> None:
-    """Phase 5e at ``scale`` (the main scale less two), P = 8, under
+    """Phase 5e at ``scale`` (the main scale less three), P = 8, under
     ``program_cache_max=1``: seed 0 and the first later seed that shares
     its bucket, one at a time (seed 0 records, the other replays, seed
     0 again replays), then ``solve_batch`` of the two (records a B = 2
@@ -3071,9 +3221,9 @@ def check_audit_faults(g) -> None:
         host.copy_(out.mate, non_blocking=True)
         return out
 
-    def one_more_ring(mate_sh, batch=1):
-        dist, reach = rank(mate_sh, batch)
-        p3._ring(dist, 0, batch)
+    def one_more_ring(mate_sh, batch=1, mesh=None):
+        dist, reach = rank(mate_sh, batch, mesh)
+        p3._ring(dist, 0, batch, mesh)
         return dist, reach
 
     def writing(self, state, anc, sv, num_edges):
@@ -5312,6 +5462,11 @@ def check_code_lms(dev, smi: str) -> dict:
 #: partitions (NCCL refuses two ranks on one card); the planted fault's
 #: graph scale
 MESH_FAULT_SCALE = 8
+#: phase 17's batches: the scale of the bucket pair batched over the mesh
+#: and beside it, and the widths ([g0, g1] and [g0, g1, g0, g1])
+MESH_BATCH_SCALE, MESH_BATCH_WIDTHS = 16, (2, 4)
+#: phase 17's serving loop: requests a run, and the pipeline depths
+MESH_SERVE_REQUESTS, MESH_SERVE_DEPTHS = 256, (2, 0)
 #: phase 5b's cold fused solves at the main scale, by ``sharded_phase3``:
 #: ``(timings, peak allocated, peak reserved, launches recorded)``
 MESHLESS_FUSED: dict = {}
@@ -5338,20 +5493,20 @@ def nccl_world():
         shutil.rmtree(tmp, ignore_errors=True)
 
 
-def backwards_ring(self, x, dim=0):
-    """A planted fault: a ring step along i → i−1 (the first row to rank
-    − 1; at world 1 the local rows roll the wrong way)."""
+def backwards_ring(self, x, dim=0, batch=1):
+    """A planted fault: a ring step along i → i−1 (the first partition's
+    rows to rank − 1; at world 1 the local rows roll the wrong way)."""
     self._count("ring", "all_to_all_single")
     m = x.shape[dim]
-    first = x.narrow(dim, 0, 1).contiguous().reshape(-1)
+    first = x.narrow(dim, 0, batch).contiguous().reshape(-1)
     got = torch.empty_like(first)
     sends, recvs = [0] * self.world, [0] * self.world
     sends[(self.rank - 1) % self.world] = first.numel()
     recvs[(self.rank + 1) % self.world] = first.numel()
     dist.all_to_all_single(got, first, recvs, sends, group=self.group)
     shape = list(x.shape)
-    shape[dim] = 1
-    return torch.cat([x.narrow(dim, 1, m - 1), got.view(shape)], dim)
+    shape[dim] = batch
+    return torch.cat([x.narrow(dim, batch, m - batch), got.view(shape)], dim)
 
 
 def mesh_recorded(solver, g, mesh):
@@ -5481,6 +5636,8 @@ def check_mesh(scale: int, g, eager: dict, smi: str) -> None:
                                      f"mesh's eager path")
         del solver, res
         torch.cuda.empty_cache()
+        check_mesh_batch(mesh, smi)
+        check_mesh_serve(mesh, smi)
         # a planted mis-wiring must be caught
         small = eulerian_rmat(MESH_FAULT_SCALE, avg_degree=AVG_DEGREE,
                               seed=SEED)
@@ -5502,6 +5659,147 @@ def check_mesh(scale: int, g, eager: dict, smi: str) -> None:
                 raise AssertionError(f"the planted backwards ring went "
                                      f"unnoticed ({run})")
     say("mesh", seconds=f"{time.perf_counter() - t0:.1f}")
+
+
+def bucket_pair(solver, scale: int, seeds: int = 8) -> list:
+    """Seed 0's graph at ``scale`` and the first later seed's that shares
+    its bucket under ``solver``, whose prep memo then holds both."""
+    g0 = eulerian_rmat(scale, avg_degree=AVG_DEGREE, seed=SEED)
+    k0 = solver.bucket_of(g0)
+    for s in range(SEED + 1, SEED + 1 + seeds):
+        g = eulerian_rmat(scale, avg_degree=AVG_DEGREE, seed=s)
+        if solver.bucket_of(g) == k0:
+            return [g0, g]
+    raise AssertionError(f"no seed up to {SEED + seeds} shares seed "
+                         f"{SEED}'s bucket at scale {scale}")
+
+
+def check_mesh_batch(mesh, smi: str) -> None:
+    """Phase 17's batches (module docstring): ``solve_batch`` of
+    MESH_BATCH_SCALE's bucket pair at each of MESH_BATCH_WIDTHS over the
+    mesh and without it, each program recorded (its launches and calls
+    counted just around the recording) and replayed."""
+    t0 = time.perf_counter()
+    probe = EulerSolver(n_parts=PARTS, device="cpu")
+    graphs = bucket_pair(probe, MESH_BATCH_SCALE)
+    prepared = {k: v for k, v in probe._prep_cache.items()
+                if v[0] in graphs}
+    for sharded in (True, False):
+        phase3 = "sharded" if sharded else "replicated"
+        plain = EulerSolver(n_parts=PARTS, sharded_phase3=sharded)
+        over = EulerSolver(mesh=mesh, sharded_phase3=sharded)
+        for solver in (plain, over):       # one host prep for all four
+            solver._prep_cache.update(prepared)
+        key = over.bucket_of(graphs[0])
+        budget = fused_collective_budget(
+            key[2], num_edges=key[0], n_parts=PARTS,
+            sharded_phase3=True) if sharded \
+            else fused_collective_budget(key[2])
+        want = {k: v for k, v in expected_calls(budget, PARTS).items() if v}
+        want["fetch"] = 2
+        for B in MESH_BATCH_WIDTHS:
+            batch = graphs * (B // 2)
+            cold_p, (rec_p, _), _ = cells_recorded(plain.solve_batch, batch)
+            warm_p = plain.solve_batch(batch)
+            cold, (rec, calls), _ = cells_recorded(over.solve_batch, batch,
+                                                   mesh=mesh)
+            warm = over.solve_batch(batch)
+            same = all(same_bytes(a.validate(), b) for a, b in
+                       zip(cold + warm, cold_p + warm_p))
+            say("mesh", run="batch", phase3=phase3, width=B,
+                scale=MESH_BATCH_SCALE, e_cap=key[0],
+                byte_identical_to_meshless=same,
+                recorded_calls=json.dumps(calls, separators=(",", ":")),
+                budget_calls=json.dumps(want, separators=(",", ":")),
+                recorded_launches=json.dumps(rec, separators=(",", ":")),
+                meshless_recorded_launches=json.dumps(
+                    rec_p, separators=(",", ":")),
+                run_s=f"{warm[0].timings['run_s']:.4f}",
+                meshless_run_s=f"{warm_p[0].timings['run_s']:.4f}",
+                warmup_s=f"{cold[0].timings['warmup_s']:.4f}",
+                meshless_warmup_s=f"{cold_p[0].timings['warmup_s']:.4f}",
+                capture_s=f"{cold[0].timings['capture_s']:.4f}",
+                meshless_capture_s=f"{cold_p[0].timings['capture_s']:.4f}",
+                smi=f"'{smi}'")
+            if not same:
+                raise AssertionError(f"the {phase3} B = {B} batch over the "
+                                     f"mesh differs from the meshless one")
+            if calls != want or rec != rec_p or not all(
+                    rec[name] for name in PATH_KERNELS[sharded]):
+                raise AssertionError(
+                    f"the {phase3} B = {B} recording over the mesh called "
+                    f"{calls} (budget {want}) and launched {rec} "
+                    f"(meshless {rec_p})")
+        del plain, over
+        torch.cuda.empty_cache()
+    say("mesh", part="batch", seconds=f"{time.perf_counter() - t0:.1f}")
+
+
+def mesh_serve(mesh, depth: int) -> tuple:
+    """One in-process ``main_euler`` run of phase 17 (phase 5g's
+    arguments, ``--widths 8``: every flush of the closed loop fills the
+    quota of 8, ``--sync-prewarm``, MESH_SERVE_REQUESTS requests) at
+    pipeline ``depth`` over ``mesh`` (None: without one), the launch
+    counters set to 0 just before and read just after: ``(stats, {seq:
+    result}, launches)``, every result validated."""
+    delivered = []
+    harvest = serve.MicroBatcher._harvest_one
+
+    def kept(self):
+        out = harvest(self)
+        for _, r in out:
+            r.validate()
+        delivered.extend(out)
+        return out
+    with tempfile.TemporaryDirectory() as tmp, \
+            mock.patch.object(serve.MicroBatcher, "_harvest_one", kept):
+        path = Path(tmp) / "serve.json"
+        reset_counts()
+        serve.main_euler(SERVE_ARGS + [
+            "--widths", "8", "--sync-prewarm", "--pipeline-depth",
+            str(depth), "--requests", str(MESH_SERVE_REQUESTS), "--json",
+            str(path)], mesh=mesh)
+        launched = read_counts()
+        stats = json.loads(path.read_text().splitlines()[-1])
+    torch.cuda.empty_cache()
+    return stats, dict(delivered), launched
+
+
+def check_mesh_serve(mesh, smi: str) -> None:
+    """Phase 17's serving loop (module docstring): ``main_euler`` over the
+    mesh and without it at each of MESH_SERVE_DEPTHS, every request's
+    circuit and mate byte-equal between the two."""
+    t0 = time.perf_counter()
+    for depth in MESH_SERVE_DEPTHS:
+        plain, want, _ = mesh_serve(None, depth)
+        mesh.calls.clear()
+        mesh.sent_bytes.clear()
+        stats, got, launched = mesh_serve(mesh, depth)
+        seqs = list(range(MESH_SERVE_REQUESTS))
+        same = sorted(got) == seqs == sorted(want) and all(
+            same_bytes(got[q], want[q]) for q in seqs)
+        keys = ("circuits_per_s", "p50_ms", "p95_ms", "mean_flush",
+                "compiles", "hits", "misses")
+        say("mesh", run="serve", scale=9, parts=PARTS, pipeline_depth=depth,
+            requests=MESH_SERVE_REQUESTS, served=stats["served"],
+            byte_identical_to_meshless=same,
+            broadcasts=mesh.calls["broadcast"],
+            broadcast_bytes=mesh.sent_bytes["broadcast"],
+            width_hist=f"'{json.dumps(stats['width_hist'], separators=(',', ':'))}'",
+            launches=json.dumps(launched, separators=(",", ":")),
+            **{k: stats[k] for k in keys},
+            **{f"meshless_{k}": plain[k] for k in keys}, smi=f"'{smi}'")
+        dispatches = sum(stats["width_hist"].values())
+        if not same or stats["served"] != MESH_SERVE_REQUESTS:
+            raise AssertionError(f"the serve over the mesh at depth {depth} "
+                                 f"differs from the meshless one")
+        if mesh.calls["broadcast"] != dispatches + 1 or not all(
+                launched[name] for name in PATH_KERNELS[True]):
+            raise AssertionError(
+                f"the serve over the mesh broadcast "
+                f"{mesh.calls['broadcast']} orders for {dispatches} "
+                f"dispatches, or launched {launched}")
+    say("mesh", part="serve", seconds=f"{time.perf_counter() - t0:.1f}")
 
 
 #: phase 18: the paper's Euler cells at euler-rmat-512's caps.  The
@@ -5654,6 +5952,55 @@ def check_cells_full(smi: str) -> dict:
     return recorded
 
 
+def check_overflow_cell(scale: int, smi: str) -> None:
+    """``--overflow-cell``: the meshless fused run of euler-rmat-512's
+    full caps (CELL_PARTS partitions, replicated Phase 3, ``fused_edges``
+    stubs) on the main path's graph at ``scale``, which overflows the
+    caps and leaves the walk's start without a predecessor: it must
+    return its flags (recorded, then replayed with the same bytes), with
+    K1 and K2 launched on the records that hold the halt at −1."""
+    cfg = get_config("euler-rmat").model
+    c, E, L = cfg.caps, cfg.fused_edges, cfg.n_levels
+    t = time.perf_counter()
+    g = eulerian_rmat(scale, avg_degree=AVG_DEGREE, seed=SEED)
+    pg = partition_graph(g, partition_vertices(g, CELL_PARTS, seed=0))
+    eng = Engine(CELL_PARTS, c, L)
+    st, anc = eng.load(pg)
+    anc = np.concatenate([anc, np.repeat(anc[-1:], L - anc.shape[0], 0)])
+    sv = np.zeros(2 * E, np.int64)
+    sv[:2 * g.num_edges] = stub_vertex(pg)
+    inputs = state_from_numpy(st, anc, sv, "cuda")
+    prep_s = time.perf_counter() - t
+    run = eng.fused_program(E)
+    reset_counts()
+    torch.cuda.reset_peak_memory_stats()
+    out, cold = run.launch(*inputs).wait()
+    launched = read_counts()
+    again, warm = run.launch(*inputs).wait()
+    failed = sorted({(int(lv), int(f)) for lv, f in
+                     zip(*np.nonzero(~out.flags.all(0)))})
+    same = all(np.array_equal(a, b) for a, b in zip(out, again))
+    say("overflow", config=cfg.name, scale=scale, parts=CELL_PARTS,
+        edges=g.num_edges, fused_edges=E, phase3="replicated",
+        flags_all=bool(out.flags.all()), failed_level_flags=f"'{failed}'",
+        phase3_ok=bool(out.phase3_ok),
+        halt_unmated=bool(out.mate[int(np.argmax(out.mate >= 0)) ^ 1] < 0),
+        replay_byte_equal=same,
+        launches=json.dumps(launched, separators=(",", ":")),
+        prep_s=f"{prep_s:.2f}", warmup_s=f"{cold['warmup_s']:.4f}",
+        capture_s=f"{cold['capture_s']:.4f}",
+        cold_run_s=f"{cold['run_s']:.4f}", run_s=f"{warm['run_s']:.4f}",
+        peak_gib=f"{torch.cuda.max_memory_allocated() / 2**30:.3f}",
+        reserved_gib=f"{torch.cuda.max_memory_reserved() / 2**30:.3f}",
+        smi=f"'{smi}'")
+    if not same or out.flags.all() or not all(
+            launched[name] for name in PATH_KERNELS[False]):
+        raise AssertionError("the overflowing full-caps run did not return "
+                             "its flags, differs on a replay or skipped "
+                             "K1/K2")
+    run.free()
+
+
 def check_dryrun(smi: str) -> None:
     """Phase 18 (b): ``python -m repro_torch.launch.dryrun --arch
     euler-rmat --both-meshes`` in a process of its own; every cell must
@@ -5707,6 +6054,10 @@ def main(argv=None) -> int:
     ap.add_argument("--scale", type=int, default=20,
                     help="RMAT scale of the main-path graph (default 20; "
                          "cut it, never the partitions, for a quick check)")
+    ap.add_argument("--overflow-cell", action="store_true",
+                    help="after the build, run only euler-rmat-512's full "
+                         "caps on the main path's graph, which overflows "
+                         "them (check_overflow_cell)")
     args = ap.parse_args(argv)
     t_start = time.perf_counter()
 
@@ -5741,6 +6092,14 @@ def main(argv=None) -> int:
             elif "registers" in line or "spill" in line or "C75" in line:
                 say("build", kernel=kernel, ptxas=f"'{line.strip()}'")
     phase_done("2")
+    if args.overflow_cell:
+        check_overflow_cell(args.scale, smi)
+        phase_done("overflow")
+        print(smi, flush=True)
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+            "count": torch.cuda.device_count()}}), flush=True)
+        return 0
 
     # ---- 3. kernels against their twins at the main path's width ----
     rounds = p3.sharded_phase3_schedule(N_MAIN // 2, PARTS)["doubling_rounds"]
@@ -5763,6 +6122,10 @@ def main(argv=None) -> int:
             if not same:
                 raise AssertionError(f"{mode} solve on {device} differs")
     phase_done("4")
+
+    # ---- 4b. repair: an overflowing solve returns its flags ----
+    check_repair(smi)
+    phase_done("4b")
 
     # ---- 5. the main path: sharded (the default), then replicated ----
     t = time.perf_counter()
@@ -5827,7 +6190,7 @@ def main(argv=None) -> int:
 
     # ---- 5e. batched solves: one program per (bucket, B) ----
     check_batch(dev)
-    check_batch_large(args.scale - 2, smi)
+    check_batch_large(args.scale - 3, smi)
     phase_done("5e")
 
     # ---- 5f. the reference's host engine beside the device solve ----

@@ -252,15 +252,6 @@ def stub_shards(x: torch.Tensor, n: int, fill: int) -> torch.Tensor:
     return y.view(x.shape[0], n, -1).transpose(0, 1).contiguous()
 
 
-def require_meshless(mesh, what: str) -> None:
-    """Over a mesh the engine solves one graph at a time: ``what`` raises
-    ``NotImplementedError`` there (ROADMAP item 9c)."""
-    if mesh is not None:
-        raise NotImplementedError(
-            f"{what} over a partition mesh is not ported (ROADMAP item 9c); "
-            f"solve one graph at a time")
-
-
 def require_batch_fits(num_edges: int, batch: int) -> None:
     """A batched program numbers its graphs' stubs in one int32 space
     (``B·(2E + 1)`` mate slots, ``B·2E`` component labels), which must
@@ -364,23 +355,27 @@ def _route(dest: torch.Tensor, mask: torch.Tensor, fields, n: int,
 
 def _exchange(dest: torch.Tensor, mask: torch.Tensor, fields, n: int,
               lane: int, group: str, mesh, keep: Optional[int] = None):
-    """:func:`_route` across the ranks of ``mesh``: the ``m`` local rows'
+    """:func:`_route` across the ranks of ``mesh``: the local rows'
     entries into their send lanes, laid out ``[world (destination rank),
-    m (source row), m (destination row), lane]``, one field at a time,
-    each shipped by one ``all_to_all`` (the mask last, as uint8) and its
-    send buffer dropped before the next is built.  Every rank receives
-    ``[n_src, m, lane]``: source-major lanes for each of its rows, so
-    :func:`_gather_received` reads them as the ``[n_src, m·lane]``
-    buffers it is given.  ``keep`` (default all): the fields whose
-    received copies are returned; the rest are shipped, as the
-    reference ships them, and dropped.  Returns (received fields,
-    received mask ``[n_src, m·lane]``, per-source overflow [m])."""
+    m·B (source row), m (destination partition), lane]``, one field at a
+    time, each shipped by one ``all_to_all`` (the mask last, as uint8)
+    and its send buffer dropped before the next is built.  The rows are
+    the ``m`` local partitions, or for a batch of B graphs ``m·B``
+    (partition, graph) pairs, partition major, and a row's entries go to
+    its own graph's row of the destination partition, as in
+    :func:`_received_mask`.  Every rank receives ``[n_src, B, m, lane]``:
+    source-major lanes for each of its rows, so :func:`_gather_received`
+    reads them as the ``[n_src·B, m·lane]`` buffers it is given.
+    ``keep`` (default all): the fields whose received copies are
+    returned; the rest are shipped, as the reference ships them, and
+    dropped.  Returns (received fields, received mask ``[n_src·B,
+    m·lane]``, per-source-row overflow [m·B])."""
     capture.note("all_to_all", _SHIP_GROUPS[group])
     order, kd, lane_pos, ok, overflow = _lane_slots(dest, mask, n, lane)
-    m = kd.shape[0]
-    src = torch.arange(m, device=kd.device)[:, None]
-    size = m * n * lane
-    flat = torch.where(ok, ((kd // m * m + src) * m + kd % m) * lane +
+    rows, m = kd.shape[0], mesh.m
+    src = torch.arange(rows, device=kd.device)[:, None]
+    size = rows * n * lane
+    flat = torch.where(ok, ((kd // m * rows + src) * m + kd % m) * lane +
                        lane_pos, size).view(-1)
     del kd, lane_pos
     out = []
@@ -390,19 +385,21 @@ def _exchange(dest: torch.Tensor, mask: torch.Tensor, fields, n: int,
         got = mesh.all_to_all(buf[:size])
         del buf
         if keep is None or i < keep:
-            out.append(got.view(n, m * lane))
+            out.append(got.view(-1, m * lane))
         del got
     bm = torch.zeros(size + 1, dtype=torch.bool, device=ok.device)
     rm = mesh.all_to_all(bm.scatter_(0, flat, ok.view(-1))[:size])
-    return out, rm.view(n, m * lane), overflow
+    return out, rm.view(-1, m * lane), overflow
 
 
-def _received_rows(rm: torch.Tensor, lane: int) -> torch.Tensor:
-    """:func:`_exchange`'s received mask ``[n_src, m·lane]`` as each
-    destination row's ``[m, n_src·lane]``, source-major (a bool copy, the
+def _received_rows(rm: torch.Tensor, lane: int, n: int) -> torch.Tensor:
+    """:func:`_exchange`'s received mask ``[n_src·B, m·lane]`` as each
+    destination row's ``[m·B, n_src·lane]``, source-major, rows
+    (partition, graph) pairs, partition major (a bool copy, the
     counterpart of :func:`_received_mask`)."""
-    n = rm.shape[0]
-    return rm.view(n, -1, lane).transpose(0, 1).reshape(-1, n * lane)
+    batch = rm.shape[0] // n
+    return rm.view(n, batch, -1, lane).permute(2, 1, 0, 3).reshape(
+        -1, n * lane)
 
 
 def _received_mask(bm: torch.Tensor, lane: int,
@@ -465,19 +462,17 @@ class _OneDevice:
 class _AcrossRanks:
     """The superstep's exchange across the ranks of a mesh: every field,
     ``extra`` too, by one ``all_to_all`` each (:func:`_exchange`), the
-    ``extra`` ones dropped on arrival; one graph."""
+    ``extra`` ones dropped on arrival; a batch's graphs stay apart."""
 
-    batch = 1
-
-    def __init__(self, n: int, mesh):
-        self.n, self.mesh = n, mesh
+    def __init__(self, n: int, mesh, batch: int):
+        self.n, self.mesh, self.batch = n, mesh, batch
 
     def ship(self, dest, mask, fields, extra, lane: int, group: str):
         return _exchange(dest, mask, (*fields, *extra), self.n, lane, group,
                          self.mesh, keep=len(fields))
 
     def received(self, rm: torch.Tensor, lane: int) -> torch.Tensor:
-        return _received_rows(rm, lane)
+        return _received_rows(rm, lane, self.n)
 
 
 def _ship(ex, dest, mask, fields, extra, lane: int, cap: int, group: str):
@@ -557,8 +552,7 @@ class Engine:
 
     ``mesh`` (a :class:`~repro_torch.launch.mesh.PartMesh` of ``n_parts``
     partitions) runs the engine across its ranks (module docstring): the
-    uploaded state is this rank's rows, and one graph at a time (a batch
-    raises ``NotImplementedError``)."""
+    uploaded state is this rank's rows, a batch's too."""
 
     def __init__(self, n_parts: int, caps: EngineCaps, n_levels: int,
                  sharded_phase3: bool = False, gather_circuit: bool = True,
@@ -835,8 +829,9 @@ class Engine:
         8 keyed by the members' identities, so a repeat batch uploads
         nothing.  Mixed edge counts raise ``ValueError``; so does a
         replicated batch whose vertex keys would pass int32 max
-        (:func:`~repro_torch.core.phase3.splice_components`)."""
-        require_meshless(self.mesh, "a batch of graphs")
+        (:func:`~repro_torch.core.phase3.splice_components`).  Over a
+        mesh only this rank's rows ``[m, B, ·]`` are uploaded, as for
+        one graph (:meth:`device_state`)."""
         E = pgs[0].graph.num_edges
         for pg in pgs:
             if pg.graph.num_edges != E:
@@ -853,9 +848,11 @@ class Engine:
                     f"a replicated batch of {B} graphs with vertex ids "
                     f"below {span} passes int32 max in its vertex keys; "
                     f"use a smaller batch")
+            rows = slice(None) if self.mesh is None else self.mesh.rows
             with self.trace.span("upload", edges=E, width=B):
                 stacked = EngineState(*(
-                    np.stack([getattr(e["state"], f) for e in ents], axis=1)
+                    np.stack([getattr(e["state"], f)[rows] for e in ents],
+                             axis=1)
                     for f in EngineState._fields))
                 dev = state_from_numpy(stacked,
                                        np.stack([e["anc"] for e in ents]),
@@ -899,8 +896,8 @@ class Engine:
             ex = _OneDevice(n, batch)
             me = row // batch                        # each row's partition
         else:
-            ex = _AcrossRanks(n, self.mesh)
-            me = row + self.mesh.first
+            ex = _AcrossRanks(n, self.mesh, batch)
+            me = row // batch + self.mesh.first
         # [B·n] part0 → active pid, each row reading its own graph's row
         dest_row = anc[:, max(lvl - 1, 0)].reshape(-1)
         graph0 = (row % batch) * n
@@ -998,9 +995,10 @@ class Engine:
         their stubs (:meth:`_route_mates`): ``mate`` is then this rank's
         ``[m, S]`` shards, and the route's overflow clears flag 3; the
         flags and metrics are gathered, ``[n, L, 4]`` on every rank.
-        A batch (``state`` ``[n·B, ·]`` rows, ``anc`` ``[B, H, n]``)
-        returns the reference's batched layouts: mate ``[B, 2E]``, flags
-        and metrics ``[n, B, L, 4]``.
+        A batch (``state`` ``[n·B, ·]`` rows, over a mesh this rank's
+        ``[m·B, ·]``, ``anc`` ``[B, H, n]``) returns the reference's
+        batched layouts: mate ``[B, 2E]`` (routed: ``[m·B, S]`` shards),
+        flags and metrics ``[n, B, L, 4]``.
         The eager path clocks each level after the device drained (Phase
         1 reads a flag on the host every splice round, so the drain costs
         little), counts its engine's first run as a trace and, under
@@ -1013,7 +1011,8 @@ class Engine:
         mesh = self.mesh
         S = shard_width(num_edges, self.n)
         if mesh is not None and route_mates:
-            mate = torch.full((mesh.m, S + 1), -1, dtype=I32, device=dev)
+            mate = torch.full((mesh.m * (batch or 1), S + 1), -1, dtype=I32,
+                              device=dev)
         else:
             mate = torch.full((batch or 1, n_stubs + 1), -1, dtype=I32,
                               device=dev)
@@ -1041,7 +1040,7 @@ class Engine:
                     marks.append(drained_clock(dev))
         flags, metrics = (torch.stack(x, dim=1) for x in (flags, metrics))
         if batch is not None:
-            flags, metrics = (x.view(self.n, batch, *x.shape[1:])
+            flags, metrics = (x.view(-1, batch, *x.shape[1:])
                               for x in (flags, metrics))
         if mesh is not None:
             flags, metrics = mesh.fetch(flags), mesh.fetch(metrics)
@@ -1058,13 +1057,15 @@ class Engine:
         ``make_fused`` body): both directions of every logged pair,
         routed by :func:`_exchange` to the rank owning the stub's shard
         (``ws // S``), lane ``mate_ship_cap or 2·pair_cap()``, then
-        scattered into this rank's ``[m, S + 1]`` shards (masked entries
+        scattered into this rank's ``[m, S + 1]`` shards (a batch's ``[m·B,
+        S + 1]``, each graph's writes into its own rows; masked entries
         into each row's pad slot ``S``, all −1), one source partition at
         a time to bound the offsets' memory.  Within a level the pairs
         are disjoint, and later levels overwrite earlier ones.  Returns
-        the per-source lane overflow ``[m]``."""
+        the per-source-row lane overflow ``[m·B]``."""
         n, c, mesh = self.n, self.caps, self.mesh
-        m = mate_sh.shape[0]
+        rows, m = mate_sh.shape[0], mesh.m
+        batch = rows // m
         ws = torch.cat([s1, s2], -1)
         wv = torch.cat([s2, s1], -1)
         wm = torch.cat([lm, lm], -1)
@@ -1072,13 +1073,19 @@ class Engine:
             torch.where(wm, ws // S, n), wm, (ws, wv), n,
             c.mate_ship_cap or 2 * c.pair_cap(), "mate", mesh)
         del ws, wv, wm
-        row = torch.arange(m, device=mate_sh.device)[:, None]
-        lo = (mesh.part_ids()[:, None] * S).to(torch.int64)
+        row = torch.arange(rows, device=mate_sh.device)[:, None]
+        lo = (mesh.part_ids(batch=batch)[:, None] * S).to(torch.int64)
         flat = mate_sh.view(-1)
+
+        def received(x, src):
+            # source partition src's lanes [B, m, lane] as rows [m·B, lane]
+            return x.view(n, batch, m, -1)[src].transpose(0, 1).reshape(
+                rows, -1)
+
         for src in range(n):
-            got, at = r_m[src].view(m, -1), r_s[src].view(m, -1)
+            got, at = received(r_m, src), received(r_s, src)
             at = torch.where(got, at - lo, S) + row * (S + 1)
-            flat[at.view(-1)] = torch.where(got, r_v[src].view(m, -1),
+            flat[at.view(-1)] = torch.where(got, received(r_v, src),
                                             -1).view(-1)
         return of_m
 
@@ -1101,10 +1108,10 @@ class Engine:
         uncaptured), so a CUDA graph can hold it."""
         c, n_stubs = self.caps, 2 * num_edges
         batch = anc.shape[0] if anc.dim() == 3 else None
-        if self.mesh is not None:
-            return self._whole_run_mesh(state, anc, sv, num_edges)
         if batch is not None:
             state = EngineState(*(x.flatten(0, 1) for x in state))
+        if self.mesh is not None:
+            return self._whole_run_mesh(state, anc, sv, num_edges, batch)
         mate, flags, metrics, _ = self.run_levels(state, anc, num_edges,
                                                   clock=False)
         if not self.sharded_phase3:
@@ -1128,31 +1135,36 @@ class Engine:
                         flags, metrics, ok)
 
     def _whole_run_mesh(self, state: EngineState, anc: torch.Tensor,
-                        sv: torch.Tensor, num_edges: int) -> FusedOut:
+                        sv: torch.Tensor, num_edges: int,
+                        batch: Optional[int]) -> FusedOut:
         """:meth:`whole_run` across the mesh: the levels with the mate
-        route, then Phase 3 on this rank's ``[m, S]`` mate shards —
-        replicated: the shards all-gathered and K1/K2 run on every rank
-        (``sv`` whole), sharded: ``phase3_sharded`` over the mesh (``sv``
-        this rank's shards).  Every output is whole on every rank."""
+        route, then Phase 3 on this rank's ``[m, S]`` mate shards (a
+        batch's ``[m·B, S]`` rows) — replicated: the shards all-gathered
+        and K1/K2 run on every rank (``sv`` whole), sharded:
+        ``phase3_sharded`` over the mesh (``sv`` this rank's shards).
+        Every output is whole on every rank, a batch's in the reference's
+        batched layouts."""
         c, n_stubs, mesh = self.caps, 2 * num_edges, self.mesh
         mate_sh, flags, metrics, _ = self.run_levels(
             state, anc, num_edges, clock=False, route_mates=True)
         if not self.sharded_phase3:
             capture.note("all_gather")
-            mate = mesh.all_gather(mate_sh).view(-1)[:n_stubs]
+            mate = unshard(mesh.all_gather(mate_sh), batch)[..., :n_stubs]
             circuit, mate2, ok = phase3_device(
-                mate, sv, splice_rounds=c.phase3_rounds)
+                mate.contiguous(), sv, splice_rounds=c.phase3_rounds)
             return FusedOut(circuit, mate2, flags, metrics, ok)
-        res = phase3_sharded(mate_sh, sv, n_stubs, c.p3v_cap or num_edges,
+        res = phase3_sharded(mate_sh, sv.reshape(mate_sh.shape), n_stubs,
+                             c.p3v_cap or num_edges,
                              splice_rounds=c.phase3_rounds,
-                             gather_circuit=self.gather_circuit, mesh=mesh)
+                             gather_circuit=self.gather_circuit,
+                             batch=batch, mesh=mesh)
         if self.gather_circuit:
             return FusedOut(*res[:2], flags, metrics, res[2])
         mate_sh, dist_sh, reach_sh, ok = res
-        packed = mesh.fetch(torch.stack([mate_sh, dist_sh, reach_sh],
-                                        -1)).view(-1, 3)
-        return FusedOut(packed, packed[:n_stubs, 0].contiguous(), flags,
-                        metrics, ok)
+        packed = unshard(mesh.fetch(torch.stack([mate_sh, dist_sh,
+                                                 reach_sh], -1)), batch)
+        return FusedOut(packed, packed[..., :n_stubs, 0].contiguous(),
+                        flags, metrics, ok)
 
     def phase3_sv(self, sv: torch.Tensor) -> torch.Tensor:
         """The stub-vertex map as Phase 3 reads it: whole for the
@@ -1173,7 +1185,6 @@ class Engine:
         ``batch=B`` runs B graphs of the bucket at once
         (:meth:`whole_run`), a program of its own."""
         if batch is not None:
-            require_meshless(self.mesh, "a batched program")
             require_batch_fits(num_edges, batch)
         key = (int(num_edges), batch)
         run = self._fused.get(key)

@@ -229,6 +229,14 @@ def circuit_from_mate(mate: torch.Tensor,
     launch for all of them, and they run one graph's round count.  The
     ``dist`` and ``reach`` columns of the last round go to
     :func:`emit_circuit`.
+
+    The halt node is the start's predecessor ``t = mate[start ^ 1]``.
+    Where an overflowed ``mate`` leaves the start's sibling unmated, t is
+    −1; the reference's ``nxt.at[t].set(t)`` then writes −1 at its last
+    stub, which its gathers wrap to a self-loop there, and its ``vmap``
+    keeps that stub in the member's own graph.  Here graph b's halt row
+    is ``b·2E + (t mod 2E)``, a self-loop: the same ``dist`` and
+    ``reach``, and no graph's halt lands in another's.
     """
     if mate.dim() == 1:
         return circuit_from_mate(mate[None], start_stub.reshape(1))[0]
@@ -236,8 +244,10 @@ def circuit_from_mate(mate: torch.Tensor,
     dev = mate.device
     flat = _to_flat(mate)
     iota = torch.arange(B * n_stubs, dtype=I32, device=dev)
-    start = start_stub.reshape(B, 1) + _graph_offsets(B, n_stubs, dev)
-    t = flat[(start ^ 1).reshape(-1)]                    # [B], no host sync
+    sib = (start_stub.reshape(B, 1) ^ 1).long()
+    t = mate.gather(1, sib)                              # [B, 1], no host sync
+    t = (torch.where(t < 0, t + n_stubs, t)
+         + _graph_offsets(B, n_stubs, dev)).reshape(-1)
     # halt node t: self-loop, dist 0, reach 1; the rest (nxt, 1, 0, 0)
     cur = torch.zeros(B * n_stubs, 4, dtype=I32, device=dev)
     cur[:, 0] = torch.where(flat >= 0, flat ^ 1, iota)
@@ -470,7 +480,7 @@ def _ring(x: torch.Tensor, dim: int = 0, batch: int = 1,
     ``capture.scope("ring")``; the census counts the steps."""
     capture.note("ring_step")
     if mesh is not None:
-        return mesh.ring(x, dim)
+        return mesh.ring(x, dim, batch)
     return torch.roll(x, shifts=batch, dims=dim)
 
 
@@ -484,7 +494,7 @@ def _shard_ids(rows: int, S: int, batch: int, dev, mesh=None):
     index within its graph; over a ``mesh`` the global one) and the
     global ids of its stubs."""
     me = torch.arange(rows, dtype=I32, device=dev) // batch \
-        if mesh is None else mesh.part_ids()
+        if mesh is None else mesh.part_ids(batch=batch)
     return me, me[:, None] * S + torch.arange(S, dtype=I32, device=dev)
 
 
@@ -719,11 +729,11 @@ def splice_components_sharded(mate_sh: torch.Tensor, sv_sh: torch.Tensor,
 
         # the psum of the flags: over each graph's partitions
         capture.note("psum")
+        flags = torch.stack([_per_graph(of_t, B).any(0),
+                             _per_graph(hm.any(1), B).any(0)])
         if mesh is not None:
-            anywhere = mesh.any(torch.stack([of_t.any(), hm.any()]))
-            return mate_new, lab_new, of | anywhere[:1], anywhere[1:]
-        return (mate_new, lab_new, of | _per_graph(of_t, B).any(0),
-                _per_graph(hm.any(1), B).any(0))
+            flags = mesh.any(flags)
+        return mate_new, lab_new, of | flags[0], flags[1]
 
     mate_sh, _, of, changed = converge(
         round_fn, (mate_sh, lab, torch.zeros(B, dtype=torch.bool, device=dev),
@@ -754,11 +764,11 @@ def _rank_sharded(mate_sh: torch.Tensor, batch: int = 1, mesh=None
     # over each graph's partitions, then broadcast to its rows
     capture.note("psum")
     q = (acc ^ 1)[:, None]
-    hit = torch.where(gid == q, mate_sh, 0).sum(dim=1)
-    if mesh is None:
-        t = _per_graph(hit, batch).sum(0).to(I32).repeat(n)
-    else:
-        t = mesh.psum(hit.sum()).to(I32).repeat(rows)
+    hit = _per_graph(torch.where(gid == q, mate_sh, 0).sum(dim=1),
+                     batch).sum(0)
+    if mesh is not None:
+        hit = mesh.psum(hit)
+    t = hit.to(I32).repeat(rows // batch)
 
     halt = gid == t[:, None]
     ptr = torch.where(halt, gid, nxt)
@@ -798,7 +808,7 @@ def gather_circuit_sharded(mate_sh: torch.Tensor, dist_sh: torch.Tensor,
     capture.note("all_gather")
     if mesh is not None:
         g = mesh.all_gather(torch.stack([mate_sh, dist_sh, reach_sh], -1))
-        mate, dist, reach = g.view(-1, 3)[:n_stubs].unbind(-1)
+        mate, dist, reach = unshard(g, batch)[..., :n_stubs, :].unbind(-1)
         return emit_circuit(mate >= 0, dist, reach), mate.contiguous()
     mate, dist, reach = (unshard(x, batch)[..., :n_stubs]
                          for x in (mate_sh, dist_sh, reach_sh))
@@ -820,15 +830,15 @@ def phase3_sharded(mate_sh: torch.Tensor, sv_sh: torch.Tensor,
     ok)``, from which the caller emits host-side with
     :func:`emit_circuit_np`.
 
-    Over a ``mesh`` (a :class:`~repro_torch.launch.mesh.PartMesh`, one
-    graph) the inputs are this rank's ``[m, S]`` rows, the rings, psums
-    and the gather are the mesh's collectives, and the sharded outputs
-    stay this rank's rows."""
+    Over a ``mesh`` (a :class:`~repro_torch.launch.mesh.PartMesh`) the
+    inputs are this rank's ``[m, S]`` rows (a batch's ``[m·B, S]``), the
+    rings, psums and the gather are the mesh's collectives, each one
+    call for the whole batch, and the sharded outputs stay this rank's
+    rows."""
     mate2_sh, ok = splice_components_sharded(mate_sh, sv_sh, p3v_cap,
                                              rounds=splice_rounds,
                                              batch=batch, mesh=mesh)
-    dist_sh, reach_sh = _rank_sharded(mate2_sh, batch or 1) \
-        if mesh is None else _rank_sharded(mate2_sh, mesh=mesh)
+    dist_sh, reach_sh = _rank_sharded(mate2_sh, batch or 1, mesh)
     if not gather_circuit:
         return mate2_sh, dist_sh, reach_sh, ok
     circuit, mate2 = gather_circuit_sharded(mate2_sh, dist_sh, reach_sh,

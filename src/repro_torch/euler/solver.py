@@ -82,10 +82,13 @@ on the host, deterministically, uploads only its partitions' rows, and
 makes the superstep's exchanges, the mate route and Phase 3's rings,
 psums and gathers as collectives (``core/engine.py``); every rank returns
 the same :class:`EulerResult`, byte for byte the meshless solve's.  Fused
-and eager runs and all three Phase 3 modes run over a mesh; batches and
-the serving loop raise ``NotImplementedError`` there (ROADMAP item 9c), as
-does ``backend="host"``.  Not ported yet: on the device backend the
-``deferred_transfer=False`` baseline (raises; ROADMAP queue 3).
+and eager runs, all three Phase 3 modes, batches (``solve_batch``,
+``solve_batch_async``, ``solve_many(batch=B)``: rows (partition, graph)
+pairs, a rank's ``[m·B, ·]``) and the serving loop
+(``launch/serve.py``) run over a mesh; each dispatch over a mesh is
+fetched before it returns.  ``backend="host"`` raises there.  Not
+ported yet: on the device backend the ``deferred_transfer=False``
+baseline (raises; ROADMAP queue 3).
 
     >>> from repro_torch.euler import solve                 # doctest: +SKIP
     >>> res = solve(graph, n_parts=8).validate()            # doctest: +SKIP
@@ -108,8 +111,7 @@ from ..analysis.graph_audit import program_cost_bytes
 from ..core import capture
 from ..core.engine import (Engine, EngineCaps, FusedOut, FusedRun,
                            PendingRun, drained_clock, require_batch_fits,
-                           require_deferred_transfer, require_meshless,
-                           stub_shards)
+                           require_deferred_transfer, stub_shards)
 from ..core.graph import Graph, partition_graph
 from ..core.phase2 import MergeTree, generate_merge_tree
 from ..core.phase3 import (_cc_labels_sharded, _rank_sharded,
@@ -181,6 +183,13 @@ class PendingSolve:
     def ready(self) -> bool:
         """Non-blocking: has the device run finished?"""
         return self._out is not None or self._run.ready()
+
+    def fetch(self) -> None:
+        """Wait for the device run and hold its outputs on the host, so
+        that no launch of this session is left outstanding; the checks
+        run at :meth:`results`.  Over a mesh the solver fetches before a
+        dispatch returns (``launch/mesh.py``)."""
+        self._run.wait()
 
     def results(self) -> List[EulerResult]:
         """Block for the device run; one result a graph, in input order.
@@ -706,7 +715,16 @@ class EulerSolver:
 
     def _ensure_compile_service(self):
         """The session's compile service, made (and started) at its
-        first use."""
+        first use.  Over a mesh it raises ``NotImplementedError``: a
+        recording's eager warm-up makes collectives, which cannot run
+        beside a serving dispatch on one communicator (ROADMAP item
+        9c.1)."""
+        if self._mesh is not None:
+            raise NotImplementedError(
+                "the compile thread (prewarm_async, the autotuner, "
+                "--adaptive) over a partition mesh is not ported (ROADMAP "
+                "item 9c.1): its recordings would make collectives beside "
+                "the serving loop's")
         with self._lock:
             if self._compile_service is None:
                 self._compile_service = CompileService(self)
@@ -892,7 +910,7 @@ class EulerSolver:
         if self._mesh is not None:
             # NCCL_GRAPH_MIXING_SUPPORT=0's rule (launch/mesh.py): no
             # launch while one is outstanding on the mesh's communicator
-            solve.results()
+            solve.fetch()
         return solve
 
     def _launch(self, run: FusedRun, staged, key: BucketKey,
@@ -949,7 +967,9 @@ class EulerSolver:
         accounting and the staging of the stacked inputs
         (:meth:`~repro_torch.core.engine.Engine.stage_batch`, which
         uploads a batch once) run under the session lock; the launch runs
-        outside it, in a ``launch`` span of width B."""
+        outside it, in a ``launch`` span of width B.  Over a mesh the
+        batch is fetched before this returns, as :meth:`solve_async`'s
+        solve is."""
         graphs = list(graphs)
         if not graphs:
             raise ValueError("empty batch")
@@ -957,7 +977,6 @@ class EulerSolver:
             raise ValueError("solve_batch_async is a device-backend path")
         if len(graphs) == 1:
             return self.solve_async(graphs[0])
-        require_meshless(self._mesh, "solve_batch")
         t0 = time.perf_counter()
         B = len(graphs)
         with self._lock:
@@ -979,8 +998,11 @@ class EulerSolver:
                        "upload_s": time.perf_counter() - t1}
             run = eng.fused_program(key[0], B)
         pending = self._launch(run, staged, key, hit)
-        return PendingSolve(self, pending, graphs, [p[1] for p in preps],
-                            key, hit, t0, timings)
+        solve = PendingSolve(self, pending, graphs, [p[1] for p in preps],
+                             key, hit, t0, timings)
+        if self._mesh is not None:
+            solve.fetch()         # NCCL_GRAPH_MIXING_SUPPORT=0's rule
+        return solve
 
     def _staged(self, eng: Engine, pg, resident: bool, t0: float,
                 drain: bool):

@@ -22,10 +22,12 @@
 //       tables.  The 1-D single-shard form is the case n = 1.
 //
 // All values are int32.  K1 takes [n, 2] and K2 [n, 4] records, 8- and
-// 16-byte aligned, with 0 <= nxt[i], ptr[i] < n (the caller's contract, as
-// in the reference); dist adds with int32 wrap-around, like the torch
-// twin.  K3/K4 take any query values: a query outside [base, base +
-// s_real) is simply not owned.
+// 16-byte aligned.  A pointer nxt[i], ptr[i] is read as a jnp gather
+// reads its index (gather_index below): a negative one plus n, then
+// clamped to [0, n), so the reference's halt at a wrapped -1 reads row
+// n - 1 and nothing reads outside the table.  dist adds with int32
+// wrap-around, like the torch twin.  K3/K4 take any query values: a
+// query outside [base, base + s_real) is simply not owned.
 //
 // Bound: device-memory bytes; almost no arithmetic.  Each launch reads
 // every input once and writes every output once.  K1: 16 bytes per
@@ -92,6 +94,15 @@ namespace {
 constexpr int kThreads = 256;
 constexpr int kBlocksPerSm = 8;
 
+// The row a jnp gather reads for pointer p of a table of n rows: a
+// negative p wraps once (p + n), then the row is clamped to [0, n).  So
+// x[[-1, 7, -9]] on 5 rows reads rows 4, 4, 0, and no pointer reads
+// outside the table.  In-range pointers are unchanged.
+__device__ __forceinline__ int64_t gather_index(int32_t p, int64_t n) {
+  int64_t r = p < 0 ? static_cast<int64_t>(p) + n : static_cast<int64_t>(p);
+  return r < 0 ? 0 : (r >= n ? n - 1 : r);
+}
+
 // K1 on records rec[i] = (nxt, lab): one 8-byte load of the own record
 // (coalesced), one of the record at nxt (gathered), one 8-byte store,
 // marked evict-first in L2 under the cache policy pol.
@@ -112,7 +123,7 @@ pointer_double_kernel(const int2* __restrict__ rec, int2* __restrict__ out,
   for (int64_t i = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
        i < n; i += stride) {
     const int2 own = __ldg(rec + i);
-    const int2 far = __ldg(rec + own.x);
+    const int2 far = __ldg(rec + gather_index(own.x, n));
     store_evict_first(
         out + i, make_int2(far.x, far.y < own.y ? far.y : own.y),
         evict_first);
@@ -126,7 +137,7 @@ pointer_double_rank_kernel(const int4* __restrict__ rec,
   for (int64_t i = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
        i < n; i += stride) {
     const int4 own = __ldg(rec + i);
-    const int4 far = __ldg(rec + own.x);
+    const int4 far = __ldg(rec + gather_index(own.x, n));
     int4 next;
     next.x = far.x;
     // unsigned add: int32 wrap-around without signed-overflow UB

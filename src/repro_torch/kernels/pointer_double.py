@@ -164,9 +164,11 @@ def _round(name: str, symbol: str, twin, rec: torch.Tensor,
 def pointer_double(rec: torch.Tensor,
                    out: Optional[torch.Tensor] = None) -> torch.Tensor:
     """One min-label doubling round over the full table (K1) on packed
-    records.  ``rec`` int32 [N, 2], row i = ``(nxt, lab)``,
-    ``0 ≤ nxt < N``.  Returns the next round's records, written into
-    ``out`` when given."""
+    records.  ``rec`` int32 [N, 2], row i = ``(nxt, lab)``; ``nxt`` is
+    read as a jnp gather reads its index: a negative one plus N, then
+    clamped to ``[0, N)`` (:func:`~.ref.gather_index`), so no pointer
+    reads outside the table.  Returns the next round's records, written
+    into ``out`` when given."""
     out, launched = _round("pointer_double", "pd_pointer_double",
                            pointer_double_packed_ref, rec, out, 2)
     pointer_double.launches += int(launched)
@@ -179,8 +181,9 @@ pointer_double.launches = 0
 def pointer_double_rank(rec: torch.Tensor,
                         out: Optional[torch.Tensor] = None) -> torch.Tensor:
     """One list-ranking doubling round (K2) on packed records.  ``rec``
-    int32 [N, 4], row i = ``(ptr, dist, reach, 0)`` (reach 0/1),
-    ``0 ≤ ptr < N``; halt nodes self-loop with dist 0.  Returns the next
+    int32 [N, 4], row i = ``(ptr, dist, reach, 0)`` (reach 0/1); ``ptr``
+    is read as K1 reads ``nxt`` (a negative one plus N, then clamped to
+    ``[0, N)``); halt nodes self-loop with dist 0.  Returns the next
     round's records, written into ``out`` when given."""
     out, launched = _round("pointer_double_rank", "pd_pointer_double_rank",
                            pointer_double_rank_packed_ref, rec, out, 4)

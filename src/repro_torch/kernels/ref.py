@@ -2,7 +2,8 @@
 
 The twins are what a kernel wrapper runs on CPU tensors, and what the
 CUDA kernels are held against on the card: bit for bit for the integer
-pointer-doubling rounds (``nxt``/``ptr`` entries must lie in ``[0, N)``),
+pointer-doubling rounds (``nxt``/``ptr`` entries read as a jnp gather
+reads its index, :func:`gather_index`),
 within a float tolerance for the segment sum and attention, and by trip
 count for the splice loops' test (it runs only inside a while node).
 K1's and K2's kernels take packed records; ``pointer_double_ref`` and
@@ -35,10 +36,22 @@ def segment_sum_sorted_ref(values: torch.Tensor, seg_ids: torch.Tensor,
     return out[:num_segments].to(values.dtype)
 
 
+def gather_index(p: torch.Tensor) -> torch.Tensor:
+    """The rows a jnp gather reads for the pointers ``p`` into a table of
+    ``len(p)`` rows: a negative pointer wraps once (``p + N``), then every
+    row is clamped to ``[0, N)``; ``x[[-1, 7, -9]]`` on 5 rows reads rows
+    4, 4, 0.  Torch's CPU indexing wraps a negative index but raises past
+    the end, so the twins index through this.  In-range pointers are
+    unchanged."""
+    n = p.shape[0]
+    return torch.where(p < 0, p + n, p).clamp(0, max(n - 1, 0))
+
+
 def pointer_double_ref(nxt: torch.Tensor, lab: torch.Tensor):
     """One pointer-doubling round: ``lab' = min(lab, lab[nxt])``;
     ``nxt' = nxt[nxt]``."""
-    return nxt[nxt], torch.minimum(lab, lab[nxt])
+    j = gather_index(nxt)
+    return nxt[j], torch.minimum(lab, lab[j])
 
 
 def pointer_double_packed_ref(rec: torch.Tensor) -> torch.Tensor:
@@ -52,7 +65,8 @@ def pointer_double_rank_ref(ptr: torch.Tensor, dist: torch.Tensor,
                             reach: torch.Tensor):
     """One list-ranking round: ``dist' = dist + dist[ptr]``;
     ``reach' = max(reach, reach[ptr])``; ``ptr' = ptr[ptr]``."""
-    return ptr[ptr], dist + dist[ptr], torch.maximum(reach, reach[ptr])
+    j = gather_index(ptr)
+    return ptr[j], dist + dist[j], torch.maximum(reach, reach[j])
 
 
 def pointer_double_rank_packed_ref(rec: torch.Tensor) -> torch.Tensor:

@@ -156,8 +156,9 @@ def kernel_text(items: int = 1, own=None, far=None, put=None,
     decl = "".join(f'  uint64_t pol_{k};\n  asm("{POLICY[v]}" : "=l"(pol_{k}));\n'
                    for k, v in pols.items())
     ld_own = "ld_hint_no_l1(rec + i, pol_own)" if own else "__ldg(rec + i)"
-    ld_far = ("ld_hint(rec + own[k].x, pol_far)" if far
-              else "__ldg(rec + own[k].x)")
+    row = "gather_index(own[k].x, n)"
+    ld_far = (f"ld_hint(rec + {row}, pol_far)" if far
+              else f"__ldg(rec + {row})")
     value = "make_int2(far[k].x, far[k].y < own[k].y ? far[k].y : own[k].y)"
     store = (f"st_hint(out + i, {value}, pol_put)" if put
              else f"out[i] = {value}")

@@ -50,7 +50,10 @@ the open census (``core/capture.py``) as ``dist:<kind>``:
     (``all_gather_into_tensor``);
   * ``fetch`` — the gather of a sharded output that the reference's host
     fetch makes outside its program (flags, metrics, the rank shards
-    under ``gather_circuit=False``), and the eager path's log gathers.
+    under ``gather_circuit=False``), and the eager path's log gathers;
+  * ``broadcast`` — rank 0's order of the next serving dispatch to the
+    other ranks (``launch/serve.py::MicroBatcher``), which the
+    reference's one controller does not need.
 
 Each call also adds the bytes it sends from this rank to
 :attr:`PartMesh.sent_bytes` under its kind: the whole send buffer of an
@@ -147,11 +150,12 @@ class PartMesh:
         """This rank's rows of a ``[n_parts, ·]`` array."""
         return slice(self.first, self.first + self.m)
 
-    def part_ids(self, dtype=torch.int32) -> torch.Tensor:
+    def part_ids(self, dtype=torch.int32, batch: int = 1) -> torch.Tensor:
         """``[m]`` global partition index of each local row (the
-        reference's ``axis_index``)."""
+        reference's ``axis_index``); for a batch of ``batch`` graphs, whose
+        rows are (partition, graph) pairs, partition major, ``[m·B]``."""
         return torch.arange(self.first, self.first + self.m, dtype=dtype,
-                            device=self.device)
+                            device=self.device).repeat_interleave(batch)
 
     def _count(self, kind: str, call: str,
                sent: Optional[torch.Tensor] = None) -> None:
@@ -179,12 +183,16 @@ class PartMesh:
         dist.all_to_all_single(out, x, group=self.group)
         return _unwire(self._received(out), send.dtype)
 
-    def ring(self, x: torch.Tensor, dim: int = 0) -> torch.Tensor:
+    def ring(self, x: torch.Tensor, dim: int = 0,
+             batch: int = 1) -> torch.Tensor:
         """One ``ppermute`` step along the ring i → i+1 of ``x``'s
         partition axis ``dim`` (``m`` local rows): row i takes row i − 1,
-        row 0 the last row of rank − 1."""
-        m = x.shape[dim]
-        last = _wire(x.narrow(dim, m - 1, 1)).reshape(-1)
+        row 0 the last row of rank − 1.  For a batch of ``batch`` graphs
+        the rows are (partition, graph) pairs, partition major, and a step
+        moves the ``batch`` rows of a partition: the last partition's go
+        to rank + 1."""
+        rows = x.shape[dim]
+        last = _wire(x.narrow(dim, rows - batch, batch)).reshape(-1)
         self._count("ring", "all_to_all_single", last)
         got = torch.empty_like(last)
         sends = [0] * self.world
@@ -193,9 +201,9 @@ class PartMesh:
         recvs[(self.rank - 1) % self.world] = last.numel()
         dist.all_to_all_single(got, last, recvs, sends, group=self.group)
         shape = list(x.shape)
-        shape[dim] = 1
+        shape[dim] = batch
         return torch.cat([_unwire(self._received(got), x.dtype).view(shape),
-                          x.narrow(dim, 0, m - 1)], dim)
+                          x.narrow(dim, 0, rows - batch)], dim)
 
     def psum(self, x: torch.Tensor) -> torch.Tensor:
         """The sum of ``x`` over the ranks (a new tensor)."""
@@ -229,6 +237,17 @@ class PartMesh:
         docstring)."""
         self._count("fetch", "all_gather_into_tensor", x)
         return self._gather(x)
+
+    def broadcast(self, x: torch.Tensor) -> torch.Tensor:
+        """``x`` as the mesh's rank 0 holds it, on every rank (in place;
+        the serving loop's flush orders, ``launch/serve.py``).  Only rank
+        0's bytes count as sent."""
+        self._count("broadcast", "broadcast", x if self.rank == 0 else None)
+        src = 0 if self.group is None else dist.get_global_rank(self.group, 0)
+        dist.broadcast(x, src, group=self.group)
+        if self.rank:
+            self._received(x)
+        return x
 
 
 #: the NCCL setting the fused run over an NCCL mesh needs (module

@@ -35,6 +35,16 @@ serves and may move the bucket scale onto the tight cap profile:
     PYTHONPATH=src python -m repro_torch.launch.serve --scale 9 --parts 8 \\
         --same-bucket --pool 8 --requests 256 --adaptive [--device cpu]
 
+Over a partition mesh (``--mesh``, under ``torch.distributed.run``:
+gloo with ``--device cpu``, one NCCL rank a card otherwise) every rank
+serves the same stream; rank 0 owns the queues and the clock and
+broadcasts each flush before it dispatches, and the other ranks follow
+(:class:`MicroBatcher`):
+
+    PYTHONPATH=src python -m torch.distributed.run --nproc-per-node 2 \
+        -m repro_torch.launch.serve --mesh --device cpu --scale 6 \
+        --parts 8 --same-bucket --pool 4 --requests 12
+
 The LM prefill + KV-cache decode driver (the reference's ``main_lm``) is
 behind ``--workload lm``; its body is :func:`serve_lm`, which callers
 can drive with any config, prompts and weights:
@@ -58,6 +68,7 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import json
+import os
 import sys
 import threading
 import time
@@ -70,7 +81,7 @@ import torch
 from .. import obs
 from ..configs.registry import get_config
 from ..core import capture
-from ..core.engine import drained_clock, require_meshless
+from ..core.engine import drained_clock
 from ..euler.autotune import AutoTuner, FlushLog
 from ..euler.bucket import modal_bucket_pool
 from ..euler.solver import EulerSolver, resolve_device
@@ -115,19 +126,31 @@ class MicroBatcher:
     :class:`~repro_torch.euler.autotune.AutoTuner` under ``main_euler
     --adaptive``.
 
-    A solver over a partition mesh raises ``NotImplementedError``: the
-    loop's batches and pipelined dispatches are one-device paths
-    (ROADMAP item 9c).
+    Over a partition mesh (``solver.mesh``) every rank must make the same
+    dispatches in the same order, or the collectives hang; the reference
+    has one controller.  So the mesh's rank 0 leads: it owns the queues
+    and the clock (deadline and quota flushes) and, before each dispatch,
+    broadcasts the flush's width and request ids over the mesh
+    (``PartMesh.broadcast``, counted under ``broadcast``); its
+    :meth:`drain` ends with a stop order.  Every other rank follows:
+    :meth:`follow` makes the same dispatches of the same graphs until
+    the stop and returns the same results.  A dispatch over a mesh is
+    fetched before the next (``EulerSolver.solve_async``), so
+    ``pipeline_depth`` overlaps nothing there.  The autotuner has no
+    mesh form yet: its compile thread raises over a mesh
+    (``EulerSolver.prewarm_async``, ROADMAP item 9c.1).
     """
 
     def __init__(self, solver, max_batch: int = 8,
                  deadline_s: float = 0.010, clock=time.perf_counter,
                  pipeline_depth: int = 2, autotuner=None):
-        require_meshless(getattr(solver, "mesh", None), "the serving loop")
         if max_batch < 1 or pipeline_depth < 0:
             raise ValueError(
                 f"need max_batch >= 1 and pipeline_depth >= 0, got "
                 f"{max_batch}, {pipeline_depth}")
+        self.mesh = getattr(solver, "mesh", None)
+        #: rank 0 of a mesh (or no mesh) decides the flushes
+        self.leads = self.mesh is None or self.mesh.rank == 0
         self.solver = solver
         self.max_batch = max_batch
         self.deadline_s = deadline_s
@@ -153,6 +176,57 @@ class MicroBatcher:
         self._g_depth = reg.gauge(
             "euler_queue_depth", "requests queued awaiting a flush"
         ).labels(**lab)
+
+    # -- the mesh's flush orders ---------------------------------------
+    def _order(self, seqs=()) -> list:
+        """Broadcast one flush order from rank 0 over the mesh: the
+        request ids of the next dispatch (its width is their count), or
+        none for the stop.  Every rank returns rank 0's ids."""
+        order = [len(seqs), *seqs] if self.leads else []
+        order += [0] * (1 + self.max_batch - len(order))
+        with capture.CARD.shared(self.mesh.device):
+            msg = torch.tensor(order, dtype=torch.int64,
+                               device=self.mesh.device)
+            got = self.mesh.broadcast(msg).tolist()
+        return got[1:1 + got[0]]
+
+    def _require_lead(self, what: str) -> None:
+        if not self.leads:
+            raise RuntimeError(
+                f"{what}: rank {self.mesh.rank} of the mesh follows rank "
+                f"0's flushes; call follow() there")
+
+    def _dispatch(self, graphs, seqs, ts) -> list:
+        """One dispatch of ``graphs`` (width their count) into the
+        in-flight window; returns what the window's overflow delivered."""
+        pend = (self.solver.solve_batch_async(graphs) if len(graphs) > 1
+                else self.solver.solve_async(graphs[0]))
+        self.inflight.append((pend, list(seqs), list(ts)))
+        self.flushes.observe(len(graphs))
+        out = []
+        while len(self.inflight) > self.pipeline_depth:
+            out.extend(self._harvest_one())
+        return out
+
+    def follow(self, resolve) -> list:
+        """On a mesh rank other than 0: make rank 0's dispatches, in its
+        order, until its :meth:`drain`'s stop; ``resolve(seq)`` gives the
+        graph of request ``seq``, the one rank 0 was given.  Returns the
+        completed ``(seq, EulerResult)`` pairs, seq-sorted, the same
+        bytes as rank 0's."""
+        if self.mesh is None or self.leads:
+            raise RuntimeError("follow() runs on a mesh rank other than 0")
+        out = []
+        while True:
+            seqs = self._order()
+            if not seqs:
+                break
+            with self.trace.span("flush", n=len(seqs)) as sp:
+                out.extend(self._dispatch([resolve(q) for q in seqs], seqs,
+                                          [self.clock()] * len(seqs)))
+                sp.set(widths=[len(seqs)])
+        out.extend(self._harvest(block=True))
+        return sorted(out)
 
     # -- pipeline ------------------------------------------------------
     def _harvest_one(self):
@@ -202,15 +276,12 @@ class MicroBatcher:
                 w = next(x for x in self._widths_for(key, n) if x <= n)
                 chunk = reqs[i:i + w]
                 i += w
-                graphs = [g for _, g, _ in chunk]
-                pend = (self.solver.solve_batch_async(graphs) if w > 1
-                        else self.solver.solve_async(graphs[0]))
-                self.inflight.append((pend, [s for s, _, _ in chunk],
-                                      [t for _, _, t in chunk]))
-                self.flushes.observe(w)
+                seqs = [s for s, _, _ in chunk]
+                if self.mesh is not None:
+                    self._order(seqs)
+                out.extend(self._dispatch([g for _, g, _ in chunk], seqs,
+                                          [t for _, _, t in chunk]))
                 widths.append(w)
-                while len(self.inflight) > self.pipeline_depth:
-                    out.extend(self._harvest_one())
             sp.set(widths=widths)
         self._g_depth.set(sum(len(q) for q in self.pending.values()))
         return out
@@ -219,6 +290,7 @@ class MicroBatcher:
     def submit(self, seq: int, graph):
         """Queue one request; returns any results completed by the
         pipeline, plus this bucket's flush if the submission filled it."""
+        self._require_lead("submit")
         key = self.solver.bucket_of(graph)
         if self.autotuner is not None:
             self.autotuner.observe_arrival(key, graph)
@@ -232,6 +304,7 @@ class MicroBatcher:
     def poll(self):
         """Flush every bucket whose oldest request passed the deadline;
         deliver whatever the pipeline has completed."""
+        self._require_lead("poll")
         now = self.clock()
         due = [k for k, q in self.pending.items()
                if q and now - q[0][2] >= self.deadline_s]
@@ -249,11 +322,16 @@ class MicroBatcher:
 
     def drain(self):
         """Flush all pending requests and complete the pipeline
-        (shutdown); results are seq-sorted — i.e. submit order."""
+        (shutdown); results are seq-sorted — i.e. submit order.  Over a
+        mesh it ends with the stop order that ends the other ranks'
+        :meth:`follow`."""
+        self._require_lead("drain")
         out = []
         for k in list(self.pending):
             out.extend(self._flush(k))
         out.extend(self._harvest(block=True))
+        if self.mesh is not None:
+            self._order()
         return sorted(out)
 
 
@@ -527,9 +605,21 @@ def main_lm(argv=None):
     return res.ids
 
 
-def main_euler(argv=None):
+def main_euler(argv=None, mesh=None):
     """The Euler-circuit serving loop, static or ``--adaptive`` (the
-    module docstring).  Returns circuits served a second."""
+    module docstring).  Returns circuits served a second.
+
+    Over a partition mesh (``mesh``, a
+    :class:`~repro_torch.launch.mesh.PartMesh`, or ``--mesh`` under
+    ``torch.distributed.run``, which initialises the default group from
+    its environment: gloo with ``--device cpu``, NCCL on the card) every
+    rank prepares the same pool and makes the same cold sweep and width
+    prewarm (joined before serving: a recording's collectives cannot run
+    beside the loop's); then rank 0 runs the loop and the others follow
+    its flushes (:meth:`MicroBatcher.follow`).  ``--parts 0`` is the
+    mesh's partitions (one a rank under ``--mesh``, as the reference's
+    ``len(jax.devices())``).  ``--adaptive`` raises there (ROADMAP item
+    9c.1)."""
     ap = argparse.ArgumentParser(
         description="Euler-circuit serving loop over the solver facade")
     ap.add_argument("--scale", type=int, default=9,
@@ -598,20 +688,32 @@ def main_euler(argv=None):
     ap.add_argument("--device", default="cuda",
                     help="torch device (default: cuda; cpu runs the "
                          "kernels' plain twins)")
+    ap.add_argument("--mesh", action="store_true",
+                    help="serve over a partition mesh of the ranks "
+                         "torch.distributed.run started (gloo with "
+                         "--device cpu, NCCL on the card)")
     args = ap.parse_args(argv)
+    if args.mesh and mesh is None:
+        return _main_euler_mesh(args, argv)
 
     max_batch = 1 if args.eager else args.max_batch
     if args.adaptive and (args.eager or max_batch <= 1):
         raise SystemExit("--adaptive needs the fused path and "
                          "--max-batch > 1 (there is no width ladder to "
                          "tune otherwise)")
-    device = resolve_device(args.device)
+    device = resolve_device(args.device if mesh is None else mesh.device)
     on_card = device.type == "cuda"
-    n_parts = args.parts or (torch.cuda.device_count() if on_card else 1)
+    if mesh is not None:
+        n_parts = args.parts or mesh.n_parts
+    else:
+        n_parts = args.parts or (torch.cuda.device_count() if on_card
+                                 else 1)
+    leads = mesh is None or mesh.rank == 0
+    say = print if leads else (lambda *a, **k: None)
     ladder = not args.no_ladder
     widths = sorted({int(w) for w in args.widths.split(",") if w}
                     | {max_batch})
-    solver = EulerSolver(n_parts=n_parts, device=device,
+    solver = EulerSolver(n_parts=n_parts, device=device, mesh=mesh,
                          fused=not args.eager,
                          cap_ladder=ladder, level_ladder=ladder,
                          straggler_cap=ladder,
@@ -622,8 +724,8 @@ def main_euler(argv=None):
         metrics_srv = obs.MetricsServer(solver.registry,
                                         port=args.metrics_port,
                                         trace=solver.trace)
-        print(f"metrics: {metrics_srv.url}/metrics (Prometheus) and "
-              f"{metrics_srv.url}/metrics.json")
+        say(f"metrics: {metrics_srv.url}/metrics (Prometheus) and "
+            f"{metrics_srv.url}/metrics.json")
     if args.same_bucket:
         pool = modal_bucket_pool(
             solver,
@@ -642,10 +744,11 @@ def main_euler(argv=None):
                               seed=args.seed + i) for i in range(args.pool)]
     mode = "eager" if args.eager else "fused"
     depth = 0 if (args.sync or args.eager) else args.pipeline_depth
-    print(f"serving {mode} on {n_parts} partitions ({device}); request "
-          f"pool: {len(pool)} graphs, ~{pool[0].num_edges} edges each; "
-          f"micro-batch ≤{max_batch}, deadline {args.deadline_ms}ms, "
-          f"pipeline depth {depth}, widths {widths}")
+    say(f"serving {mode} on {n_parts} partitions ({device}"
+        + ("" if mesh is None else f", a mesh of {mesh.world} rank(s)")
+        + f"); request pool: {len(pool)} graphs, ~{pool[0].num_edges} "
+        f"edges each; micro-batch ≤{max_batch}, deadline "
+        f"{args.deadline_ms}ms, pipeline depth {depth}, widths {widths}")
 
     tuner = None
     rep: dict = {}
@@ -657,8 +760,8 @@ def main_euler(argv=None):
         t_cold = t_warm = 0.0
         cold_thr = 0.0
         tuner = AutoTuner(solver, max_batch=max_batch)
-        print("adaptive: serving from first arrival; ladder widths "
-              "record behind live traffic as flush histograms accrue")
+        say("adaptive: serving from first arrival; ladder widths "
+            "record behind live traffic as flush histograms accrue")
     else:
         # Cold pass: one sequential sweep records each bucket's B=1
         # program and measures cold (recording-inclusive) latency.  The
@@ -683,24 +786,37 @@ def main_euler(argv=None):
             # its solves would share the serving loop's cores; on the card
             # it detaches and the ladder records behind live traffic, each
             # recording holding the card gate alone.  The batcher
-            # dispatches only widths already live either way.
+            # dispatches only widths already live either way.  Over a
+            # mesh it is joined too: its recordings' collectives cannot
+            # run beside the loop's.
             pw = threading.Thread(
                 target=lambda: [solver.prewarm(g, ladder_widths)
                                 for g in rep.values()],
                 name="prewarm", daemon=True)
             pw.start()
-            if args.sync_prewarm or not on_card:
+            if args.sync_prewarm or not on_card or mesh is not None:
                 pw.join()
         t_warm = time.perf_counter() - t0
         cs = solver.cache_stats
-        print(f"cold pass {t_cold:.2f}s ({cold_thr:.2f} circuits/s); "
-              f"width prewarm {t_warm:.2f}s — {len(rep)} bucket(s), "
-              f"{cs.compiles} program recording(s), "
-              f"{cs.prewarms} prewarmed width(s)")
+        say(f"cold pass {t_cold:.2f}s ({cold_thr:.2f} circuits/s); "
+            f"width prewarm {t_warm:.2f}s — {len(rep)} bucket(s), "
+            f"{cs.compiles} program recording(s), "
+            f"{cs.prewarms} prewarmed width(s)")
 
     batcher = MicroBatcher(solver, max_batch=max_batch,
                            deadline_s=args.deadline_ms / 1e3,
                            pipeline_depth=depth, autotuner=tuner)
+    if not leads:
+        t0 = time.perf_counter()
+        done = batcher.follow(lambda seq: pool[seq % len(pool)])
+        elapsed = time.perf_counter() - t0
+        if not done:
+            raise RuntimeError("serving loop made no progress")
+        done[-1][1].validate()
+        print(f"rank {mesh.rank}/{mesh.world}: followed "
+              f"{batcher.flushes.total} dispatches, {len(done)} circuits "
+              f"in {elapsed:.2f}s")
+        return len(done) / max(elapsed, 1e-9)
     served = 0
     edges = 0
     submitted = 0
@@ -804,6 +920,34 @@ def main_euler(argv=None):
     if metrics_srv is not None:
         metrics_srv.close()
     return thr
+
+
+def _main_euler_mesh(args, argv):
+    """``main_euler --mesh``: the default group from
+    ``torch.distributed.run``'s environment (NCCL's graph mixing off
+    first, as ``launch/mesh.py`` asks), the mesh over it, the loop, then
+    the group destroyed once the session is gone (NCCL waits for the
+    CUDA graphs that hold its kernels)."""
+    import gc
+
+    import torch.distributed as dist
+
+    from .mesh import NCCL_GRAPH_MIXING, make_part_mesh
+
+    cpu = torch.device(args.device).type == "cpu"
+    if not cpu:
+        name, value = NCCL_GRAPH_MIXING
+        os.environ[name] = value
+    dist.init_process_group("gloo" if cpu else "nccl")
+    try:
+        mesh = make_part_mesh(args.parts or dist.get_world_size(),
+                              device="cpu" if cpu else None)
+        return main_euler(argv, mesh=mesh)
+    finally:
+        gc.collect()
+        if not cpu:
+            torch.cuda.synchronize()
+        dist.destroy_process_group()
 
 
 def main(argv=None):

@@ -234,9 +234,9 @@ def test_extra_ring_step_fails(monkeypatch):
     after the rank) fails the sharded audit."""
     rank = phase3_mod._rank_sharded
 
-    def one_more_ring(mate_sh, batch=1):
-        dist, reach = rank(mate_sh, batch)
-        phase3_mod._ring(dist, 0, batch)
+    def one_more_ring(mate_sh, batch=1, mesh=None):
+        dist, reach = rank(mate_sh, batch, mesh)
+        phase3_mod._ring(dist, 0, batch, mesh)
         return dist, reach
 
     monkeypatch.setattr(phase3_mod, "_rank_sharded", one_more_ring)

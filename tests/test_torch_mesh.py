@@ -79,19 +79,20 @@ def case_key(P, scale, mode, run) -> str:
 # ----------------------------------------------------------------------
 # the planted faults (each rank's PartMesh methods, swapped in)
 # ----------------------------------------------------------------------
-def backwards_ring(self, x, dim=0):
-    """A ring step along i → i−1: the first row goes to rank − 1."""
+def backwards_ring(self, x, dim=0, batch=1):
+    """A ring step along i → i−1: the first partition's rows go to rank
+    − 1."""
     self._count("ring", "all_to_all_single")
     m = x.shape[dim]
-    first = x.narrow(dim, 0, 1).contiguous().reshape(-1)
+    first = x.narrow(dim, 0, batch).contiguous().reshape(-1)
     got = torch.empty_like(first)
     sends, recvs = [0] * self.world, [0] * self.world
     sends[(self.rank - 1) % self.world] = first.numel()
     recvs[(self.rank + 1) % self.world] = first.numel()
     dist.all_to_all_single(got, first, recvs, sends, group=self.group)
     shape = list(x.shape)
-    shape[dim] = 1
-    return torch.cat([x.narrow(dim, 1, m - 1), got.view(shape)], dim)
+    shape[dim] = batch
+    return torch.cat([x.narrow(dim, batch, m - batch), got.view(shape)], dim)
 
 
 def transposed_split(self, send):
@@ -423,8 +424,10 @@ def test_nccl_mesh_needs_graph_mixing_off(monkeypatch):
 
 def test_solver_mesh_rules(one_rank):
     """Over a mesh: the solver takes its partitions and device, refuses
-    the host backend, and raises ``NotImplementedError`` for batches and
-    the serving loop rather than running them without the mesh."""
+    the host backend, and runs batches, ``solve_many(batch=)`` and the
+    serving loop over the mesh, with the meshless bytes (a world of one
+    rank in process; tests/test_torch_mesh_batch.py holds them to the
+    JAX package on worlds of 1, 2 and 4)."""
     from repro_torch.launch.serve import MicroBatcher
 
     mesh = mesh_mod.make_part_mesh(2, device="cpu")
@@ -436,17 +439,23 @@ def test_solver_mesh_rules(one_rank):
     with pytest.raises(ValueError, match="no mesh"):
         EulerSolver(backend="host", mesh=mesh)
     g = eulerian_rmat(5, avg_degree=4, seed=5)
-    with pytest.raises(NotImplementedError, match="item 9"):
-        solver.solve_batch([g, g])
-    with pytest.raises(NotImplementedError, match="item 9"):
-        solver.solve_many([g, g], batch=2)
-    with pytest.raises(NotImplementedError, match="item 9"):
-        MicroBatcher(solver)
     # one graph at a time holds the meshless bytes, in process too
     res = solver_mod.solve(g, n_parts=2, mesh=mesh)
     plain = solver_mod.solve(g, n_parts=2, device="cpu")
     np.testing.assert_array_equal(res.circuit, plain.circuit)
     np.testing.assert_array_equal(res.mate, plain.mate)
+    for got in solver.solve_batch([g, g]):
+        np.testing.assert_array_equal(got.circuit, plain.circuit)
+    for got in solver.solve_many([g, g, g], batch=2):
+        np.testing.assert_array_equal(got.mate, plain.mate)
+    batcher = MicroBatcher(solver, max_batch=2)
+    assert batcher.leads and batcher.mesh is mesh
+    done = batcher.submit(0, g) + batcher.drain()
+    assert [s for s, _ in done] == [0]
+    np.testing.assert_array_equal(done[0][1].circuit, plain.circuit)
+    # the compile thread has no mesh form yet (ROADMAP item 9c.1)
+    with pytest.raises(NotImplementedError, match="item 9c.1"):
+        solver.prewarm_async(g)
 
 
 @pytest.fixture(scope="module")
