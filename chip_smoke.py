@@ -563,7 +563,29 @@ exits non-zero:
                 every request's circuit and mate byte-equal, one flush
                 broadcast a dispatch and the stop, K3/K4 launched (the
                 launch counters set to 0 before each run and read
-                after); circuits/s and p50/p95 beside meshless.  A ring
+                after); circuits/s and p50/p95 beside meshless.  The
+                autotuner over the mesh (``[mesh] run=serve_adaptive``):
+                ``main_euler --adaptive`` in-process with phase 5g's
+                arguments, 256 requests at pipeline depth 0, over the
+                mesh (rank 0's tuner, its recordings run on the serving
+                thread as orders of the broadcast stream) and without it
+                (the compile thread): every request validated and
+                byte-equal between the two, at least one prewarm order
+                run and a flush wider than 1 dispatched, one broadcast an
+                order and the stop, K3/K4 launched; circuits/s, p50/p95,
+                ``first_wide_flush_s``, the orders and their broadcast
+                bytes by kind, recordings and tuner steps beside
+                meshless, and the compile jobs ``drain()`` ran after the
+                last result (outside the timed window).  A retune order over the mesh (``[mesh]
+                run=retune``): phase 5g (f)'s forced tighten of the
+                scale-9 pool's bucket, announced through a
+                ``MicroBatcher`` (``compile_next``: the tighten, the
+                rekey and the tight B = 1 and 8 recordings as one order)
+                beside the same retune in a meshless session, then the
+                pool's tight solves one at a time and a B = 8 batch of
+                the retuned bucket: byte-equal request for request, the
+                tight B = 1 and 8 recorded by the order, K3/K4 launched
+                in its recordings.  A ring
                 planted to send to rank − 1 (at world 1 the local rows
                 roll the wrong way) must change the bytes or fail the
                 solve, eager and fused, at scale 8.
@@ -607,6 +629,7 @@ import contextlib
 import ctypes
 import dataclasses
 import datetime
+import gc
 import json
 import os
 import re
@@ -5467,6 +5490,8 @@ MESH_FAULT_SCALE = 8
 MESH_BATCH_SCALE, MESH_BATCH_WIDTHS = 16, (2, 4)
 #: phase 17's serving loop: requests a run, and the pipeline depths
 MESH_SERVE_REQUESTS, MESH_SERVE_DEPTHS = 256, (2, 0)
+#: phase 17's adaptive serve: main_euler's arguments past SERVE_ARGS
+MESH_ADAPTIVE_ARGS = ["--adaptive", "--pipeline-depth", "0"]
 #: phase 5b's cold fused solves at the main scale, by ``sharded_phase3``:
 #: ``(timings, peak allocated, peak reserved, launches recorded)``
 MESHLESS_FUSED: dict = {}
@@ -5489,6 +5514,7 @@ def nccl_world():
     try:
         yield
     finally:
+        gc.collect()        # solvers in reference cycles hold NCCL graphs
         dist.destroy_process_group()
         shutil.rmtree(tmp, ignore_errors=True)
 
@@ -5638,6 +5664,8 @@ def check_mesh(scale: int, g, eager: dict, smi: str) -> None:
         torch.cuda.empty_cache()
         check_mesh_batch(mesh, smi)
         check_mesh_serve(mesh, smi)
+        check_mesh_serve_adaptive(mesh, smi)
+        check_mesh_retune(mesh, smi)
         # a planted mis-wiring must be caught
         small = eulerian_rmat(MESH_FAULT_SCALE, avg_degree=AVG_DEGREE,
                               seed=SEED)
@@ -5735,13 +5763,12 @@ def check_mesh_batch(mesh, smi: str) -> None:
     say("mesh", part="batch", seconds=f"{time.perf_counter() - t0:.1f}")
 
 
-def mesh_serve(mesh, depth: int) -> tuple:
+def mesh_serve(mesh, extra: list) -> tuple:
     """One in-process ``main_euler`` run of phase 17 (phase 5g's
-    arguments, ``--widths 8``: every flush of the closed loop fills the
-    quota of 8, ``--sync-prewarm``, MESH_SERVE_REQUESTS requests) at
-    pipeline ``depth`` over ``mesh`` (None: without one), the launch
-    counters set to 0 just before and read just after: ``(stats, {seq:
-    result}, launches)``, every result validated."""
+    arguments, then ``extra``, MESH_SERVE_REQUESTS requests) over
+    ``mesh`` (None: without one), the launch counters set to 0 just
+    before and read just after: ``(stats, {seq: result}, launches)``,
+    every result validated."""
     delivered = []
     harvest = serve.MicroBatcher._harvest_one
 
@@ -5755,26 +5782,30 @@ def mesh_serve(mesh, depth: int) -> tuple:
             mock.patch.object(serve.MicroBatcher, "_harvest_one", kept):
         path = Path(tmp) / "serve.json"
         reset_counts()
-        serve.main_euler(SERVE_ARGS + [
-            "--widths", "8", "--sync-prewarm", "--pipeline-depth",
-            str(depth), "--requests", str(MESH_SERVE_REQUESTS), "--json",
-            str(path)], mesh=mesh)
+        serve.main_euler(SERVE_ARGS + extra + [
+            "--requests", str(MESH_SERVE_REQUESTS), "--json", str(path)],
+            mesh=mesh)
         launched = read_counts()
         stats = json.loads(path.read_text().splitlines()[-1])
+    gc.collect()
     torch.cuda.empty_cache()
     return stats, dict(delivered), launched
 
 
 def check_mesh_serve(mesh, smi: str) -> None:
     """Phase 17's serving loop (module docstring): ``main_euler`` over the
-    mesh and without it at each of MESH_SERVE_DEPTHS, every request's
-    circuit and mate byte-equal between the two."""
+    mesh and without it at each of MESH_SERVE_DEPTHS (``--widths 8``:
+    every flush of the closed loop fills the quota of 8;
+    ``--sync-prewarm``), every request's circuit and mate byte-equal
+    between the two."""
     t0 = time.perf_counter()
     for depth in MESH_SERVE_DEPTHS:
-        plain, want, _ = mesh_serve(None, depth)
+        extra = ["--widths", "8", "--sync-prewarm", "--pipeline-depth",
+                 str(depth)]
+        plain, want, _ = mesh_serve(None, extra)
         mesh.calls.clear()
         mesh.sent_bytes.clear()
-        stats, got, launched = mesh_serve(mesh, depth)
+        stats, got, launched = mesh_serve(mesh, extra)
         seqs = list(range(MESH_SERVE_REQUESTS))
         same = sorted(got) == seqs == sorted(want) and all(
             same_bytes(got[q], want[q]) for q in seqs)
@@ -5800,6 +5831,154 @@ def check_mesh_serve(mesh, smi: str) -> None:
                 f"{mesh.calls['broadcast']} orders for {dispatches} "
                 f"dispatches, or launched {launched}")
     say("mesh", part="serve", seconds=f"{time.perf_counter() - t0:.1f}")
+
+
+def check_mesh_serve_adaptive(mesh, smi: str) -> None:
+    """Phase 17's adaptive serve (module docstring): ``main_euler
+    --adaptive`` without the mesh, then over it, every request's circuit
+    and mate byte-equal between the two."""
+    t0 = time.perf_counter()
+    plain, want, _ = mesh_serve(None, MESH_ADAPTIVE_ARGS)
+    mesh.calls.clear()
+    mesh.sent_bytes.clear()
+    stats, got, launched = mesh_serve(mesh, MESH_ADAPTIVE_ARGS)
+    seqs = list(range(MESH_SERVE_REQUESTS))
+    same = sorted(got) == seqs == sorted(want) and all(
+        same_bytes(got[q], want[q]) for q in seqs)
+    orders = stats["orders"]
+    sent = mesh.sent_bytes["broadcast"]
+    per = sent // max(mesh.calls["broadcast"], 1)
+    keys = ("circuits_per_s", "p50_ms", "p95_ms", "first_wide_flush_s",
+            "dispatches_before_wide", "mean_flush", "compiles", "hits",
+            "misses", "tuner_steps", "async_prewarms", "pinned",
+            "cache_bytes")
+    say("mesh", run="serve_adaptive", scale=9, parts=PARTS,
+        pipeline_depth=0, requests=MESH_SERVE_REQUESTS,
+        served=stats["served"], byte_identical_to_meshless=same,
+        orders=json.dumps(orders, separators=(",", ":")),
+        broadcast_bytes=json.dumps({k: n * per for k, n in orders.items()},
+                                   separators=(",", ":")),
+        broadcasts=mesh.calls["broadcast"], broadcast_bytes_total=sent,
+        width_hist=f"'{json.dumps(stats['width_hist'], separators=(',', ':'))}'",
+        meshless_width_hist=f"'{json.dumps(plain['width_hist'], separators=(',', ':'))}'",
+        launches=json.dumps(launched, separators=(",", ":")),
+        drain_compiles=stats["drain_compiles"],
+        drain_compile_s=stats["drain_compile_s"],
+        **{k: stats[k] for k in keys},
+        **{f"meshless_{k}": plain[k] for k in keys}, smi=f"'{smi}'")
+    if not same or stats["served"] != MESH_SERVE_REQUESTS:
+        raise AssertionError("the adaptive serve over the mesh differs "
+                             "from the meshless one")
+    if orders.get("prewarm", 0) < 1 or \
+            not any(int(w) > 1 for w in stats["width_hist"]):
+        raise AssertionError(f"the adaptive serve over the mesh ran no "
+                             f"prewarm order or no wide flush: {orders}, "
+                             f"{stats['width_hist']}")
+    if mesh.calls["broadcast"] != sum(orders.values()) + 1 or not all(
+            launched[name] for name in PATH_KERNELS[True]):
+        raise AssertionError(
+            f"the adaptive serve over the mesh broadcast "
+            f"{mesh.calls['broadcast']} messages for the orders {orders}, "
+            f"or launched {launched}")
+    say("mesh", part="serve_adaptive",
+        seconds=f"{time.perf_counter() - t0:.1f}")
+
+
+def mesh_retune(mesh) -> dict:
+    """One session of phase 17's retune (module docstring) over ``mesh``
+    (None: meshless, the compile thread): the pool's bucket recorded at
+    B = 1 and 8, the retune of its scale (over the mesh an order of a
+    ``MicroBatcher``'s stream), then the pool's tight solves and a B = 8
+    batch of the retuned bucket; the launch counters set to 0 just
+    before the retune and read just after."""
+    solver = (EulerSolver(n_parts=PARTS) if mesh is None
+              else EulerSolver(mesh=mesh))
+    pool = modal_bucket_pool(
+        solver, (eulerian_rmat(9, avg_degree=AVG_DEGREE, seed=SEED + i)
+                 for i in range(8 * 8)), 8)
+    g = pool[0]
+    key = solver.bucket_of(g)
+    e_cap = key[0]
+    solver.prewarm(g, [1, 8])
+    captures = solver.captures
+    svc = solver._ensure_compile_service()
+    mb = None
+    reset_counts()
+    t0 = time.perf_counter()
+    if mesh is None:
+        solver.tighten(e_cap)
+        ticket = svc.submit_retune(g, e_cap, [8])
+        if not ticket.wait(timeout=600) or ticket.error is not None:
+            raise AssertionError(f"[mesh] retune: the meshless retune job "
+                                 f"failed: {ticket.error!r}")
+        orders = {}
+    else:
+        mb = serve.MicroBatcher(solver, max_batch=8)
+        ticket = svc.submit_retune(g, e_cap, [8], seq=0)
+        mb.compile_next()
+        mb.drain()
+        orders = dict(mb.orders)
+    retune_s = time.perf_counter() - t0
+    launched = read_counts()
+    recorded = solver.captures - captures
+    tkey = solver.bucket_of(g)
+    tight_keys = [solver.bucket_of(x) for x in pool]
+    ones = [solver.solve(x).validate() for x in pool]
+    members = [x for x, k in zip(pool, tight_keys) if k == tkey]
+    eights = solver.solve_batch([members[i % len(members)]
+                                 for i in range(8)])
+    for r in eights:
+        r.validate()
+    out = dict(results=ones + eights, widths=list(ticket.widths),
+               retune_s=retune_s, recorded=recorded, launched=launched,
+               orders=orders, tight=tkey != key and tkey[0] == e_cap,
+               tight_buckets=len(set(tight_keys)), b8_members=len(members),
+               b8_hit=eights[0].cache.hit, captures=solver.captures)
+    svc.stop()
+    del solver, svc, mb, ones, eights
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def check_mesh_retune(mesh, smi: str) -> None:
+    """Phase 17's retune order (module docstring), meshless then over
+    the mesh, every result byte-equal between the two."""
+    t0 = time.perf_counter()
+    plain = mesh_retune(None)
+    mesh.calls.clear()
+    over = mesh_retune(mesh)
+    same = len(over["results"]) == len(plain["results"]) and all(
+        same_bytes(a, b) for a, b in zip(over["results"], plain["results"]))
+    keys = ("widths", "recorded", "tight_buckets", "b8_members", "b8_hit",
+            "captures")
+    say("mesh", run="retune", scale=9, parts=PARTS,
+        byte_identical_to_meshless=same,
+        orders=json.dumps(over["orders"], separators=(",", ":")),
+        broadcasts=mesh.calls["broadcast"],
+        retune_s=f"{over['retune_s']:.3f}",
+        meshless_retune_s=f"{plain['retune_s']:.3f}",
+        launches=json.dumps(over["launched"], separators=(",", ":")),
+        meshless_launches=json.dumps(plain["launched"],
+                                     separators=(",", ":")),
+        **{k: ",".join(map(str, over[k])) if k == "widths" else over[k]
+           for k in keys},
+        **{f"meshless_{k}": ",".join(map(str, plain[k])) if k == "widths"
+           else plain[k] for k in keys}, smi=f"'{smi}'")
+    if not same or not over["tight"] or over["widths"] != [1, 8] \
+            or plain["widths"] != [1, 8]:
+        raise AssertionError("[mesh] retune: the retune order did not "
+                             "record the tight B = 1 and 8, or a result "
+                             "differs from the meshless session's")
+    if over["orders"] != {"retune": 1} or mesh.calls["broadcast"] != 2 \
+            or over["recorded"] != 2 or plain["recorded"] != 2 \
+            or not all(over["launched"][n] for n in PATH_KERNELS[True]):
+        raise AssertionError(
+            f"[mesh] retune: orders {over['orders']}, "
+            f"{mesh.calls['broadcast']} broadcasts, recordings "
+            f"{over['recorded']} (meshless {plain['recorded']}), launches "
+            f"{over['launched']}")
+    say("mesh", part="retune", seconds=f"{time.perf_counter() - t0:.1f}")
 
 
 #: phase 18: the paper's Euler cells at euler-rmat-512's caps.  The

@@ -11,7 +11,10 @@ a compile thread, the pure ladder policy, and bounded flush accounting.
     flushes mid-session.  Unlike the reference's, the port's compile
     thread does stall serving: a recording holds the card gate alone
     (``core/capture.py::CARD``), so the serving thread's uploads,
-    launches and fetches wait for it.
+    launches and fetches wait for it.  Over a partition mesh there is no
+    thread: a recording makes collectives, which every rank must make in
+    the same order, so each job runs on the serving thread when rank 0's
+    order for it is carried out (``launch/serve.py::MicroBatcher``).
 
 :class:`AutoTuner`
     An online policy over EWMA-decayed arrival and flush-size histograms
@@ -29,6 +32,10 @@ a compile thread, the pure ladder policy, and bounded flush accounting.
         measured ``bucket_waste`` is high while every observed cap need
         fits the tight floors; the rekey and the re-recording run on the
         compile thread.
+
+    Over a mesh it decides on rank 0 alone, and each action becomes an
+    order of rank 0's stream, which every rank carries out at the same
+    point of it.
 
 :class:`FlushLog`
     Bounded dispatch-width accounting for ``MicroBatcher``.
@@ -51,7 +58,7 @@ from .. import obs
 from .bucket import TIGHT_DIVISORS, ladder_floors
 
 __all__ = [
-    "FlushLog", "CompileTicket", "CompileService", "AutoTuner",
+    "FlushLog", "CompileTicket", "CompileJob", "CompileService", "AutoTuner",
     "TunerParams", "TunerSnapshot", "BucketStats", "Decision",
     "ladder_decompose", "plan",
 ]
@@ -144,6 +151,21 @@ class CompileTicket:
         return f"CompileTicket({self.label}, {state})"
 
 
+@dataclasses.dataclass(eq=False)
+class CompileJob:
+    """One queued job: its body's ``kind`` and arguments
+    (:meth:`CompileService.call`) on ``graph``, its dedupe key, its
+    ticket, and ``seq``, the id of the request whose graph it records
+    (None: no request's; over a mesh the serving loop names the graph to
+    the other ranks by it)."""
+    kind: str
+    graph: object
+    args: tuple
+    jkey: object
+    ticket: CompileTicket
+    seq: Optional[int] = None
+
+
 class CompileService:
     """One compile thread and its priority queue (the reference's).
 
@@ -157,15 +179,29 @@ class CompileService:
 
     With ``start=False`` the thread is not started: jobs queue up and
     run in priority order once :meth:`start` is called (the tests'
-    deterministic drains).
+    deterministic drains), or on the calling thread (:meth:`drain`).
 
     A job's error stays on its ticket (``ticket.error``); the thread
     goes on to the next job.  Spans ``compile_job``; metric families
     ``euler_compile_jobs{state}`` and ``euler_compile_queue_depth``.
+
+    Over a partition mesh (``solver.mesh``) the service has no thread
+    and :meth:`start` raises: a recording's eager warm-up makes
+    collectives, which would interleave with a serving dispatch's in a
+    different order on each rank.  Jobs run on the calling thread, in
+    the same order: rank 0 takes its next job (:meth:`next_job`),
+    announces it and runs it (:meth:`run`); a follower runs the same
+    body on the same request's graph when the announcement reaches it
+    (:meth:`run_now`, no queue); with no serving loop every rank calls
+    :meth:`drain` at the same point.  There a retune job tightens its
+    scale first (:meth:`call`).  On the calling thread a job's error
+    raises there instead of staying on its ticket: a rank that skipped
+    a recording would leave the others' collectives waiting.
     """
 
     def __init__(self, solver, start: bool = True):
         self.solver = solver
+        self.mesh = getattr(solver, "mesh", None)
         self._q: "queue.PriorityQueue" = queue.PriorityQueue()
         self._lock = threading.Lock()
         self._seq = 0
@@ -185,13 +221,19 @@ class CompileService:
             "euler_compile_jobs", "compile-service jobs by lifecycle state")
         self._g_queue = reg.gauge(
             "euler_compile_queue_depth", "compile-service pending jobs")
-        if start:
+        if start and self.mesh is None:
             self.start()
 
     # -- lifecycle ---------------------------------------------------------
 
     def start(self) -> None:
-        """Launch the worker thread (idempotent)."""
+        """Launch the worker thread (idempotent).  Over a mesh it
+        raises: jobs run on the serving thread there."""
+        if self.mesh is not None:
+            raise RuntimeError(
+                "over a partition mesh the compile jobs run on the serving "
+                "thread, in rank 0's order (MicroBatcher), or on every rank "
+                "through drain(); there is no compile thread")
         with self._lock:
             if self._thread is not None or self._stopped:
                 return
@@ -207,7 +249,9 @@ class CompileService:
         t.start()
 
     def stop(self, timeout: Optional[float] = 10.0) -> None:
-        """Drain queued jobs, then stop and join the worker thread."""
+        """Drain queued jobs, then stop and join the worker thread.  With
+        no thread (not started, or over a mesh) queued jobs stay unrun:
+        :meth:`drain` runs them first."""
         with self._lock:
             if self._stopped:
                 return
@@ -215,9 +259,9 @@ class CompileService:
             self._seq += 1
             seq = self._seq
             t = self._thread
-        # +inf sorts after every real job: the sentinel drains last
-        self._q.put((math.inf, seq, None, None, None))
         if t is not None:
+            # +inf sorts after every real job: the sentinel drains last
+            self._q.put((math.inf, seq, None))
             t.join(timeout)
 
     def idle(self) -> bool:
@@ -234,9 +278,11 @@ class CompileService:
 
     # -- submission --------------------------------------------------------
 
-    def submit(self, graph, width: int, priority: float = 0.0) -> CompileTicket:
+    def submit(self, graph, width: int, priority: float = 0.0,
+               seq: Optional[int] = None) -> CompileTicket:
         """Enqueue one ``(bucket(graph), width)`` recording; returns a
-        ticket.
+        ticket.  ``seq``: the id of the request whose graph this is (a
+        job over a mesh is named to the other ranks by it).
 
         Already-warm widths return an immediately-completed ticket;
         a duplicate of a still-queued job returns that job's ticket.
@@ -247,43 +293,64 @@ class CompileService:
             t = CompileTicket(f"prewarm[B{w}] (warm)")
             t._done.set()
             return t
-        jkey = (key, w)
-
-        def fn():
-            return self.solver.prewarm(graph, [w])
-
-        return self._enqueue(jkey, fn, priority, f"prewarm[B{w}]")
+        return self._enqueue(CompileJob("prewarm", graph, (w,), (key, w),
+                                        self._ticket("prewarm", (w,)), seq),
+                             priority)
 
     def submit_retune(self, graph, e_cap: int, widths: Sequence[int],
-                      priority: float = 1e9) -> CompileTicket:
+                      priority: float = 1e9,
+                      seq: Optional[int] = None) -> CompileTicket:
         """Enqueue a tighten-rekey job: purge the scale's prep memos, then
         record ``widths`` (and 1) of the (now tight) bucket, all on the
         compile thread, so the rekey's re-preps and recordings stay off
         the serving thread.  High default priority: until the tight B=1
         program is accounted, a flush of that bucket would record inline
-        on the serving thread.
+        on the serving thread.  Over a mesh the job also tightens the
+        scale (:meth:`call`).  ``seq`` as for :meth:`submit`.
         """
-        ws = sorted({max(1, int(w)) for w in widths} | {1})
-        jkey = ("retune", int(e_cap))
+        ws = tuple(sorted({max(1, int(w)) for w in widths} | {1}))
+        args = (int(e_cap), ws)
+        return self._enqueue(CompileJob("retune", graph, args,
+                                        ("retune", int(e_cap)),
+                                        self._ticket("retune", args), seq),
+                             priority)
 
-        def fn():
-            self.solver.rekey(e_cap)
-            out: List[int] = []
-            for w in ws:
-                out.extend(self.solver.prewarm(graph, [w]))
-            return out
+    @staticmethod
+    def _ticket(kind: str, args: tuple) -> CompileTicket:
+        return CompileTicket(f"prewarm[B{args[0]}]" if kind == "prewarm"
+                             else f"retune[{args[0]}]")
 
-        return self._enqueue(jkey, fn, priority, f"retune[{e_cap}]")
+    def call(self, kind: str, graph, *args) -> List[int]:
+        """A job's body on ``graph``; returns the widths it recorded.
+        ``"prewarm", width``: ``solver.prewarm(graph, [width])``.
+        ``"retune", e_cap, widths``: purge the scale's prep memos, then
+        record each width.  Over a mesh a retune tightens the scale
+        first, so the tighten, the rekey and the recordings are carried
+        out at one point of rank 0's order stream on every rank: no rank
+        then holds a prep memo that a fresh prep would bucket otherwise
+        (without a mesh ``AutoTuner`` tightens when it submits the job).
+        """
+        s = self.solver
+        if kind == "prewarm":
+            return s.prewarm(graph, [args[0]])
+        e_cap, widths = args
+        if self.mesh is not None:
+            s.tighten(e_cap)
+        s.rekey(e_cap)
+        out: List[int] = []
+        for w in widths:
+            out.extend(s.prewarm(graph, [w]))
+        return out
 
-    def _enqueue(self, jkey, fn, priority: float, label: str) -> CompileTicket:
+    def _enqueue(self, job: CompileJob, priority: float) -> CompileTicket:
         with self._lock:
             if self._stopped:
                 raise RuntimeError("compile service is stopped")
-            existing = self._pending.get(jkey)
+            existing = self._pending.get(job.jkey)
             if existing is not None:
                 return existing
-            ticket = CompileTicket(label)
-            self._pending[jkey] = ticket
+            ticket = job.ticket
+            self._pending[job.jkey] = ticket
             self._seq += 1
             seq = self._seq
             self._busy += 1
@@ -291,35 +358,103 @@ class CompileService:
             depth = len(self._pending)
         self._c_jobs.labels(state="queued").inc()
         self._g_queue.set(depth)
-        self._q.put((-float(priority), seq, jkey, fn, ticket))
+        self._q.put((-float(priority), seq, job))
         return ticket
 
-    # -- worker ------------------------------------------------------------
+    # -- running jobs --------------------------------------------------------
 
     def _worker(self) -> None:
         while True:
-            _, _, jkey, fn, ticket = self._q.get()
-            if fn is None:          # stop sentinel (drains last)
+            _, _, job = self._q.get()
+            if job is None:         # stop sentinel (drains last)
                 break
-            with self._trace.span("compile_job", label=ticket.label) as sp:
-                try:
-                    ticket.widths = list(fn() or [])
-                except BaseException as exc:  # noqa: BLE001 - per-job
-                    ticket.error = exc
-                    sp.set(error=type(exc).__name__)
-                sp.set(widths=list(ticket.widths),
-                       state="failed" if ticket.error else "landed")
-            self._c_jobs.labels(
-                state="failed" if ticket.error else "landed").inc()
-            with self._lock:
-                self._pending.pop(jkey, None)
-                self.prewarms += len(ticket.widths)
-                self._busy -= 1
-                if self._busy == 0:
-                    self._idle.set()
-                depth = len(self._pending)
-            self._g_queue.set(depth)
-            ticket._done.set()
+            self._run(job, keep_error=True)
+
+    def _execute(self, job: CompileJob) -> Optional[BaseException]:
+        """Run one job's body here (a ``compile_job`` span, its state's
+        counter); returns what it raised."""
+        ticket, error = job.ticket, None
+        with self._trace.span("compile_job", label=ticket.label) as sp:
+            try:
+                ticket.widths = list(
+                    self.call(job.kind, job.graph, *job.args) or [])
+            except BaseException as exc:  # noqa: BLE001 - per-job
+                error = exc
+                sp.set(error=type(exc).__name__)
+            sp.set(widths=list(ticket.widths),
+                   state="failed" if error else "landed")
+        self._c_jobs.labels(state="failed" if error else "landed").inc()
+        return error
+
+    def _run(self, job: CompileJob,
+             keep_error: bool) -> Optional[BaseException]:
+        """Run one queued job here and finish its ticket; returns what it
+        raised, kept on the ticket with ``keep_error``."""
+        error = self._execute(job)
+        ticket = job.ticket
+        if keep_error:
+            ticket.error = error
+        with self._lock:
+            self._pending.pop(job.jkey, None)
+            self.prewarms += len(ticket.widths)
+            self._busy -= 1
+            if self._busy == 0:
+                self._idle.set()
+            depth = len(self._pending)
+        self._g_queue.set(depth)
+        ticket._done.set()
+        return error
+
+    def next_job(self) -> Optional[CompileJob]:
+        """Take the next queued job (priority, then FIFO) to run on the
+        calling thread with :meth:`run`; None when none is queued.  Not
+        while the compile thread runs."""
+        with self._lock:
+            if self._thread is not None:
+                raise RuntimeError("the compile thread runs this service's "
+                                   "jobs")
+        try:
+            return self._q.get_nowait()[2]
+        except queue.Empty:
+            return None
+
+    def run(self, job: CompileJob) -> CompileTicket:
+        """Run a job taken by :meth:`next_job` on the calling thread; its
+        error raises here."""
+        error = self._run(job, keep_error=False)
+        if error is not None:
+            raise error
+        return job.ticket
+
+    def run_now(self, kind: str, graph, *args) -> CompileTicket:
+        """Run one job's body (:meth:`call`) on the calling thread at
+        once, queueing nothing: a mesh follower's part of an order that
+        rank 0 announced for the job it runs (:meth:`run`).  Its error
+        raises here."""
+        job = CompileJob(kind, graph, args, None, self._ticket(kind, args))
+        self._c_jobs.labels(state="queued").inc()
+        error = self._execute(job)
+        if error is not None:
+            raise error
+        with self._lock:
+            self.prewarms += len(job.ticket.widths)
+        job.ticket._done.set()
+        return job.ticket
+
+    def run_next(self) -> Optional[CompileTicket]:
+        """Run the next queued job on the calling thread; returns its
+        ticket, or None when none is queued."""
+        job = self.next_job()
+        return None if job is None else self.run(job)
+
+    def drain(self) -> int:
+        """Run every queued job on the calling thread, in order; returns
+        how many ran.  Over a mesh every rank calls it at the same point:
+        the recordings make collectives."""
+        n = 0
+        while self.run_next() is not None:
+            n += 1
+        return n
 
 
 # ---------------------------------------------------------------------------
@@ -501,6 +636,17 @@ class AutoTuner:
     solver's cache state, runs :func:`plan`, and applies the orders —
     prewarm/retune jobs go to the shared :class:`CompileService`, pin /
     unpin / drop act on the solver's program LRU directly.
+
+    Over a partition mesh (``solver.mesh``) the tuner lives on rank 0
+    alone (elsewhere it raises: the other ranks carry out rank 0's
+    orders through ``MicroBatcher.follow``).  A ``MicroBatcher`` made
+    with it becomes its :attr:`stream`: pins, unpins and drops go to
+    every rank as orders of that stream, in the reference's order, and
+    prewarm and retune jobs queue on the mesh's thread-less service,
+    each named by the request id of its bucket's representative graph
+    (``observe_arrival``'s ``seq``), so a follower records the same
+    graph.  A tighten waits for its retune job there: the job tightens,
+    rekeys and records as one order (:meth:`CompileService.call`).
     """
 
     #: bound on tracked buckets: coldest are dropped past this
@@ -509,15 +655,25 @@ class AutoTuner:
     def __init__(self, solver, service: Optional[CompileService] = None,
                  max_batch: int = 8, params: TunerParams = TunerParams(),
                  clock: Callable[[], float] = time.perf_counter):
+        self._mesh = getattr(solver, "mesh", None)
+        if self._mesh is not None and self._mesh.rank != 0:
+            raise RuntimeError(
+                f"the autotuner decides on rank 0 of a mesh; rank "
+                f"{self._mesh.rank} carries out rank 0's orders: call "
+                f"MicroBatcher.follow() there")
         self.solver = solver
         self.service = service if service is not None \
             else solver._ensure_compile_service()
         self.max_batch = int(max_batch)
         self.params = params
         self.clock = clock
+        #: over a mesh, the ``MicroBatcher`` whose orders carry this
+        #: tuner's actions to every rank (set when one is made with it)
+        self.stream = None
         self._lock = threading.RLock()   # re-entered by the _*_locked helpers
         self._buckets: Dict[object, BucketStats] = {}
         self._rep: Dict[object, object] = {}   # key -> representative graph
+        self._rep_seq: Dict[object, Optional[int]] = {}   # ... its request id
         self._last_decay: Optional[float] = None
         self._last_step: Optional[float] = None
         self.steps = 0                 # policy evaluations
@@ -525,7 +681,11 @@ class AutoTuner:
 
     # -- observations (serving thread) ------------------------------------
 
-    def observe_arrival(self, key, graph=None) -> None:
+    def observe_arrival(self, key, graph=None,
+                        seq: Optional[int] = None) -> None:
+        """One arrival in bucket ``key``; the bucket's first ``graph``
+        (and over a mesh its request id ``seq``) is its representative,
+        which its recordings use."""
         with self._lock:
             st = self._buckets.get(key)
             if st is None:
@@ -533,6 +693,7 @@ class AutoTuner:
             st.mass += 1.0
             if graph is not None and key not in self._rep:
                 self._rep[key] = graph
+                self._rep_seq[key] = seq
 
     def observe_flush(self, key, n: int) -> None:
         if n <= 0:
@@ -557,10 +718,11 @@ class AutoTuner:
             self._decay_locked(now)
             snap = self._snapshot_locked()
             reps = dict(self._rep)
+            seqs = dict(self._rep_seq)
         trace = getattr(self.solver, "trace", None) or obs.default_tracelog()
         with trace.span("tuner_step") as sp:
             dec = plan(snap, self.params)
-            self._apply(dec, reps)
+            self._apply(dec, reps, seqs)
             sp.set(prewarm=len(dec.prewarm), pin=len(dec.pin),
                    evict=len(dec.evict), tighten=len(dec.tighten))
         self.steps += 1
@@ -586,6 +748,7 @@ class AutoTuner:
                 for k in dropped:
                     self._buckets.pop(k)
                     self._rep.pop(k, None)
+                    self._rep_seq.pop(k, None)
 
     def _snapshot_locked(self) -> TunerSnapshot:
         s = self.solver
@@ -606,25 +769,42 @@ class AutoTuner:
             slack=s.slack,
         )
 
-    def _apply(self, dec: Decision, reps: Dict[object, object]) -> None:
+    def _act(self, kind: str, key, width: int) -> None:
+        """One ``pin``, ``unpin`` or ``drop`` of a program: the solver's
+        ``<kind>_program``, or over a mesh an order of the stream,
+        carried out on every rank."""
+        if self._mesh is None:
+            getattr(self.solver, f"{kind}_program")(key, width)
+            return
+        if self.stream is None:
+            raise RuntimeError(
+                "over a mesh the tuner's actions are orders of a "
+                "MicroBatcher's stream: make one with autotuner= this tuner")
+        self.stream.order(kind, key, width)
+
+    def _apply(self, dec: Decision, reps: Dict[object, object],
+               seqs: Dict[object, Optional[int]]) -> None:
         s = self.solver
         for key, w in dec.unpin:
-            s.unpin_program(key, w)
+            self._act("unpin", key, w)
         for key, w in dec.pin:
-            s.pin_program(key, w)
+            self._act("pin", key, w)
         for key, w in dec.evict:
-            s.drop_program(key, w)
+            self._act("drop", key, w)
         for key, w, pr in dec.prewarm:
             g = reps.get(key)
             if g is not None:
-                self.service.submit(g, w, priority=pr)
+                self.service.submit(g, w, priority=pr, seq=seqs.get(key))
         for e_cap in dec.tighten:
-            if not s.tighten(e_cap):
+            # over a mesh the retune job tightens the scale when it runs,
+            # at one point of the order stream on every rank
+            if self._mesh is None and not s.tighten(e_cap):
                 continue
             key = next((k for k in reps if int(k[0]) == int(e_cap)), None)
             if key is not None:
                 widths = sorted(set(s.warmed_widths(key)) | {1})
-                self.service.submit_retune(reps[key], e_cap, widths)
+                self.service.submit_retune(reps[key], e_cap, widths,
+                                           seq=seqs.get(key))
 
     # -- introspection / shutdown -----------------------------------------
 
@@ -646,3 +826,4 @@ class AutoTuner:
 
     def close(self, timeout: Optional[float] = 10.0) -> None:
         self.service.stop(timeout)
+        self.stream = None      # the batcher refers back to this tuner

@@ -84,11 +84,17 @@ psums and gathers as collectives (``core/engine.py``); every rank returns
 the same :class:`EulerResult`, byte for byte the meshless solve's.  Fused
 and eager runs, all three Phase 3 modes, batches (``solve_batch``,
 ``solve_batch_async``, ``solve_many(batch=B)``: rows (partition, graph)
-pairs, a rank's ``[m·B, ·]``) and the serving loop
+pairs, a rank's ``[m·B, ·]``), the serving loop and its autotuner
 (``launch/serve.py``) run over a mesh; each dispatch over a mesh is
-fetched before it returns.  ``backend="host"`` raises there.  Not
-ported yet: on the device backend the ``deferred_transfer=False``
-baseline (raises; ROADMAP queue 3).
+fetched before it returns.  Every rank must make the same calls in the
+same order, so over a mesh the session has no compile thread:
+:meth:`EulerSolver.prewarm_async` queues its jobs on a thread-less
+service, which runs each where rank 0's serving loop orders it (or
+where every rank calls its ``drain()``), and a recording's measured
+bytes are charged as their largest over the ranks, so that every rank
+keeps the same byte books and evicts alike.  ``backend="host"`` raises
+there.  Not ported yet: on the device backend the
+``deferred_transfer=False`` baseline (raises; ROADMAP queue 3).
 
     >>> from repro_torch.euler import solve                 # doctest: +SKIP
     >>> res = solve(graph, n_parts=8).validate()            # doctest: +SKIP
@@ -592,7 +598,16 @@ class EulerSolver:
         """After a recording: keep its measured reserved bytes and their
         ratio to the static model for later predictions, charge them in
         place of the prediction if the program is still live, and evict
-        to the budget again, the new program exempt."""
+        to the budget again, the new program exempt.  Over a mesh the
+        bytes are the largest any rank measured (``PartMesh.pmax``, one
+        collective a recording, which every rank makes at the same
+        point): each card measures its own pools, and ranks that charged
+        apart would evict apart."""
+        if self._mesh is not None:
+            with capture.CARD.shared(self.device):
+                nbytes = int(self._mesh.pmax(torch.tensor(
+                    [int(nbytes)], dtype=torch.int64,
+                    device=self.device)).item())
         pkey = (key, batch)
         model = self._model_cost(key, batch)
         with self._lock:
@@ -661,6 +676,14 @@ class EulerSolver:
     # ------------------------------------------------------------------
     # the width ladder: batched programs recorded ahead of traffic
     # ------------------------------------------------------------------
+    def live_programs(self) -> List[Tuple[BucketKey, int]]:
+        """Live programs as ``(bucket, width)`` pairs, least recently
+        used first: the LRU's order, which every rank of a mesh keeps
+        alike (the serving loop's orders name a program by its place in
+        it)."""
+        with self._lock:
+            return [(k, 1 if b is None else b) for (k, b) in self._programs]
+
     def warmed_widths(self, key: BucketKey) -> List[int]:
         """Batch widths with a live program for this bucket (1 = the
         one-graph program).  The serving loop's micro-batcher splits a
@@ -680,7 +703,8 @@ class EulerSolver:
         skipped.  Returns the widths recorded here.  Runs on a background
         thread beside serving: a recording holds the card gate alone
         (``capture.CARD``), so the serving thread's CUDA work waits for
-        it."""
+        it.  Over a mesh every rank calls it at the same point (its
+        recordings make collectives)."""
         widths = self.width_ladder if widths is None else widths
         key = self.bucket_of(graph)
         recorded: List[int] = []
@@ -707,24 +731,21 @@ class EulerSolver:
         :meth:`warmed_widths` as its job starts recording, so the
         micro-batcher widens its flushes mid-session.  A recording holds
         the card gate alone, so the serving thread's CUDA work waits for
-        it.  Already-live widths return finished tickets."""
+        it.  Already-live widths return finished tickets.  Over a mesh
+        the jobs only queue (the service has no thread there): every
+        rank calls this and then the service's ``drain()`` at the same
+        point."""
         svc = self._ensure_compile_service()
         widths = self.width_ladder if widths is None else widths
         return [svc.submit(graph, w, priority=priority)
                 for w in sorted({max(1, int(w)) for w in widths})]
 
     def _ensure_compile_service(self):
-        """The session's compile service, made (and started) at its
-        first use.  Over a mesh it raises ``NotImplementedError``: a
-        recording's eager warm-up makes collectives, which cannot run
-        beside a serving dispatch on one communicator (ROADMAP item
-        9c.1)."""
-        if self._mesh is not None:
-            raise NotImplementedError(
-                "the compile thread (prewarm_async, the autotuner, "
-                "--adaptive) over a partition mesh is not ported (ROADMAP "
-                "item 9c.1): its recordings would make collectives beside "
-                "the serving loop's")
+        """The session's compile service, made at its first use: started
+        without a mesh; over one with no thread (a recording's eager
+        warm-up makes collectives, which a second thread would make in
+        another order on each rank than the serving loop's), its jobs
+        run on the serving thread in rank 0's order."""
         with self._lock:
             if self._compile_service is None:
                 self._compile_service = CompileService(self)
@@ -794,7 +815,10 @@ class EulerSolver:
         preps.  Memoized graphs keep their bucket until :meth:`rekey`
         purges the scale, so the tight bucket can record on the compile
         thread before a serving flush re-keys onto it.  False if the
-        scale was tight already."""
+        scale was tight already.  Over a mesh a retune job tightens,
+        rekeys and records as one order of the serving loop's stream
+        (``CompileService.call``): no rank then holds a memo that a fresh
+        prep would bucket otherwise."""
         with self._lock:
             e = int(e_cap)
             if e in self._tight_scales:
@@ -925,6 +949,10 @@ class EulerSolver:
         if pending.recorded:
             with self._lock:
                 self.captures += 1
+            if self._mesh is not None:
+                # NCCL_GRAPH_MIXING_SUPPORT=0's rule (launch/mesh.py): the
+                # true-up's pmax waits for the replay the launch enqueued
+                pending.wait()
             self._true_up(key, run.batch, run.reserved_bytes)
         if not hit:
             marks = pending.marks

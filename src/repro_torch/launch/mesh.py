@@ -46,20 +46,25 @@ the open census (``core/capture.py``) as ``dist:<kind>``:
     ``send`` to one's own rank raises, and gloo's ``batch_isend_irecv``
     fails at world 1);
   * ``all_reduce`` — the reference's ``psum`` (sum, or max of flags);
+  * ``pmax`` — the largest of a value over the ranks (``all_reduce``
+    with ``MAX``): the byte budget's one charge after a recording
+    (``EulerSolver._true_up``), which the reference's one controller
+    does not need;
   * ``all_gather`` — the reference's tiled ``all_gather``
     (``all_gather_into_tensor``);
   * ``fetch`` — the gather of a sharded output that the reference's host
     fetch makes outside its program (flags, metrics, the rank shards
     under ``gather_circuit=False``), and the eager path's log gathers;
-  * ``broadcast`` — rank 0's order of the next serving dispatch to the
-    other ranks (``launch/serve.py::MicroBatcher``), which the
-    reference's one controller does not need.
+  * ``broadcast`` — rank 0's orders to the other ranks: the next
+    serving dispatch, and the autotuner's recordings, pins, drops and
+    tightens (``launch/serve.py::MicroBatcher``), which the reference's
+    one controller does not need.
 
 Each call also adds the bytes it sends from this rank to
 :attr:`PartMesh.sent_bytes` under its kind: the whole send buffer of an
 ``all_to_all`` (its chunk to this rank included, as the reference's
 operand is), the row a ring step sends, the tensor an ``all_reduce``
-reduces, the shard a gather sends.  The dry run (``launch/dryrun.py``)
+reduces (or maximizes), the shard a gather sends.  The dry run (``launch/dryrun.py``)
 reports them where the reference parses the collectives of its HLO.
 
 The production mesh (the counterpart of the reference's
@@ -219,6 +224,14 @@ class PartMesh:
         dist.all_reduce(out, op=dist.ReduceOp.MAX, group=self.group)
         return out > 0
 
+    def pmax(self, x: torch.Tensor) -> torch.Tensor:
+        """The elementwise maximum of ``x`` over the ranks (a new
+        tensor), counted under ``pmax``."""
+        out = x.clone()
+        self._count("pmax", "all_reduce", out)
+        dist.all_reduce(out, op=dist.ReduceOp.MAX, group=self.group)
+        return out
+
     def _gather(self, x: torch.Tensor) -> torch.Tensor:
         w = _wire(x)
         out = torch.empty((self.world * w.shape[0], *w.shape[1:]),
@@ -240,8 +253,8 @@ class PartMesh:
 
     def broadcast(self, x: torch.Tensor) -> torch.Tensor:
         """``x`` as the mesh's rank 0 holds it, on every rank (in place;
-        the serving loop's flush orders, ``launch/serve.py``).  Only rank
-        0's bytes count as sent."""
+        the serving loop's orders, ``launch/serve.py``).  Only rank 0's
+        bytes count as sent."""
         self._count("broadcast", "broadcast", x if self.rank == 0 else None)
         src = 0 if self.group is None else dist.get_global_rank(self.group, 0)
         dist.broadcast(x, src, group=self.group)

@@ -37,13 +37,14 @@ serves and may move the bucket scale onto the tight cap profile:
 
 Over a partition mesh (``--mesh``, under ``torch.distributed.run``:
 gloo with ``--device cpu``, one NCCL rank a card otherwise) every rank
-serves the same stream; rank 0 owns the queues and the clock and
-broadcasts each flush before it dispatches, and the other ranks follow
+serves the same stream; rank 0 owns the queues, the clock and the
+autotuner and broadcasts each flush and each of the tuner's orders
+before it carries it out, and the other ranks follow
 (:class:`MicroBatcher`):
 
     PYTHONPATH=src python -m torch.distributed.run --nproc-per-node 2 \
         -m repro_torch.launch.serve --mesh --device cpu --scale 6 \
-        --parts 8 --same-bucket --pool 4 --requests 12
+        --parts 8 --same-bucket --pool 4 --requests 12 [--adaptive]
 
 The LM prefill + KV-cache decode driver (the reference's ``main_lm``) is
 behind ``--workload lm``; its body is :func:`serve_lm`, which callers
@@ -72,8 +73,8 @@ import os
 import sys
 import threading
 import time
-from collections import deque
-from typing import Dict, Optional, Tuple
+from collections import Counter, deque
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -90,6 +91,30 @@ from ..kernels import ops
 from ..models.transformer import (LMConfig, Params, decode_step,
                                   init_kv_cache, init_lm_params,
                                   prefill_step)
+
+
+#: the kinds of order rank 0 of a mesh broadcasts: each kind's code (slot 0
+#: of the message; a dispatch's is its width, at least 1) and the number
+#: of arguments after it (a dispatch's: its width)
+ORDERS = {"stop": (0, 0), "prewarm": (-1, 2), "retune": (-2, 3),
+          "pin": (-3, 1), "unpin": (-4, 1), "drop": (-5, 1)}
+_KIND_OF = {code: kind for kind, (code, _) in ORDERS.items()}
+
+
+def widths_mask(widths: Sequence[int]) -> int:
+    """A retune order's widths as one int64 (bit w for width w).
+
+    >>> widths_mask([1, 2, 8]), mask_widths(widths_mask([1, 2, 8]))
+    (262, [1, 2, 8])
+    """
+    ws = sorted({int(w) for w in widths})
+    if ws and not 1 <= ws[0] <= ws[-1] <= 62:
+        raise ValueError(f"a retune order carries widths 1 to 62, got {ws}")
+    return sum(1 << w for w in ws)
+
+
+def mask_widths(mask: int) -> List[int]:
+    return [w for w in range(63) if mask >> w & 1]
 
 
 class MicroBatcher:
@@ -124,21 +149,34 @@ class MicroBatcher:
     ``observe_arrival(key, graph)`` and ``observe_flush(key, n)``, fed on
     every submit and flush: an
     :class:`~repro_torch.euler.autotune.AutoTuner` under ``main_euler
-    --adaptive``.
+    --adaptive`` (over a mesh an ``AutoTuner``, given each arrival's
+    request id as ``seq=`` too).
 
     Over a partition mesh (``solver.mesh``) every rank must make the same
-    dispatches in the same order, or the collectives hang; the reference
-    has one controller.  So the mesh's rank 0 leads: it owns the queues
-    and the clock (deadline and quota flushes) and, before each dispatch,
-    broadcasts the flush's width and request ids over the mesh
-    (``PartMesh.broadcast``, counted under ``broadcast``); its
-    :meth:`drain` ends with a stop order.  Every other rank follows:
-    :meth:`follow` makes the same dispatches of the same graphs until
-    the stop and returns the same results.  A dispatch over a mesh is
-    fetched before the next (``EulerSolver.solve_async``), so
-    ``pipeline_depth`` overlaps nothing there.  The autotuner has no
-    mesh form yet: its compile thread raises over a mesh
-    (``EulerSolver.prewarm_async``, ROADMAP item 9c.1).
+    dispatches and recordings in the same order, and keep the same
+    programs, or the collectives hang; the reference has one controller.
+    So the mesh's rank 0 leads: it owns the queues, the clock (deadline
+    and quota flushes) and the autotuner, and before it carries out an
+    order it broadcasts it over the mesh (``PartMesh.broadcast``, counted
+    under ``broadcast``), one fixed-size int64 message an order
+    (:data:`ORDERS`): a dispatch (its request ids), a prewarm ``(seq,
+    width)`` or a retune ``(seq, e_cap, widths)`` of the solver's
+    compile service (the retune tightens the scale, purges its prep
+    memos and records the widths, on every rank at once), a ``pin``,
+    ``unpin`` or ``drop`` of a program (its place in
+    ``EulerSolver.live_programs()``), and :meth:`drain`'s stop.  Every
+    other rank follows: :meth:`follow` carries out the same orders at
+    the same points until the stop and returns the same results.  A
+    dispatch over a mesh is fetched before the next
+    (``EulerSolver.solve_async``), so ``pipeline_depth`` overlaps
+    nothing there.  No thread records over a mesh: the tuner's
+    :meth:`order` announces its pins and drops when it makes them, and
+    its prewarm and retune jobs wait on the solver's compile service
+    until :meth:`compile_next` (one a :meth:`poll`, all of them in
+    :meth:`drain`) announces and runs each on the serving thread,
+    between dispatches; after a retune the requests pending at its
+    scale queue again under their new buckets.  :attr:`orders` counts
+    the orders by kind on every rank.
     """
 
     def __init__(self, solver, max_batch: int = 8,
@@ -157,6 +195,15 @@ class MicroBatcher:
         self.clock = clock
         self.pipeline_depth = pipeline_depth
         self.autotuner = autotuner
+        if self.mesh is not None and autotuner is not None:
+            autotuner.stream = self     # its actions become our orders
+        #: over a mesh, the orders announced or followed, by kind (the
+        #: stop not counted)
+        self.orders: Counter = Counter()
+        #: over a mesh, the compile jobs drain() ran after the last
+        #: result, and their seconds
+        self.drain_compiles = 0
+        self.drain_compile_s = 0.0
         self.pending: dict = {}     # bucket key → [(seq, graph, t_arrival)]
         self.inflight: deque = deque()   # (PendingSolve, [seq], [t_arrival])
         # flush widths, request latencies and queue depth live in the
@@ -177,18 +224,123 @@ class MicroBatcher:
             "euler_queue_depth", "requests queued awaiting a flush"
         ).labels(**lab)
 
-    # -- the mesh's flush orders ---------------------------------------
-    def _order(self, seqs=()) -> list:
-        """Broadcast one flush order from rank 0 over the mesh: the
-        request ids of the next dispatch (its width is their count), or
-        none for the stop.  Every rank returns rank 0's ids."""
-        order = [len(seqs), *seqs] if self.leads else []
-        order += [0] * (1 + self.max_batch - len(order))
+    # -- the mesh's orders ----------------------------------------------
+    @property
+    def order_bytes(self) -> int:
+        """Bytes of one order message: ``max(1 + max_batch, 4)`` int64s."""
+        return 8 * max(1 + self.max_batch, 4)
+
+    def _broadcast(self, msg=()) -> list:
+        """One order message from rank 0 to every rank (padded with
+        zeros); every rank returns rank 0's."""
+        msg = list(msg) if self.leads else []
+        msg += [0] * (self.order_bytes // 8 - len(msg))
         with capture.CARD.shared(self.mesh.device):
-            msg = torch.tensor(order, dtype=torch.int64,
-                               device=self.mesh.device)
-            got = self.mesh.broadcast(msg).tolist()
-        return got[1:1 + got[0]]
+            t = torch.tensor(msg, dtype=torch.int64,
+                             device=self.mesh.device)
+            return self.mesh.broadcast(t).tolist()
+
+    def _announce(self, kind: str, args=()) -> None:
+        """On rank 0: broadcast one order, counted under its kind."""
+        head = len(args) if kind == "dispatch" else ORDERS[kind][0]
+        self._broadcast([head, *args])
+        if kind != "stop":
+            self.orders[kind] += 1
+
+    def _receive(self) -> Tuple[str, list]:
+        """On another rank: rank 0's next order, ``(kind, args)``."""
+        msg = self._broadcast()
+        if msg[0] > 0:
+            kind, n = "dispatch", msg[0]
+        elif msg[0] in _KIND_OF:
+            kind = _KIND_OF[msg[0]]
+            n = ORDERS[kind][1]
+        else:
+            raise RuntimeError(f"rank {self.mesh.rank} received an order of "
+                               f"no known kind: {msg}")
+        if kind != "stop":
+            self.orders[kind] += 1
+        return kind, msg[1:1 + n]
+
+    def order(self, kind: str, key, width: int) -> bool:
+        """On rank 0 of a mesh: one of the autotuner's actions on the
+        session as an order (:data:`ORDERS`), a ``pin``, ``unpin`` or
+        ``drop`` of the program ``(key, width)``.  It is broadcast, then
+        carried out here as every other rank carries it out
+        (:meth:`follow`); returns what carrying it out returned.  An
+        action on a program not live is not broadcast and returns
+        False."""
+        self._require_lead("order")
+        live = self.solver.live_programs()
+        program = (key, max(1, int(width)))
+        if program not in live:
+            return False
+        wire = (live.index(program),)
+        self._announce(kind, wire)
+        return self._carry_out(kind, wire, None)
+
+    def _carry_out(self, kind: str, args, resolve):
+        """Carry out one order other than a dispatch on this rank.  A
+        pin, unpin or drop names a program by its place in the LRU, which
+        every rank keeps alike; a follower runs a prewarm or retune at
+        once (``CompileService.run_now``) on request ``args[0]``'s
+        graph, the body rank 0 runs for the job it announced."""
+        s = self.solver
+        if kind in ("pin", "unpin", "drop"):
+            live = s.live_programs()
+            if args[0] >= len(live):
+                raise RuntimeError(
+                    f"rank {self.mesh.rank} holds {len(live)} programs, "
+                    f"and rank 0's {kind} order names program {args[0]}: "
+                    f"the ranks' program sets differ")
+            return getattr(s, f"{kind}_program")(*live[args[0]])
+        seq, *rest = args
+        if kind == "retune":
+            rest = [rest[0], tuple(mask_widths(rest[1]))]
+        return s._ensure_compile_service().run_now(kind, resolve(seq), *rest)
+
+    def compile_next(self) -> bool:
+        """Over a mesh, on rank 0: announce the next job queued on the
+        solver's compile service (the tuner's prewarms and retunes), then
+        run it here, as every other rank does on receipt.  It runs
+        between dispatches (each fetched before it returned), one a call,
+        so a recording holds serving back by one recording at most.
+        After a retune the requests pending at its scale queue again
+        under the buckets their graphs have now.  False when none is
+        queued, and without a mesh (the compile thread runs the jobs
+        there)."""
+        if self.mesh is None:
+            return False
+        self._require_lead("compile_next")
+        svc = self.solver.compile_service
+        job = None if svc is None else svc.next_job()
+        if job is None:
+            return False
+        if job.seq is None:
+            raise RuntimeError(
+                "a compile job queued over a mesh without a request id "
+                "(prewarm_async) runs where every rank calls the compile "
+                "service's drain(), not through the serving loop")
+        args = list(job.args)
+        if job.kind == "retune":
+            args[1] = widths_mask(args[1])
+        self._announce(job.kind, (job.seq, *args))
+        svc.run(job)
+        if job.kind == "retune":
+            self._rebucket(job.args[0])
+        return True
+
+    def _rebucket(self, e_cap: int) -> None:
+        """After a retune of scale ``e_cap``: its pending requests queued
+        again, in arrival order, under their graphs' buckets now (the
+        retune purged their preps; a queue of the old profile could hold
+        graphs that the tight one buckets apart)."""
+        stale = [k for k in self.pending if int(k[0]) == int(e_cap)]
+        reqs = sorted((r for k in stale for r in self.pending.pop(k)),
+                      key=lambda r: (r[2], r[0]))
+        for seq, graph, t in reqs:
+            self.pending.setdefault(self.solver.bucket_of(graph),
+                                    []).append((seq, graph, t))
 
     def _require_lead(self, what: str) -> None:
         if not self.leads:
@@ -209,22 +361,27 @@ class MicroBatcher:
         return out
 
     def follow(self, resolve) -> list:
-        """On a mesh rank other than 0: make rank 0's dispatches, in its
-        order, until its :meth:`drain`'s stop; ``resolve(seq)`` gives the
-        graph of request ``seq``, the one rank 0 was given.  Returns the
-        completed ``(seq, EulerResult)`` pairs, seq-sorted, the same
-        bytes as rank 0's."""
+        """On a mesh rank other than 0: carry out rank 0's orders, in its
+        order, until its :meth:`drain`'s stop: its dispatches, and its
+        autotuner's recordings, retunes, pins and drops; ``resolve(seq)``
+        gives the graph of request ``seq``, the one rank 0 was given.
+        Every rank's batcher has rank 0's ``max_batch`` (it sizes the
+        order messages).  Returns the completed ``(seq, EulerResult)``
+        pairs, seq-sorted, the same bytes as rank 0's."""
         if self.mesh is None or self.leads:
             raise RuntimeError("follow() runs on a mesh rank other than 0")
         out = []
         while True:
-            seqs = self._order()
-            if not seqs:
+            kind, args = self._receive()
+            if kind == "stop":
                 break
-            with self.trace.span("flush", n=len(seqs)) as sp:
-                out.extend(self._dispatch([resolve(q) for q in seqs], seqs,
-                                          [self.clock()] * len(seqs)))
-                sp.set(widths=[len(seqs)])
+            if kind != "dispatch":
+                self._carry_out(kind, args, resolve)
+                continue
+            with self.trace.span("flush", n=len(args)) as sp:
+                out.extend(self._dispatch([resolve(q) for q in args], args,
+                                          [self.clock()] * len(args)))
+                sp.set(widths=[len(args)])
         out.extend(self._harvest(block=True))
         return sorted(out)
 
@@ -278,7 +435,7 @@ class MicroBatcher:
                 i += w
                 seqs = [s for s, _, _ in chunk]
                 if self.mesh is not None:
-                    self._order(seqs)
+                    self._announce("dispatch", seqs)
                 out.extend(self._dispatch([g for _, g, _ in chunk], seqs,
                                           [t for _, _, t in chunk]))
                 widths.append(w)
@@ -293,7 +450,12 @@ class MicroBatcher:
         self._require_lead("submit")
         key = self.solver.bucket_of(graph)
         if self.autotuner is not None:
-            self.autotuner.observe_arrival(key, graph)
+            if self.mesh is None:
+                self.autotuner.observe_arrival(key, graph)
+            else:
+                # the tuner names the graph to the other ranks by its
+                # request id
+                self.autotuner.observe_arrival(key, graph, seq=seq)
         q = self.pending.setdefault(key, [])
         q.append((seq, graph, self.clock()))
         self._g_depth.set(sum(len(x) for x in self.pending.values()))
@@ -303,7 +465,8 @@ class MicroBatcher:
 
     def poll(self):
         """Flush every bucket whose oldest request passed the deadline;
-        deliver whatever the pipeline has completed."""
+        deliver whatever the pipeline has completed.  Over a mesh, then
+        run one queued compile job (:meth:`compile_next`)."""
         self._require_lead("poll")
         now = self.clock()
         due = [k for k, q in self.pending.items()
@@ -312,6 +475,7 @@ class MicroBatcher:
         for k in due:
             out.extend(self._flush(k))
         out.extend(self._harvest())
+        self.compile_next()
         return sorted(out)
 
     def next_deadline(self):
@@ -323,15 +487,21 @@ class MicroBatcher:
     def drain(self):
         """Flush all pending requests and complete the pipeline
         (shutdown); results are seq-sorted — i.e. submit order.  Over a
-        mesh it ends with the stop order that ends the other ranks'
-        :meth:`follow`."""
+        mesh it then runs every queued compile job, so that every rank
+        ends with the same programs (counted in :attr:`drain_compiles`
+        and :attr:`drain_compile_s`), and ends with the stop order that
+        ends the other ranks' :meth:`follow`."""
         self._require_lead("drain")
         out = []
         for k in list(self.pending):
             out.extend(self._flush(k))
         out.extend(self._harvest(block=True))
         if self.mesh is not None:
-            self._order()
+            t0 = time.perf_counter()
+            while self.compile_next():
+                self.drain_compiles += 1
+            self.drain_compile_s += time.perf_counter() - t0
+            self._announce("stop")
         return sorted(out)
 
 
@@ -614,12 +784,15 @@ def main_euler(argv=None, mesh=None):
     ``torch.distributed.run``, which initialises the default group from
     its environment: gloo with ``--device cpu``, NCCL on the card) every
     rank prepares the same pool and makes the same cold sweep and width
-    prewarm (joined before serving: a recording's collectives cannot run
+    prewarm (on the main thread: a recording's collectives cannot run
     beside the loop's); then rank 0 runs the loop and the others follow
-    its flushes (:meth:`MicroBatcher.follow`).  ``--parts 0`` is the
-    mesh's partitions (one a rank under ``--mesh``, as the reference's
-    ``len(jax.devices())``).  ``--adaptive`` raises there (ROADMAP item
-    9c.1)."""
+    its orders (:meth:`MicroBatcher.follow`).  Under ``--adaptive`` the
+    autotuner lives on rank 0, and its recordings, retunes, pins and
+    drops reach every rank as orders of the same stream; the compile
+    jobs that ``drain()`` runs after the last result are left out of
+    the timed window, as the meshless compile thread's are.  ``--parts
+    0`` is the mesh's partitions (one a rank under ``--mesh``, as the
+    reference's ``len(jax.devices())``)."""
     ap = argparse.ArgumentParser(
         description="Euler-circuit serving loop over the solver facade")
     ap.add_argument("--scale", type=int, default=9,
@@ -756,10 +929,13 @@ def main_euler(argv=None, mesh=None):
         # No cold sweep and no static prewarm: requests are served from
         # the first arrival, the first flush records the B=1 program
         # inline, and the autotuner's compile thread records ladder
-        # widths behind live traffic from the observed flush histograms.
+        # widths behind live traffic from the observed flush histograms
+        # (over a mesh rank 0's tuner orders them onto every rank's
+        # serving thread).
         t_cold = t_warm = 0.0
         cold_thr = 0.0
-        tuner = AutoTuner(solver, max_batch=max_batch)
+        if leads:
+            tuner = AutoTuner(solver, max_batch=max_batch)
         say("adaptive: serving from first arrival; ladder widths "
             "record behind live traffic as flush histograms accrue")
     else:
@@ -779,23 +955,28 @@ def main_euler(argv=None, mesh=None):
         t0 = time.perf_counter()
         if max_batch > 1 and not args.eager and not args.no_prewarm:
             ladder_widths = [w for w in widths if w > 1]
-            # thread-contract: daemon (never blocks interpreter exit;
-            # prewarm holds no resource of its own, and a recording it
-            # leaves behind is the solver's to free).  Joined before the
-            # measured loop on the CPU (or under --sync-prewarm), where
-            # its solves would share the serving loop's cores; on the card
-            # it detaches and the ladder records behind live traffic, each
-            # recording holding the card gate alone.  The batcher
-            # dispatches only widths already live either way.  Over a
-            # mesh it is joined too: its recordings' collectives cannot
-            # run beside the loop's.
-            pw = threading.Thread(
-                target=lambda: [solver.prewarm(g, ladder_widths)
-                                for g in rep.values()],
-                name="prewarm", daemon=True)
-            pw.start()
-            if args.sync_prewarm or not on_card or mesh is not None:
-                pw.join()
+
+            def prewarm():
+                for g in rep.values():
+                    solver.prewarm(g, ladder_widths)
+
+            if mesh is not None:
+                prewarm()   # its recordings' collectives precede the loop's
+            else:
+                # thread-contract: daemon (never blocks interpreter exit;
+                # prewarm holds no resource of its own, and a recording
+                # it leaves behind is the solver's to free).  Joined
+                # before the measured loop on the CPU (or under
+                # --sync-prewarm), where its solves would share the
+                # serving loop's cores; on the card it detaches and the
+                # ladder records behind live traffic, each recording
+                # holding the card gate alone.  The batcher dispatches
+                # only widths already live either way.
+                pw = threading.Thread(target=prewarm, name="prewarm",
+                                      daemon=True)
+                pw.start()
+                if args.sync_prewarm or not on_card:
+                    pw.join()
         t_warm = time.perf_counter() - t0
         cs = solver.cache_stats
         say(f"cold pass {t_cold:.2f}s ({cold_thr:.2f} circuits/s); "
@@ -813,8 +994,12 @@ def main_euler(argv=None, mesh=None):
         if not done:
             raise RuntimeError("serving loop made no progress")
         done[-1][1].validate()
+        kinds = ", ".join(f"{k} {n}" for k, n in sorted(
+            batcher.orders.items()) if k != "dispatch")
+        compiles = batcher.orders["prewarm"] + batcher.orders["retune"]
         print(f"rank {mesh.rank}/{mesh.world}: followed "
-              f"{batcher.flushes.total} dispatches, {len(done)} circuits "
+              f"{batcher.flushes.total} dispatches, {compiles} compile "
+              f"orders ({kinds or 'no other orders'}), {len(done)} circuits "
               f"in {elapsed:.2f}s")
         return len(done) / max(elapsed, 1e-9)
     served = 0
@@ -859,7 +1044,9 @@ def main_euler(argv=None, mesh=None):
         served += 1
         edges += len(res.circuit)
         last = res
-    elapsed = time.perf_counter() - t0
+    # over a mesh drain() runs the compile jobs still queued after the
+    # last result; meshless they are left to the compile thread
+    elapsed = time.perf_counter() - t0 - batcher.drain_compile_s
 
     tuner_stats = {}
     if tuner is not None:
@@ -915,6 +1102,10 @@ def main_euler(argv=None, mesh=None):
             "state_uploads": cs.state_uploads,
         }
         stats.update(tuner_stats)
+        if mesh is not None:
+            stats["orders"] = dict(sorted(batcher.orders.items()))
+            stats["drain_compiles"] = batcher.drain_compiles
+            stats["drain_compile_s"] = round(batcher.drain_compile_s, 3)
         with open(args.json, "a") as f:
             f.write(json.dumps(stats) + "\n")
     if metrics_srv is not None:

@@ -424,10 +424,12 @@ def test_nccl_mesh_needs_graph_mixing_off(monkeypatch):
 
 def test_solver_mesh_rules(one_rank):
     """Over a mesh: the solver takes its partitions and device, refuses
-    the host backend, and runs batches, ``solve_many(batch=)`` and the
-    serving loop over the mesh, with the meshless bytes (a world of one
-    rank in process; tests/test_torch_mesh_batch.py holds them to the
-    JAX package on worlds of 1, 2 and 4)."""
+    the host backend, and runs batches, ``solve_many(batch=)``, the
+    serving loop and ``prewarm_async`` (a thread-less compile service)
+    over the mesh, with the meshless bytes (a world of one rank in
+    process; tests/test_torch_mesh_batch.py and
+    tests/test_torch_mesh_adaptive.py hold them to the JAX package on
+    worlds of 1, 2 and 4)."""
     from repro_torch.launch.serve import MicroBatcher
 
     mesh = mesh_mod.make_part_mesh(2, device="cpu")
@@ -453,9 +455,18 @@ def test_solver_mesh_rules(one_rank):
     done = batcher.submit(0, g) + batcher.drain()
     assert [s for s, _ in done] == [0]
     np.testing.assert_array_equal(done[0][1].circuit, plain.circuit)
-    # the compile thread has no mesh form yet (ROADMAP item 9c.1)
-    with pytest.raises(NotImplementedError, match="item 9c.1"):
-        solver.prewarm_async(g)
+    # over a mesh prewarm_async queues on a service with no thread; the
+    # job runs where every rank drains the service
+    key = solver.bucket_of(g)
+    tickets = solver.prewarm_async(g, widths=(4,))
+    assert [t.done() for t in tickets] == [False]
+    assert solver.warmed_widths(key) == [1, 2]
+    assert solver.compile_service.drain() == 1
+    assert tickets[0].done() and tickets[0].widths == [4]
+    assert solver.warmed_widths(key) == [1, 2, 4]
+    assert solver.compile_service._thread is None
+    with pytest.raises(RuntimeError, match="no compile thread"):
+        solver.compile_service.start()
 
 
 @pytest.fixture(scope="module")
