@@ -12,7 +12,9 @@
                                           # serving, the engine over one
                                           # NCCL rank, the paper's Euler
                                           # cells and the production
-                                          # mesh's dry run
+                                          # mesh's dry run, SmolLM-360M
+                                          # over a DeviceMesh and the
+                                          # dense LMs' dry-run rows
 
 Phases, each printed on its own line; any failure raises and the script
 exits non-zero:
@@ -617,6 +619,42 @@ exits non-zero:
                 bytes each kind of collective sends, the launches and
                 the dominant H100 term; the fused cell's K1/K2 launches
                 are added to the kernel table's.
+  19. lm-mesh — the LM family over a ``DeviceMesh`` (``build_cell``'s LM
+                half with a mesh, ``models/transformer.py``'s
+                ``MeshPlan``): one NCCL rank, ``make_test_mesh(1, tp=1)``,
+                SmolLM-360M at full width and depth in bf16 from seeded
+                weights drawn on the card, placed with
+                ``steps.place_lm_state``.  (a) ``LM_MESH_TRAIN``: 3 steps
+                of the train cell at batch 8, seq 1,024 over the mesh and
+                3 meshless steps from the same weights, the same batches
+                and AdamW at the warm step ``LM_MESH_WARM_STEP`` (its
+                learning rate moves bf16 weights; at step 0 it is 0):
+                every loss ``allclose`` at ``LM_MESH_TOL``, each
+                parameter's update and both moments within
+                ``LM_MESH_STATE_TOL`` of the meshless ones (in norm),
+                and the weights moved by more than that; each run's step
+                ms, peak allocated and
+                reserved memory, and the collectives of one more mesh
+                step (``dryrun.CommCount``, a ``CommDebugMode``: it sees
+                every op, so no timed call runs under it).  (b)
+                ``LM_MESH_SERVE``: the prefill cell at B 4, prompt 4,096
+                over the mesh, cold then warm (the launch counters set to
+                0 just before the first and read just after: K6 once a
+                layer, 32), beside a cold and a warm meshless eager
+                prefill, logits ``allclose``; then 32 decode cells over
+                the mesh beside meshless eager ``decode_step``s, both fed
+                the meshless greedy tokens, every step's logits
+                ``allclose``, and one more mesh step counted; prefill
+                seconds and decode ms over the mesh and meshless, peaks
+                and collectives.  The mesh prefill's K6 launches are added to
+                the kernel table's.  (c) ``python -m
+                repro_torch.launch.dryrun --arch granite-20b`` in a
+                process of its own: Granite-20B's train_4k, prefill_32k
+                and decode_32k on rank 0 of a ``fake`` world of 256 (the
+                largest cells one card cannot hold), each with its
+                arguments', outputs', peak and reserved bytes and the
+                collectives DTensor issued, by kind, with the bytes a
+                rank sends in them.
 
 After each phase from 2 on, a ``[timing]`` line gives the seconds since
 the start.  The last three lines are the kernel table as JSON, the
@@ -6228,6 +6266,301 @@ def check_dryrun(smi: str) -> None:
     say("dryrun", seconds=f"{seconds:.1f}")
 
 
+# ------------------------------------------------------------ phase 19 --
+
+#: phase 19: the LM over a DeviceMesh (one NCCL rank, mesh (1, 1)):
+#: SmolLM-360M at full width and depth, bf16, seeded; the train cell at
+#: phase 11's throughput shape, the serving prefill and decode at phase
+#: 9's
+LM_MESH_ARCH = "smollm-360m"
+LM_MESH_TRAIN = (8, 1024, 3)          # batch, seq, steps
+LM_MESH_SERVE = (4, 4096, 32)         # batch, prompt, decode steps
+#: mesh against meshless in bf16 (``allclose`` rtol and atol)
+LM_MESH_TOL = 3e-2
+#: the train cell's AdamW step before phase 19's steps: warmup_cosine's
+#: learning rate there is 1.5e-4, where step 0's is 0 and steps 1–2's
+#: are too small to move a bf16 weight
+LM_MESH_WARM_STEP = 1000
+#: mesh against meshless after the train steps, each leaf's ‖difference‖
+#: over its ‖meshless value‖, for the parameters' updates and both f32
+#: moments (a wrong gradient is off by its own size); the steps must
+#: also move the weights by more than this
+LM_MESH_STATE_TOL = 1e-3
+#: the dry run's rows that phase 19 runs (the others run through the CLI)
+LM_DRYRUN_ARCH = "granite-20b"
+
+
+def _wide_cache(cfg, cache, batch: int, prompt: int, gen: int, dev):
+    """A meshless cache of ``prompt + gen`` rows holding ``cache``."""
+    wide = tr.init_kv_cache(cfg, batch, prompt + gen, fill=prompt, device=dev)
+    wide.k[:, :, :prompt] = cache.k
+    wide.v[:, :, :prompt] = cache.v
+    return wide
+
+
+def _comm_counts(fn):
+    """``fn()`` under ``dryrun.CommCount``: (its result, calls, bytes
+    sent by collective)."""
+    from repro_torch.launch import dryrun
+
+    counter = dryrun.CommCount()
+    with counter:
+        out = fn()
+    calls = {getattr(k, "__name__", str(k)): v
+             for k, v in counter.get_comm_counts().items()}
+    return out, calls, dict(counter.sent_bytes)
+
+
+def _mesh_close(a, b) -> tuple:
+    """(``allclose`` at ``LM_MESH_TOL``, the largest difference)."""
+    a, b = a.float(), b.float()
+    return (torch.allclose(a, b, rtol=LM_MESH_TOL, atol=LM_MESH_TOL),
+            (a - b).abs().max().item())
+
+
+def lm_mesh_train(dev, mesh, cfg, params, smi: str) -> None:
+    """Phase 19 (a): the train cell over the mesh and without it, the same
+    weights, batches and warm AdamW state, each step timed alone; then
+    one more mesh step under ``dryrun.CommCount`` (a dispatch mode that
+    sees every op, so it is not timed) for the collectives."""
+    from repro_torch.parallel import sharding as shd
+
+    batch, seq, n = LM_MESH_TRAIN
+    arch = dataclasses.replace(get_config(LM_MESH_ARCH), shapes={
+        "train": ShapeCell("train", "train", batch=batch, seq_len=seq)})
+    data = SyntheticLM(cfg.vocab, seq, batch)
+    batches = [{k: torch.from_numpy(v).to(dev)
+                for k, v in data.batch_at(i).items()} for i in range(n)]
+    runs = {}
+    for where in ("mesh", "meshless"):
+        m = mesh if where == "mesh" else None
+        cell = steps.build_cell(arch, "train", m)
+        p = tree_map(torch.clone, params)
+        opt = init_adamw(p)._replace(step=torch.tensor(
+            LM_MESH_WARM_STEP, dtype=torch.int32, device=dev))
+        if m is not None:
+            p, opt = steps.place_lm_state(m, p, opt)
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        times, losses, calls, sent = [], [], {}, {}
+        for i in range(n):
+            b = batches[i] if m is None else \
+                shd.distribute(batches[i], cell.in_shardings[2])
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            p, opt, loss = cell.fn(p, opt, b)
+            loss = loss.full_tensor() if m is not None else loss
+            losses.append(float(loss))
+            times.append(time.perf_counter() - t)
+        # copies: the counted step below updates the state in place
+        runs[where] = (losses, *(tree_map(
+            lambda t: (t.full_tensor() if m is not None else t).clone(),
+            tree) for tree in (p, opt.m, opt.v)))
+        if m is not None:
+            _, calls, sent = _comm_counts(lambda: cell.fn(p, opt, b))
+        say("lm-mesh", check="train", run=where, config=cfg.name,
+            batch=batch, seq=seq, steps=n,
+            step_ms="'" + ",".join(f"{x * 1e3:.1f}" for x in times) + "'",
+            losses="'" + ",".join(f"{x:.5f}" for x in losses) + "'",
+            peak_gib=f"{torch.cuda.max_memory_allocated() / 2**30:.3f}",
+            reserved_gib=f"{torch.cuda.max_memory_reserved() / 2**30:.3f}",
+            collectives=json.dumps(calls, separators=(",", ":")),
+            sent_bytes=json.dumps(sent, separators=(",", ":")),
+            smi=f"'{smi}'")
+        del p, opt, cell
+    (lm, *mesh_state), (ll, *meshless_state) = runs["mesh"], runs["meshless"]
+    loss_ok, loss_err = _mesh_close(torch.tensor(lm), torch.tensor(ll))
+
+    def rel(a, b):
+        """‖a − b‖ / ‖b‖ over a leaf in f32 (0 where a equals b): a few
+        bf16 roundings that land on the other side barely move it, a
+        wrong gradient moves it by its own size."""
+        d = (a.float() - b.float()).norm()
+        return 0.0 if d == 0 else (d / b.float().norm()).item()
+
+    # the params by their updates: the norms' weights (all 1) stay put
+    start = tree_leaves(params)
+    errs = {"params": max(rel(a.float() - p0.float(), b.float() - p0.float())
+                          for a, b, p0 in zip(tree_leaves(mesh_state[0]),
+                                              tree_leaves(meshless_state[0]),
+                                              start))}
+    errs.update({name: max(rel(a, b) for a, b in zip(tree_leaves(x),
+                                                     tree_leaves(y)))
+                 for name, x, y in zip(("m", "v"), mesh_state[1:],
+                                       meshless_state[1:])})
+    # how far the meshless steps moved the weights: ‖Δ‖ / ‖p‖, all of them
+    moved = math.sqrt(
+        sum(float((b.float() - p0.float()).norm() ** 2)
+            for b, p0 in zip(tree_leaves(meshless_state[0]), start))
+        / sum(float(p0.float().norm() ** 2) for p0 in start))
+    state_ok = max(errs.values()) <= LM_MESH_STATE_TOL < moved
+    say("lm-mesh", check="train_vs_meshless", loss_max_abs=f"{loss_err:.6f}",
+        warm_step=LM_MESH_WARM_STEP,
+        **{f"{k}_max_rel": f"{v:.3e}" for k, v in errs.items()},
+        params_moved_rel=f"{moved:.3e}", ok=loss_ok and state_ok)
+    if not (loss_ok and state_ok):
+        raise AssertionError("the train cell over the mesh differs from "
+                             "the meshless one, or its steps did not move "
+                             "the weights")
+    del runs, mesh_state, meshless_state, start
+
+
+def lm_mesh_serve(dev, mesh, cfg, params, smi: str) -> int:
+    """Phase 19 (b): the prefill and decode cells over the mesh beside
+    meshless eager steps, fed the same tokens; returns the mesh
+    prefill's K6 launches."""
+    from repro_torch.parallel import sharding as shd
+
+    batch, prompt, gen = LM_MESH_SERVE
+    arch = dataclasses.replace(get_config(LM_MESH_ARCH), shapes={
+        "prefill": ShapeCell("prefill", "prefill", batch=batch,
+                             seq_len=prompt),
+        "decode": ShapeCell("decode", "decode", batch=batch,
+                            seq_len=prompt + gen + 1)})
+    gen_t = torch.Generator(device=dev).manual_seed(1)
+    tokens = torch.randint(0, cfg.vocab, (batch, prompt), generator=gen_t,
+                           device=dev, dtype=torch.int32)
+    pre = steps.build_cell(arch, "prefill", mesh)
+    dec = steps.build_cell(arch, "decode", mesh)    # room for gen + 1
+    placed = steps.place_lm_state(mesh, params)
+    def timed(fn):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t
+
+    with torch.no_grad():
+        toks = shd.distribute(tokens, pre.in_shardings[1])
+        # cold, then warm, each way; K6 counted around the first mesh call
+        (want, cache), meshless_s = timed(
+            lambda: tr.prefill_step(params, cfg, tokens))
+        _, meshless_warm_s = timed(
+            lambda: tr.prefill_step(params, cfg, tokens))
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        (got, mcache), mesh_s = timed(lambda: pre.fn(placed, toks))
+        k6 = read_counts()["flash_attention"]
+        _, mesh_warm_s = timed(lambda: pre.fn(placed, toks))
+        _, calls, sent = _comm_counts(lambda: pre.fn(placed, toks))
+        pre_ok, pre_err = _mesh_close(got.full_tensor(), want)
+        say("lm-mesh", check="prefill", batch=batch, prompt=prompt,
+            k6_launches=k6, logits_max_abs=f"{pre_err:.6f}", ok=pre_ok,
+            mesh_s_cold_warm=f"{mesh_s:.4f}/{mesh_warm_s:.4f}",
+            meshless_s_cold_warm=f"{meshless_s:.4f}/{meshless_warm_s:.4f}",
+            peak_gib=f"{torch.cuda.max_memory_allocated() / 2**30:.3f}",
+            reserved_gib=f"{torch.cuda.max_memory_reserved() / 2**30:.3f}",
+            collectives=json.dumps(calls, separators=(",", ":")),
+            sent_bytes=json.dumps(sent, separators=(",", ":")),
+            smi=f"'{smi}'")
+        wide = _wide_cache(cfg, cache, batch, prompt, gen + 1, dev)
+        mwide = _wide_cache(cfg, tr.KVCache(
+            mcache.k.full_tensor(), mcache.v.full_tensor(),
+            mcache.length.full_tensor()), batch, prompt, gen + 1, dev)
+        mwide = shd.distribute(mwide, dec.in_shardings[1])
+        del cache, mcache
+        nxt = want.argmax(-1).to(torch.int32)
+        worst, same, times = 0.0, True, {"mesh": [], "meshless": []}
+        for step in range(gen):
+            (lw, wide), s_ = timed(
+                lambda: tr.decode_step(params, cfg, wide, nxt))
+            times["meshless"].append(s_)
+            tk = shd.distribute(nxt, dec.in_shardings[2])
+            (lg, mwide), s_ = timed(lambda: dec.fn(placed, mwide, tk))
+            times["mesh"].append(s_)
+            ok, err = _mesh_close(lg.full_tensor(), lw)
+            same = same and ok
+            worst = max(worst, err)
+            nxt = lw.argmax(-1).to(torch.int32)
+        # one more step under the counter (the cache has room: gen + 1)
+        tk = shd.distribute(nxt, dec.in_shardings[2])
+        _, dcalls, dsent = _comm_counts(lambda: dec.fn(placed, mwide, tk))
+        say("lm-mesh", check="decode", batch=batch, steps=gen,
+            context=prompt + gen, logits_max_abs=f"{worst:.6f}", ok=same,
+            mesh_ms_median=f"{statistics.median(times['mesh']) * 1e3:.2f}",
+            meshless_ms_median=f"{statistics.median(times['meshless']) * 1e3:.2f}",
+            peak_gib=f"{torch.cuda.max_memory_allocated() / 2**30:.3f}",
+            reserved_gib=f"{torch.cuda.max_memory_reserved() / 2**30:.3f}",
+            collectives=json.dumps(dcalls, separators=(",", ":")),
+            sent_bytes=json.dumps(dsent, separators=(",", ":")),
+            smi=f"'{smi}'")
+    if not (pre_ok and same) or k6 != cfg.n_layers:
+        raise AssertionError(f"prefill ok={pre_ok}, decode ok={same}, K6 "
+                             f"launched {k6} times in a mesh prefill, "
+                             f"expected {cfg.n_layers}")
+    del placed, wide, mwide
+    return k6
+
+
+def check_lm_dryrun(smi: str) -> None:
+    """Phase 19 (c): ``python -m repro_torch.launch.dryrun --arch
+    granite-20b`` in a process of its own: the three dense-LM rows on
+    rank 0 of a ``fake`` world of 256 (``long_500k`` skipped), each with
+    its memory and the collectives DTensor issued."""
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_lmdry_") as tmp:
+        out = Path(tmp) / "dryrun.json"
+        env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+        t = time.perf_counter()
+        p = subprocess.run(
+            [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
+             LM_DRYRUN_ARCH, "--json", str(out)],
+            env=env, capture_output=True, text=True, timeout=DRYRUN_TIMEOUT)
+        seconds = time.perf_counter() - t
+        for line in p.stdout.splitlines():
+            if line.strip():
+                print(line, flush=True)
+        if p.returncode:
+            raise AssertionError(f"the LM dry run exited {p.returncode}: "
+                                 f"{p.stderr[-3000:]}")
+        recs = json.loads(out.read_text())
+    ran = [r for r in recs if "skip" not in r]
+    for r in ran:
+        mem = r["memory"]
+        say("lm-dryrun", arch=r["arch"], cell=r["shape"],
+            mesh="x".join(map(str, r["mesh"])), world=r["world"],
+            argument_bytes=mem["argument_bytes"],
+            output_bytes=mem["output_bytes"],
+            peak_bytes=mem["peak_allocated_bytes"],
+            reserved_bytes=mem["peak_reserved_bytes"],
+            calls=json.dumps(r["collectives"]["calls"],
+                             separators=(",", ":")),
+            sent_bytes=json.dumps(r["collectives"]["sent_bytes"],
+                                  separators=(",", ":")),
+            launches=json.dumps(r["launches"], separators=(",", ":")),
+            call_s=f"{r['call_s']:.4f}", dominant=r["dominant"],
+            smi=f"'{smi}'")
+    if sorted(r["shape"] for r in ran) != ["decode_32k", "prefill_32k",
+                                           "train_4k"] or any(
+            not r["memory"]["peak_allocated_bytes"]
+            or not r["collectives"]["calls"] for r in ran):
+        raise AssertionError(f"the LM dry run ran {[r['shape'] for r in ran]}"
+                             f", or a row without its memory or "
+                             f"collectives")
+    say("lm-dryrun", seconds=f"{seconds:.1f}")
+
+
+def check_lm_mesh(dev, smi: str) -> int:
+    """Phase 19 (module docstring); returns the mesh prefill's K6
+    launches."""
+    from repro_torch.launch.mesh import make_test_mesh
+
+    t0 = time.perf_counter()
+    cfg = get_config(LM_MESH_ARCH).model
+    with nccl_world():
+        mesh = make_test_mesh(1, tp=1)
+        params = tr.init_lm_params(
+            torch.Generator(device=dev).manual_seed(0), cfg)
+        lm_mesh_train(dev, mesh, cfg, params, smi)
+        k6 = lm_mesh_serve(dev, mesh, cfg, params, smi)
+        del params, mesh
+        gc.collect()
+    torch.cuda.empty_cache()
+    check_lm_dryrun(smi)
+    say("lm-mesh", seconds=f"{time.perf_counter() - t0:.1f}")
+    return k6
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--scale", type=int, default=20,
@@ -6437,6 +6770,10 @@ def main(argv=None) -> int:
     check_dryrun(smi)
     say("cells", seconds=f"{time.perf_counter() - t:.1f}")
     phase_done("18")
+
+    # ---- 19. the LM over a DeviceMesh: train, serve, the dry run's rows --
+    launches["flash_attention"] += check_lm_mesh(dev, smi)
+    phase_done("19")
 
     print(json.dumps({"kernels": [
         {"name": name, **KERNELS[name], "launches": launches[name],

@@ -14,6 +14,16 @@ dtype on restore.
 The layout is the port's own: its params are a list of layers, where the
 reference's are stacked ``[L, …]``, so neither package reads the other's
 checkpoints.
+
+Over a mesh (DTensor leaves) a checkpoint still holds the whole logical
+arrays, as the reference's does: ``save`` gathers each leaf on every rank
+(``full_tensor()``), rank 0 alone writes, and every rank waits at a
+barrier in :meth:`CheckpointManager.wait` (which ``save`` calls before
+its write) until rank 0's write is in place, so no rank reads the
+directory while rank 0 is writing it.  ``restore`` puts a DTensor leaf of
+``tree_like`` back on that leaf's own mesh and placements, or places each
+leaf by ``shardings=`` (a tree of ``parallel.sharding.NamedSharding``):
+elastic restore onto another mesh (:mod:`.elastic`) is that placement.
 """
 from __future__ import annotations
 
@@ -25,15 +35,25 @@ from typing import Any, Dict, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
-from ..tree import leaves_with_paths, tree_unflatten
+from ..tree import leaves_with_paths, tree_leaves, tree_unflatten
+
+
+def _is_dtensor(leaf) -> bool:
+    from torch.distributed.tensor import DTensor
+
+    return isinstance(leaf, DTensor)
 
 
 def _host(leaf) -> np.ndarray:
-    """A host copy of one leaf: the caller goes on updating its state in
-    place, so nothing here may share its memory."""
+    """A host copy of one leaf (a DTensor's whole logical array, gathered
+    on every rank): the caller goes on updating its state in place, so
+    nothing here may share its memory."""
     if isinstance(leaf, torch.Tensor):
         t = leaf.detach()
+        if _is_dtensor(t):
+            t = t.full_tensor()
         if t.dtype == torch.bfloat16:
             t = t.to(torch.float32)        # lossless widen; npz-portable
         elif t.device.type == "cpu":
@@ -52,15 +72,24 @@ class CheckpointManager:
         self.keep = keep
         os.makedirs(directory, exist_ok=True)
         self._thread: Optional[threading.Thread] = None
+        #: set by the first save of DTensors: rank 0 writes, all wait
+        self._across_ranks = False
 
     # ------------------------------------------------------------------
     def save(self, step: int, tree: Any, blocking: bool = False,
              extra: Optional[Dict] = None) -> None:
-        """Snapshot to host memory synchronously, write to disk async."""
+        """Snapshot to host memory synchronously, write to disk async.
+        Over a mesh every rank calls it; rank 0 writes."""
+        if any(_is_dtensor(x) for _, x in leaves_with_paths(tree)):
+            self._across_ranks = True
         flat = _flatten_with_paths(tree)   # device→host copy happens here
         meta = {"step": int(step), "keys": sorted(flat),
                 "extra": extra or {}}
         self.wait()
+        if self._across_ranks and dist.get_rank() != 0:
+            if blocking:
+                self.wait()
+            return
         # thread-contract: daemon (a half-written .tmp-<step> dir is
         # discarded on restart, so dying with the interpreter is safe);
         # joined by wait() before the next save and by callers that need
@@ -87,9 +116,13 @@ class CheckpointManager:
         self._gc()
 
     def wait(self) -> None:
+        """Until the last save is on disk; over a mesh, on every rank (a
+        barrier after rank 0's write)."""
         if self._thread is not None:
             self._thread.join()
             self._thread = None
+        if self._across_ranks:
+            dist.barrier()
 
     def _gc(self) -> None:
         steps = self.all_steps()
@@ -110,23 +143,37 @@ class CheckpointManager:
         return steps[-1] if steps else None
 
     def restore(self, tree_like: Any, step: Optional[int] = None,
-                device: Optional[torch.device] = None):
+                device: Optional[torch.device] = None,
+                shardings: Any = None):
         """Restore into the structure of ``tree_like``: each tensor leaf
         comes back in that leaf's dtype, on ``device`` (default: the
-        leaf's own); other leaves come back as numpy arrays.  Returns
-        ``(tree, step)``."""
+        leaf's own), a DTensor leaf as a DTensor on its own mesh and
+        placements; other leaves come back as numpy arrays.  With
+        ``shardings`` (a tree of ``NamedSharding`` shaped as
+        ``tree_like``) every leaf comes back as a DTensor placed by its
+        sharding: each rank keeps its shard of the whole array it read.
+        Returns ``(tree, step)``."""
+        from ..parallel.sharding import NamedSharding, distribute
+
         step = step if step is not None else self.latest_step()
         if step is None:
             raise FileNotFoundError(f"no checkpoints in {self.dir}")
+        places = None if shardings is None else tree_leaves(shardings)
         d = os.path.join(self.dir, f"step-{step:010d}")
         out = []
         with np.load(os.path.join(d, "arrays.npz")) as data:
-            for key, leaf in leaves_with_paths(tree_like):
+            for i, (key, leaf) in enumerate(leaves_with_paths(tree_like)):
                 arr = data[key]
                 if tuple(arr.shape) != tuple(leaf.shape):
                     raise ValueError(f"{key}: checkpoint shape {arr.shape}, "
                                      f"state shape {tuple(leaf.shape)}")
-                if isinstance(leaf, torch.Tensor):
+                place = places[i] if places is not None else \
+                    NamedSharding.of(leaf) if _is_dtensor(leaf) else None
+                if place is not None:
+                    dtype = leaf.dtype if isinstance(leaf, torch.Tensor) \
+                        else torch.from_numpy(arr).dtype
+                    arr = distribute(torch.from_numpy(arr).to(dtype), place)
+                elif isinstance(leaf, torch.Tensor):
                     arr = torch.from_numpy(arr).to(
                         device=device or leaf.device, dtype=leaf.dtype)
                 out.append(arr)

@@ -2,8 +2,9 @@
 (mirrors ``repro/configs/qwen3_moe_235b_a22b.py``, with torch dtypes).
 
 The reference's ``moe_shard_map=True`` (expert parallelism over a mesh)
-is left out with the rest of the mesh (ROADMAP queue 1 item 9c): the full
-config is 470 GB in bf16 and stays abstract on one card.  The reduced
+is left out until expert parallelism is ported (ROADMAP queue 1 item
+9c.4): the full config is 470 GB in bf16 and stays abstract on one
+card.  The reduced
 config's head width, 16, is one K6 takes in f32 (its f32
 instantiation), so it serves on the card and on the CPU."""
 import torch

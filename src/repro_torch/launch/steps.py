@@ -6,11 +6,19 @@ trainer runs its ``train`` cell, and its ``prefill`` and ``decode`` cells
 are the port's serving steps; a GNN arch's cells each train on one
 padded graph; NequIP's train on padded point clouds (``molecule`` on
 energies and forces, by a second-order gradient); the recsys arch's
-cells train, serve or retrieve.  These families run on one device, with
-no mesh and no sharding: abstract inputs are ``meta`` tensors, and a
-``mesh`` raises (their mesh is ROADMAP queue 1 item 9c).  Steps run
-eagerly; a train step updates the parameters and the optimizer state in
-place (the reference donates them).
+cells train, serve or retrieve.  Steps run eagerly; a train step updates
+the parameters and the optimizer state in place (the reference donates
+them).
+
+A dense LM's cells also run over a ``DeviceMesh`` with ``data`` and
+``model`` axes, as the reference's do: their ``in_shardings`` and
+``out_shardings`` are the reference's specs as DTensor placements
+(``parallel/sharding.py``), the step takes and returns DTensors so
+placed (it checks its results against ``out_shardings``) (:func:`place_lm_state` puts whole weights on a mesh), and the
+abstract inputs are this rank's ``meta`` tensors.  A MoE LM over a mesh
+raises (ROADMAP queue 1 item 9c.4); the GNN, NequIP and recsys families
+run on one device only, abstract inputs ``meta`` tensors, and a mesh
+raises (item 9c.3).
 
 The Euler family (``euler-rmat``) runs only over a mesh, as in the
 reference: a ``DeviceMesh`` (``launch/mesh.py``, one partition a device,
@@ -40,10 +48,10 @@ from ..models.gnn import GNNConfig, GraphBatch, gnn_loss
 from ..models.recsys import (AutoIntConfig, RecsysBatch,
                              abstract_autoint_params, autoint_forward,
                              autoint_loss, retrieval_score)
-from ..models.transformer import (LMConfig, abstract_kv_cache,
+from ..models.transformer import (KVCache, LMConfig, abstract_kv_cache,
                                   abstract_lm_params, decode_step, lm_loss,
-                                  prefill_step)
-from ..optim.adamw import adamw_update, init_adamw
+                                  params_from_numpy, prefill_step)
+from ..optim.adamw import AdamWState, adamw_update, init_adamw
 from ..optim.schedule import warmup_cosine
 from ..parallel import sharding as shd
 from ..tree import tree_leaves, tree_map, tree_unflatten
@@ -58,6 +66,10 @@ class Cell(NamedTuple):
     model_flops: float           # analytic useful FLOPs of one call
     note: str = ""
     engine: Optional[Any] = None  # an Euler cell's Engine (and its mesh)
+    #: over a mesh, the args' and results' NamedSharding trees (the
+    #: reference's ``in_shardings``/``out_shardings``); None without one
+    in_shardings: Any = None
+    out_shardings: Any = None
 
 
 def _lm_train_flops(cfg: LMConfig, cell: ShapeCell) -> float:
@@ -82,9 +94,12 @@ def _value_and_grad(loss_fn: Callable, params, *args):
 
 
 def lm_value_and_grad(params, cfg: LMConfig, tokens: torch.Tensor,
-                      labels: torch.Tensor):
-    """``lm_loss`` and its gradient with respect to every parameter."""
-    return _value_and_grad(lm_loss, params, cfg, tokens, labels)
+                      labels: torch.Tensor, dp_axes=None, tp_axis=None,
+                      mesh=None):
+    """``lm_loss`` and its gradient with respect to every parameter (over
+    ``mesh``: DTensors placed as the parameters)."""
+    return _value_and_grad(lm_loss, params, cfg, tokens, labels, dp_axes,
+                           tp_axis, mesh)
 
 
 def _meta(shape, dtype) -> torch.Tensor:
@@ -95,9 +110,106 @@ def _tokens_meta(*shape) -> torch.Tensor:
     return _meta(shape, torch.int32)
 
 
-def build_lm_cell(arch: ArchConfig, cell: ShapeCell) -> Cell:
+def _dp(mesh):
+    return shd.dp_axes_of(mesh) if mesh is not None else None
+
+
+def _tp(mesh) -> Optional[str]:
+    return "model" if mesh is not None and "model" in \
+        mesh.mesh_dim_names else None
+
+
+def _lm_kv_specs(cfg: LMConfig, mesh) -> KVCache:
+    """Shard KV heads over tp when divisible, else the sequence dim."""
+    dp = shd.dp_axes_of(mesh)
+    tp_size = shd.mesh_sizes(mesh)["model"]
+    if cfg.n_kv_heads % tp_size == 0:
+        kspec = shd.P(None, dp, None, "model", None)
+    else:
+        kspec = shd.P(None, dp, "model", None, None)
+    return KVCache(k=kspec, v=kspec, length=shd.P(dp))
+
+
+def _local_meta(tree, specs, mesh):
+    """This rank's ``meta`` tensors of a tree under its spec tree."""
+    return tree_map(lambda t, s: _meta(shd.local_shape(t.shape, s, mesh),
+                                       t.dtype), tree, specs)
+
+
+def lm_state_shardings(state, mesh, fsdp: bool = True):
+    """The shardings of an LM's ``params`` or ``(params, AdamWState)`` on
+    ``mesh``: the reference's ``lm_param_shardings``, the moments as the
+    params, the step replicated (``P()``).  A rule for
+    ``checkpoint.elastic.elastic_restore``."""
+    if isinstance(state, dict):
+        return shd.lm_param_shardings(state, mesh, fsdp)
+    params, opt = state
+    ps = shd.lm_param_shardings(params, mesh, fsdp)
+    return ps, AdamWState(step=shd.NamedSharding(mesh, shd.P()), m=ps, v=ps)
+
+
+def place_lm_state(mesh, params, opt: Optional[AdamWState] = None,
+                   fsdp: bool = True):
+    """An LM's params (the port's tree of tensors, or the reference's
+    tree of numpy arrays, which goes through ``params_from_numpy``) and
+    optionally its AdamW state (``step``, ``m``, ``v``, either form) as
+    DTensors on ``mesh`` by :func:`lm_state_shardings`.  Every rank
+    passes the same whole arrays and keeps its own shards: both packages
+    start from the same weights this way."""
+    def port(tree):
+        return tree if isinstance(tree["embed"], torch.Tensor) else \
+            params_from_numpy(tree)
+
+    params = port(params)
+    if opt is None:
+        return shd.distribute(params, lm_state_shardings(params, mesh, fsdp))
+    step, m, v = opt
+    step = step.detach().cpu() if isinstance(step, torch.Tensor) else \
+        torch.as_tensor(np.asarray(step))
+    opt = AdamWState(step=step.to(torch.int32), m=port(m), v=port(v))
+    return shd.distribute((params, opt),
+                          lm_state_shardings((params, opt), mesh, fsdp))
+
+
+def _placed_cell(step, abstract, flops, mesh, in_specs, out_specs,
+                 note: str = "") -> Cell:
+    """A mesh cell whose step raises unless each result is placed as
+    ``out_specs`` says."""
+    out_shardings = shd.named(mesh, out_specs)
+
+    def checked(*args):
+        out = step(*args)
+        for t, s in zip(tree_leaves(out), tree_leaves(out_shardings)):
+            if t.device_mesh != s.mesh or tuple(t.placements) != \
+                    tuple(s.placements):
+                raise AssertionError(f"a result placed {t.placements}, "
+                                     f"its out_shardings {s.placements}")
+        return out
+
+    return Cell(checked, abstract, flops, note=note,
+                in_shardings=shd.named(mesh, in_specs),
+                out_shardings=out_shardings)
+
+
+def build_lm_cell(arch: ArchConfig, cell: ShapeCell, mesh=None) -> Cell:
+    """The reference's ``build_lm_cell``: train, prefill or decode.  Over
+    ``mesh`` (a ``DeviceMesh`` with a ``model`` axis) the step takes and
+    returns DTensors placed by ``in_shardings``/``out_shardings`` (the
+    reference's specs as placements; ``models/transformer.py``'s
+    :class:`~repro_torch.models.transformer.MeshPlan`), and its abstract
+    inputs are this rank's ``meta`` tensors.  A MoE LM over a mesh raises
+    (ROADMAP queue 1 item 9c.4)."""
     cfg: LMConfig = arch.model
+    if mesh is not None and cfg.moe is not None:
+        raise NotImplementedError(
+            f"{arch.arch_id}: a MoE LM over a mesh (moe_ffn with ep_axis, "
+            f"moe_ffn_ep) waits for ROADMAP queue 1 item 9c.4")
+    dp, tp = _dp(mesh), _tp(mesh)
     params_abs = abstract_lm_params(cfg)
+    pspecs = shd.lm_param_specs(params_abs, mesh) if mesh else None
+
+    def local(tree, specs):
+        return tree if mesh is None else _local_meta(tree, specs, mesh)
 
     if cell.kind == "train":
         opt_abs = init_adamw(params_abs)
@@ -107,29 +219,53 @@ def build_lm_cell(arch: ArchConfig, cell: ShapeCell) -> Cell:
         def step(params, opt, batch):
             lr = warmup_cosine(opt.step, 3e-4, 2000, 100_000)
             loss, grads = lm_value_and_grad(params, cfg, batch["tokens"],
-                                            batch["labels"])
+                                            batch["labels"], dp, tp, mesh)
             params, opt = adamw_update(params, grads, opt, lr)
             return params, opt, loss
 
-        return Cell(step, (params_abs, opt_abs, batch_abs),
-                    _lm_train_flops(cfg, cell))
+        flops = _lm_train_flops(cfg, cell)
+        if mesh is None:
+            return Cell(step, (params_abs, opt_abs, batch_abs), flops)
+        ospecs = AdamWState(step=shd.P(), m=pspecs, v=pspecs)
+        bspecs = {"tokens": shd.P(dp, None), "labels": shd.P(dp, None)}
+        return _placed_cell(step, (local(params_abs, pspecs),
+                                   local(opt_abs, ospecs),
+                                   local(batch_abs, bspecs)), flops, mesh,
+                            (pspecs, ospecs, bspecs),
+                            (pspecs, ospecs, shd.P()))
 
     if cell.kind == "prefill":
+        tokens_abs = _tokens_meta(cell.batch, cell.seq_len)
+
         def step(params, tokens):
-            return prefill_step(params, cfg, tokens)
+            return prefill_step(params, cfg, tokens, dp, tp, mesh)
 
         flops = 2.0 * cfg.active_param_count() * cell.batch * cell.seq_len
-        return Cell(step, (params_abs, _tokens_meta(cell.batch, cell.seq_len)),
-                    flops)
+        if mesh is None:
+            return Cell(step, (params_abs, tokens_abs), flops)
+        kv = _lm_kv_specs(cfg, mesh)
+        return _placed_cell(step, (local(params_abs, pspecs),
+                                   local(tokens_abs, shd.P(dp, None))),
+                            flops, mesh, (pspecs, shd.P(dp, None)),
+                            (shd.P(dp, None), kv))
 
     if cell.kind == "decode":
         def step(params, cache, tokens):
-            return decode_step(params, cfg, cache, tokens)
+            return decode_step(params, cfg, cache, tokens, dp, tp, mesh)
 
         cache_abs = abstract_kv_cache(cfg, cell.batch, cell.seq_len)
+        tokens_abs = _tokens_meta(cell.batch)
         flops = 2.0 * cfg.active_param_count() * cell.batch
-        return Cell(step, (params_abs, cache_abs, _tokens_meta(cell.batch)),
-                    flops, note="writes the cache in place")
+        note = "writes the cache in place"
+        if mesh is None:
+            return Cell(step, (params_abs, cache_abs, tokens_abs), flops,
+                        note=note)
+        kv = _lm_kv_specs(cfg, mesh)
+        return _placed_cell(step, (local(params_abs, pspecs),
+                                   local(cache_abs, kv),
+                                   local(tokens_abs, shd.P(dp))), flops,
+                            mesh, (pspecs, kv, shd.P(dp)),
+                            (shd.P(dp, None), kv), note=note)
 
     raise ValueError(cell.kind)
 
@@ -405,8 +541,10 @@ def build_cell(arch: ArchConfig, shape_name: str, mesh=None) -> Cell:
                 f"reference's: pass mesh= (launch/mesh.py: "
                 f"make_production_mesh, make_test_mesh or make_part_mesh)")
         return build_euler_cell(arch, cell, mesh)
+    if arch.family == "lm":
+        return build_lm_cell(arch, cell, mesh)
     if mesh is not None:
         raise NotImplementedError(f"{arch.family} cells run on one device; "
                                   f"their mesh waits for ROADMAP queue 1 "
-                                  f"item 9c")
+                                  f"item 9c.3")
     return BUILDERS[arch.family](arch, cell)

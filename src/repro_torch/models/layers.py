@@ -1,8 +1,8 @@
 """Shared neural building blocks on plain tensors (mirrors
 ``repro/models/layers.py``: ``dense_init``, ``rmsnorm``, ``layernorm``,
-``swiglu``, ``rope_frequencies``, ``apply_rope``, ``gqa_attention``,
-``auto_q_block``, ``chunked_gqa_attention``, ``cross_entropy``,
-``chunked_cross_entropy``).
+``swiglu`` (and its first half, ``swiglu_up``), ``rope_frequencies``,
+``apply_rope``, ``gqa_attention``, ``auto_q_block``,
+``chunked_gqa_attention``, ``cross_entropy``, ``chunked_cross_entropy``).
 
 Layouts are the reference's: activations [B, S, H, D], weight matrices
 stored [in, out] and applied as ``x @ w``.  Training attends through the
@@ -12,6 +12,10 @@ through ``torch.utils.checkpoint`` (non-reentrant), the counterpart of the
 reference's ``jax.checkpoint``, so backward recomputes one block at a time.
 Serving's prefill attends through the K6 kernel instead
 (``kernels.ops.flash_attention_gqa``).
+
+Over a mesh (``models/transformer.py``) the LM runs these on each rank's
+own rows and heads; :func:`vocab_shard_lookup` and :func:`xent_sum` are
+the two pieces of a vocab-sharded embedding and loss that it runs there.
 """
 from __future__ import annotations
 
@@ -58,12 +62,19 @@ def layernorm(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
     return (y * weight + bias).to(dt)
 
 
-def swiglu(x: torch.Tensor, w_gate: torch.Tensor, w_up: torch.Tensor,
-           w_down: torch.Tensor) -> torch.Tensor:
+def swiglu_up(x: torch.Tensor, w_gate: torch.Tensor,
+              w_up: torch.Tensor) -> torch.Tensor:
+    """SwiGLU's product before its down projection (over a mesh, on tp's
+    columns of ``w_gate`` and ``w_up``)."""
     gate = x @ w_gate
     # silu as the reference's jax.nn.silu, x · sigmoid(x): in bf16 each of
     # the two ops rounds, where F.silu would round once
-    return (gate * torch.sigmoid(gate) * (x @ w_up)) @ w_down
+    return gate * torch.sigmoid(gate) * (x @ w_up)
+
+
+def swiglu(x: torch.Tensor, w_gate: torch.Tensor, w_up: torch.Tensor,
+           w_down: torch.Tensor) -> torch.Tensor:
+    return swiglu_up(x, w_gate, w_up) @ w_down
 
 
 def rope_frequencies(d_head: int, theta: float = 10000.0,
@@ -160,6 +171,29 @@ def chunked_gqa_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return torch.cat(outs, dim=1).reshape(B, S, Hq, D)
 
 
+def vocab_shard_lookup(table: torch.Tensor, ids: torch.Tensor,
+                       lo: int) -> torch.Tensor:
+    """The rows of ``ids`` that this shard of an embedding holds (global
+    rows ``lo … lo + len(table) − 1``), zeros for the others: one term of
+    Megatron's vocab-parallel lookup, whose sum over the shards is the
+    lookup of the whole table (each id in exactly one term, the others
+    exact zeros).  ids [...] → [..., D]."""
+    rows = table.shape[0]
+    local = ids.long() - lo
+    hit = (local >= 0) & (local < rows)
+    got = table[local.clamp(0, rows - 1)]
+    return torch.where(hit[..., None], got, torch.zeros_like(got))
+
+
+def xent_sum(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    """Summed token cross-entropy of whole logit rows [n, V] in f32 (the
+    body of :func:`_xent_block` after the head product)."""
+    logits = logits.to(torch.float32)
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, labels[:, None].long())[:, 0]
+    return torch.sum(logz - gold)
+
+
 def cross_entropy(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
     """Mean token cross-entropy in f32."""
     logits = logits.to(torch.float32)
@@ -170,10 +204,14 @@ def cross_entropy(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
 
 def _xent_block(xi, head, li):
     """Summed cross-entropy of one block of rows through the LM head."""
-    logits = (xi @ head).to(torch.float32)
-    logz = torch.logsumexp(logits, dim=-1)
-    gold = torch.gather(logits, -1, li[:, None].long())[:, 0]
-    return torch.sum(logz - gold)
+    return xent_sum(xi @ head, li)
+
+
+def row_block(n: int, block: int = 8192) -> int:
+    """``block`` halved until it divides ``n`` rows: the loss's block."""
+    while n % block:
+        block //= 2
+    return block
 
 
 def chunked_cross_entropy(x: torch.Tensor, head: torch.Tensor,
@@ -185,8 +223,7 @@ def chunked_cross_entropy(x: torch.Tensor, head: torch.Tensor,
     ``block`` halves until it divides N.  The blocks' sums add up in f32,
     in order, and the total is divided by N: the mean."""
     N = x.shape[0]
-    while N % block:
-        block //= 2
+    block = row_block(N, block)
     total = torch.zeros((), dtype=torch.float32, device=x.device)
     for lo in range(0, N, block):
         total = total + checkpoint(_xent_block, x[lo:lo + block], head,

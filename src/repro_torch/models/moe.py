@@ -21,7 +21,7 @@ sizes assume (Qwen1.5-MoE-A2.7B: 28.6 GB in bf16).
 
 One device: the reference's ``ep_axis``/``dp_axes`` sharding
 constraints and ``moe_ffn_ep`` (a ``shard_map`` over a mesh) wait for
-ROADMAP queue 1 item 9c.
+ROADMAP queue 1 item 9c.4.
 """
 from __future__ import annotations
 

@@ -25,15 +25,21 @@ The port's LM layers are a list of per-layer dicts where the reference
 stacks them on a leading axis: a layer tensor's spec here is the
 reference's spec of the stacked tensor without its leading ``None``.
 
-The reference's ``_named`` and ``lm_param_shardings`` wrap specs into
-``NamedSharding``s; their counterpart, DTensor placements, has no caller
-until the substrate runs over a mesh (ROADMAP queue 1 item 9c), so they
-are not here.
+The counterpart of GSPMD's ``NamedSharding`` is a DTensor placement
+list: :func:`placements` maps a spec onto a ``DeviceMesh``'s dimensions
+(``Shard(d)`` on each mesh dimension that an entry of tensor dimension
+``d`` names, ``Replicate()`` on the others), :class:`NamedSharding` holds
+a mesh and its placements, :func:`named` (the reference's
+``launch/steps.py::_named``) turns a spec tree into such shardings,
+:func:`lm_param_shardings` is the reference's, and :func:`distribute`
+places a tree of whole tensors by a tree of shardings.
 """
 from __future__ import annotations
 
 import math
 from typing import Any, Dict, Optional, Tuple
+
+import torch
 
 from ..tree import leaves_with_paths, tree_map, tree_unflatten
 
@@ -82,6 +88,88 @@ class PartitionSpec:
 P = PartitionSpec
 
 
+def _axes(entry: Entry) -> Tuple[str, ...]:
+    return () if entry is None else \
+        (entry,) if isinstance(entry, str) else tuple(entry)
+
+
+def placements(spec: PartitionSpec, mesh) -> tuple:
+    """The DTensor placements of ``spec`` on ``mesh``: mesh dimension
+    ``m`` gets ``Shard(d)`` where entry ``d`` names it, else
+    ``Replicate()``.  An entry of several axes shards its dimension over
+    them major first, as jax does, which DTensor does when their mesh
+    dimensions come in the same order (the only order the specs use:
+    ``dp_axes_of`` keeps the mesh's); another order raises."""
+    from torch.distributed.tensor import Replicate, Shard
+
+    names = tuple(mesh.mesh_dim_names)
+    out = [Replicate()] * len(names)
+    for d, entry in enumerate(spec):
+        dims = [names.index(a) for a in _axes(entry)]
+        if dims != sorted(dims):
+            raise ValueError(f"{spec}: the axes {_axes(entry)} of dimension "
+                             f"{d} are not in the mesh's order {names}")
+        for m in dims:
+            out[m] = Shard(d)
+    return tuple(out)
+
+
+class NamedSharding:
+    """A mesh and the placements of one spec on it (the reference's
+    ``jax.sharding.NamedSharding``); a leaf of the port's trees."""
+
+    __slots__ = ("mesh", "spec", "placements")
+
+    def __init__(self, mesh, spec: Optional[PartitionSpec],
+                 placed: Optional[tuple] = None):
+        self.mesh = mesh
+        self.spec = spec
+        self.placements = tuple(placed) if placed is not None else \
+            placements(spec, mesh)
+
+    @classmethod
+    def of(cls, t) -> "NamedSharding":
+        """A DTensor's own mesh and placements (no spec)."""
+        return cls(t.device_mesh, None, t.placements)
+
+    def __repr__(self) -> str:
+        return f"NamedSharding({self.spec!r}, {self.placements!r})"
+
+
+def named(mesh, tree):
+    """A spec tree → its tree of :class:`NamedSharding` leaves on ``mesh``
+    (``None`` without a mesh), the reference's ``_named``."""
+    if mesh is None:
+        return None
+    return tree_map(lambda s: NamedSharding(mesh, s), tree)
+
+
+def mesh_device(mesh) -> torch.device:
+    """This rank's device of ``mesh``: the current CUDA device on a card,
+    else the CPU."""
+    if mesh.device_type == "cuda":
+        return torch.device("cuda", torch.cuda.current_device())
+    return torch.device(mesh.device_type)
+
+
+def distribute(tree, shardings):
+    """Each tensor of ``tree`` (the whole logical array, the same on every
+    rank) as a DTensor placed by the matching :class:`NamedSharding`:
+    each rank keeps a copy of its own shard (never a view of the
+    caller's tensor), and nothing is sent."""
+    from torch.distributed.tensor import DTensor, distribute_tensor
+
+    def one(t, s):
+        d = distribute_tensor(t.to(mesh_device(s.mesh)), s.mesh, s.placements,
+                              src_data_rank=None)
+        return DTensor.from_local(d.to_local().clone(), s.mesh, s.placements,
+                                  run_check=False, shape=d.shape,
+                                  stride=d.stride())
+
+    return one(tree, shardings) if isinstance(shardings, NamedSharding) \
+        else tree_map(one, tree, shardings)
+
+
 def mesh_sizes(mesh) -> Dict[str, int]:
     """Axis name → size (the reference's ``mesh.shape``)."""
     return dict(zip(mesh.mesh_dim_names, mesh.shape))
@@ -102,9 +190,7 @@ def local_shape(shape, spec: PartitionSpec, mesh) -> Tuple[int, ...]:
                          f"has dimensions")
     out = []
     for d, size in enumerate(shape):
-        entry = spec[d] if d < len(spec) else None
-        axes = () if entry is None else \
-            (entry,) if isinstance(entry, str) else tuple(entry)
+        axes = _axes(spec[d] if d < len(spec) else None)
         ways = math.prod(sizes[a] for a in axes)
         if size % ways:
             raise ValueError(f"dimension {d} of {tuple(shape)} does not "
@@ -156,6 +242,10 @@ def lm_param_specs(params: Any, mesh, fsdp: bool = True) -> Any:
 
     return tree_unflatten(params, [spec_for(path, tuple(leaf.shape))
                                    for path, leaf in leaves_with_paths(params)])
+
+
+def lm_param_shardings(params, mesh, fsdp: bool = True):
+    return named(mesh, lm_param_specs(params, mesh, fsdp))
 
 
 def lm_batch_spec(mesh) -> PartitionSpec:

@@ -683,8 +683,9 @@ def test_build_cell_refusals():
     try:
         mesh = mesh_mod.make_test_mesh(tp=2, device="cpu")
         lm = registry.get_config("smollm-360m", reduced=True)
+        moe = registry.get_config("qwen2-moe-a2.7b", reduced=True)
         with pytest.raises(NotImplementedError, match="item 9c"):
-            steps.build_cell(lm, "train_4k", mesh)
+            steps.build_cell(moe, "train_4k", mesh)
         with pytest.raises(steps.SkippedCell):
             steps.build_cell(lm, "long_500k", mesh)
         cell = steps.build_cell(arch, "superstep", mesh)
@@ -744,7 +745,7 @@ def test_dry_run_of_one_rank_of_the_full_superstep():
 
 
 def test_dry_run_skips_other_families_and_fails_loudly(capsys):
-    rec = dryrun.run_cell("smollm-360m", "train_4k", False, verbose=False)
+    rec = dryrun.run_cell("gcn-cora", "full_graph_sm", False, verbose=False)
     assert rec["skip"] == dryrun.OTHER_FAMILIES
     assert "9c" in rec["skip"]
     with mock.patch.object(steps, "build_cell",

@@ -33,6 +33,7 @@ from repro.models import layers as jl
 from repro.models import transformer as jtr
 from repro.optim.adamw import AdamWState as JAdamWState
 from repro_torch.checkpoint import CheckpointManager
+from repro_torch.configs import registry
 from repro_torch.configs.base import ShapeCell
 from repro_torch.configs.smollm_360m import CONFIG
 from repro_torch.data import Prefetcher, SyntheticLM
@@ -386,8 +387,9 @@ def test_build_cell_abstract_inputs_and_other_cells():
     assert cache.k.shape == (2, 128, 32768, 1, 32)
     with pytest.raises(steps.SkippedCell):
         steps.build_cell(arch, "long_500k")
+    moe = registry.get_config("qwen2-moe-a2.7b", reduced=True)
     with pytest.raises(NotImplementedError, match="item 9c"):
-        steps.build_cell(arch, "train_4k", mesh=object())
+        steps.build_cell(moe, "train_4k", mesh=object())
     euler = dataclasses.replace(arch, family="euler")
     with pytest.raises(ValueError, match="mesh"):
         steps.build_cell(euler, "train_4k")
